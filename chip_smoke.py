@@ -25,6 +25,38 @@ Phases, each printed as one JSON line:
    (``torch.profiler``), and the device's idle share.
 6. reference: the same model with dense attention on two of the pairs;
    the ITM logits must agree within 4 bf16 spacings.
+7. kernel_dropout: the forward kernel with attention dropout 0.1 against
+   the plain version with the same seed at the check lengths (the o / lse
+   bounds of phase 3) and at the pretraining micro-batch (B=64, S=256),
+   rate 0 bit-identical to the call without dropout at both, and the
+   kernel's time at rate 0.1 against rate 0, at both shapes below.
+8. kernel_bwd: the two backward kernels against the plain backward at
+   the flagship attention shape (B=32, S=4096, lengths ~ U[2048, 4096])
+   and at the pretraining micro-batch (B=64, S=256, lengths ~ U[204,
+   256]), each with dropout 0 and 0.1: max abs and relative errors of
+   dq, dk, dv (bound: GRAD_REL_BOUND x the plain value's max) and dRel
+   (DREL_REL_BOUND x its max, and DREL_ROW_BOUND x each id's own norm),
+   each kernel's device time (profiler), the whole backward's time (CUDA
+   events), the plain backward's, the bound, and the backward of
+   ``scaled_dot_product_attention`` handed the materialised bias (its
+   forward+backward time minus its forward time; a yardstick that
+   computes no dRel and skips no padding, never called by the port).
+9. train: the WIT pretraining experiment (configs/exp_yamls/pretrain/wit/
+   mlm_itm_2d.yaml, built in Python: BERT-base geometry, 2D relative ids,
+   S=256, MLM + ITM with the MPP head at 512 classes, dropout 0.1 hidden
+   and attention, bf16 compute, AdamW with warmup and decay, global batch
+   4096 as 64 micro-batches of 64) takes 3 optimizer steps through
+   ``train.loop.run_training`` on seeded synthetic batches made on the
+   card; every step's losses and accuracies must be finite and the
+   forward / backward kernels must launch exactly 12 times per
+   micro-batch each.
+10. train_profile: device time by kernel group over one micro-batch's
+   forward + backward, and the device's idle share.
+11. train_reference: the gradients of every parameter tensor on a 2-example
+   micro-batch, kernels against the same model with dense attention
+   (autograd through the plain version), with attention dropout 0.1 at
+   the same seeds and hidden dropout 0: relative Frobenius error within
+   TRAIN_GRAD_BOUND.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises, so the exit code is not 0 and no result is
@@ -59,6 +91,27 @@ CHECK_LENGTHS = [4096, 3001, 1000, 257]
 O_BOUND, LSE_BOUND = 2e-2, 1e-3
 N_IMAGES = N_TEXTS = 8
 NUM_PATCHES, PATCH_DIM = 196, 768
+DROPOUT = 0.1
+# Backward kernels against the plain backward: max |err| <= this x max
+# |plain| for dq, dk and dv.  The kernels round p * keep and dS to bf16 for
+# their products (2**-9 relative per term) and write bf16 (one more
+# rounding).
+GRAD_REL_BOUND = 2e-2
+# dRel stays fp32 from dS on (fp32 dSV adds and FMAs, atomics in a
+# run-dependent order); it differs from the plain version by the fast
+# exponential and the sum order, a few 1e-6 of its max.  Held to
+# DREL_REL_BOUND x max |plain| over the tensor, and each (id, head) row to
+# DREL_ROW_BOUND x that row's own norm, so that a dropped or doubled run
+# of a rare id (an image corner, a part id) fails too; rows that are 0 in
+# the plain version (ids no pair has) must be 0.
+DREL_REL_BOUND, DREL_ROW_BOUND = 1e-4, 1e-3
+# Pretraining micro-batch (configs/exp_yamls/pretrain/wit/mlm_itm_2d.yaml).
+TRAIN_SEQ, TRAIN_MICRO, TRAIN_GLOBAL, TRAIN_STEPS = 256, 64, 4096, 3
+TRAIN_MIN_LEN = 204  # 2 + 196 image slots + at least 6 text tokens
+# Kernels vs dense attention, per parameter tensor of the full-width bf16
+# model: ||g - g_ref|| <= TRAIN_GRAD_BOUND * ||g_ref||.  The two paths
+# round p to bf16 at other places and run 12 bf16 layers of backward.
+TRAIN_GRAD_BOUND = 5e-2
 
 _lines = []
 
@@ -109,11 +162,11 @@ def phase_build() -> None:
           "ptxas": usage})
 
 
-def attention_inputs(lengths, seed):
+def attention_inputs(lengths, seed, seq_len=SEQ_LEN):
     from mmt_tpu_torch.ops.fused_attention import RelGeometry
 
     rng = np.random.default_rng(seed)
-    shape = (len(lengths), SEQ_LEN, HEADS, HEAD_DIM)
+    shape = (len(lengths), seq_len, HEADS, HEAD_DIM)
     dev = torch.device("cuda")
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev, torch.bfloat16)
                for _ in range(3))
@@ -122,14 +175,14 @@ def attention_inputs(lengths, seed):
     return q, k, v, table, geo, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
 
-def kernel_errors(args):
+def kernel_errors(args, rate=0.0, seed=None):
     """Max abs error of o and lse, kernel vs plain, on real rows."""
     from mmt_tpu_torch.ops import fused_attention as fa
 
     lengths = args[-1].tolist()
-    o, lse = fa.relative_attention_forward(*args)
+    o, lse = fa.relative_attention_forward(*args, "cuda", rate, seed)
     torch.cuda.synchronize()
-    o_ref, lse_ref = fa.relative_attention_plain(*args)
+    o_ref, lse_ref = fa.relative_attention_plain(*args, rate, seed)
     err_o = err_lse = 0.0
     for b, n in enumerate(lengths):
         err_o = max(err_o, (o[b, :n].float() - o_ref[b, :n].float()).abs().max().item())
@@ -139,25 +192,31 @@ def kernel_errors(args):
     return err_o, err_lse
 
 
+def materialised_bias(q, table, geo, lengths):
+    """[B, H, S, S] relative bias plus length mask, scaled, in q.dtype: what
+    the kernels compute in place, handed to the library yardstick."""
+    from mmt_tpu_torch.ops.fused_attention import NEG_INF, relative_att_ids
+
+    seq = q.shape[1]
+    ids = torch.from_numpy(relative_att_ids(geo, seq)).to(q.device).long()
+    valid = ids < table.shape[0]
+    scale = 1.0 / math.sqrt(HEAD_DIM)
+    masks = []
+    for b in range(q.shape[0]):  # per example, to bound the fp32 temporaries
+        qr = torch.einsum("qhd,vhd->hqv", q[b].float(), table.to(q.dtype).float())
+        bias = torch.gather(qr, -1, torch.where(valid, ids, 0).expand(HEADS, -1, -1))
+        bias = torch.where(valid, bias, 0.0) * scale
+        real = torch.arange(seq, device=q.device) < lengths[b]
+        bias = bias + (real[:, None] != real[None, :]).float() * NEG_INF
+        masks.append(bias.to(q.dtype))
+    return torch.stack(masks)
+
+
 def sdpa_with_bias(q, k, v, table, geo, lengths):
     """One ``scaled_dot_product_attention`` call given the relative bias
     and the length mask materialised as a float mask (bf16)."""
-    from mmt_tpu_torch.ops.fused_attention import NEG_INF, relative_att_ids
-
-    ids = torch.from_numpy(relative_att_ids(geo, SEQ_LEN)).to(q.device).long()
-    valid = ids < table.shape[0]
-    scale = 1.0 / math.sqrt(HEAD_DIM)
-    qt = q.transpose(1, 2)
-    masks = []
-    for b in range(q.shape[0]):  # per example, to bound the fp32 temporaries
-        qr = torch.einsum("hqd,vhd->hqv", qt[b].float(), table.to(q.dtype).float())
-        bias = torch.gather(qr, -1, torch.where(valid, ids, 0).expand(HEADS, -1, -1))
-        bias = torch.where(valid, bias, 0.0) * scale
-        real = torch.arange(SEQ_LEN, device=q.device) < lengths[b]
-        bias = bias + (real[:, None] != real[None, :]).float() * NEG_INF
-        masks.append(bias.to(q.dtype))
-    mask = torch.stack(masks)
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    mask = materialised_bias(q, table, geo, lengths)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     return lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
 
@@ -318,6 +377,33 @@ def device_intervals(prof):
             if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
+def trace_summary(prof, wall_ms, groups):
+    """Device busy time (union of kernel intervals), idle share of
+    ``wall_ms``, device ms per group (``groups``: name -> substrings of the
+    kernel name, lowercased; the rest is "other") and the top kernels."""
+    intervals = sorted(device_intervals(prof), key=lambda x: x[1])
+    if not intervals:
+        raise AssertionError("the profiler recorded no device activity")
+    busy_us, covered_to, by_name = 0.0, -math.inf, {}
+    for name, start, end in intervals:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
+        if end > covered_to:
+            busy_us += end - max(start, covered_to)
+            covered_to = end
+    by_group = {g: 0.0 for g in [*groups, "other"]}
+    for name, ms in by_name.items():
+        group = next((g for g, tags in groups.items()
+                      if any(tag in name.lower() for tag in tags)), "other")
+        by_group[group] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1 - busy_us / 1e3 / wall_ms, "device_ms_by_group": by_group,
+            "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
+
+
+CUBLAS_TAGS = ("gemm", "xmma", "cutlass", "nvjet", "sm90")
+
+
 def phase_profile(model, batch) -> None:
     """Device time by kernel for one forward of the main path's batch, and
     the share of the forward's wall time in which the card ran nothing."""
@@ -333,28 +419,417 @@ def phase_profile(model, batch) -> None:
             model(**inputs)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    intervals = sorted(device_intervals(prof), key=lambda x: x[1])
-    if not intervals:
-        raise AssertionError("the profiler recorded no device activity")
-    busy_us, covered_to = 0.0, -math.inf  # union of the intervals
-    by_name = {}
-    for name, start, end in intervals:
-        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
-        if end > covered_to:
-            busy_us += end - max(start, covered_to)
-            covered_to = end
-    groups = {"rel_attention_fwd": 0.0, "matmul": 0.0, "other": 0.0}
-    for name, ms in by_name.items():
-        if "rel_attention_fwd" in name:
-            groups["rel_attention_fwd"] += ms
-        elif any(tag in name.lower() for tag in ("gemm", "xmma", "cutlass", "nvjet", "sm90")):
-            groups["matmul"] += ms
-        else:
-            groups["other"] += ms
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-          "idle_share": 1 - busy_us / 1e3 / wall_ms, "device_ms_by_group": groups,
-          "top_kernels_ms": [[name[:80], ms] for name, ms in top]})
+    emit({"phase": "profile", **trace_summary(
+        prof, wall_ms, {"rel_attention_fwd": ("rel_attention_fwd",), "matmul": CUBLAS_TAGS})})
+
+
+def train_attention_inputs(seed, batch=TRAIN_MICRO):
+    """q, k, v, table, geometry, lengths at the pretraining micro-batch shape."""
+    lengths = np.random.default_rng(seed).integers(TRAIN_MIN_LEN, TRAIN_SEQ + 1, batch)
+    return attention_inputs(lengths.tolist(), seed + 1, TRAIN_SEQ)
+
+
+def phase_kernel_dropout():
+    """The forward kernel with dropout against the plain version, and its
+    time at rate 0.1 against rate 0."""
+    from mmt_tpu_torch.ops import fused_attention as fa
+
+    seed = 20260
+    err_o = err_lse = 0.0
+    for case in (attention_inputs(CHECK_LENGTHS, seed=1), train_attention_inputs(seed=4)):
+        e_o, e_lse = kernel_errors(case, DROPOUT, seed)
+        err_o, err_lse = max(err_o, e_o), max(err_lse, e_lse)
+        o0, lse0 = fa.relative_attention_forward(*case)
+        o0s, lse0s = fa.relative_attention_forward(*case, "cuda", 0.0, seed)
+        _, lse1 = fa.relative_attention_forward(*case, "cuda", DROPOUT, seed)
+        if not (torch.equal(o0, o0s) and torch.equal(lse0, lse0s)):
+            raise AssertionError("rate 0 differs from the kernel without dropout")
+        if not torch.equal(lse1, lse0):
+            raise AssertionError("dropout changed lse")
+    if not (err_o <= O_BOUND and err_lse <= LSE_BOUND):
+        raise AssertionError(f"dropout kernel disagrees with plain: o {err_o} lse {err_lse}")
+    times = {}
+    rng = np.random.default_rng(2)
+    flagship = attention_inputs(rng.integers(SEQ_LEN // 2, SEQ_LEN + 1, BATCH).tolist(), seed=3)
+    for shape_name, case in (("flagship", flagship), ("train", train_attention_inputs(seed=5))):
+        iters = 10 if shape_name == "flagship" else 50
+        for rate in (0.0, DROPOUT, DROPOUT, 0.0):  # in turns
+            ms = cuda_ms(lambda: fa.relative_attention_forward(*case, "cuda", rate, seed), iters)
+            times.setdefault(f"{shape_name}_rate_{rate}", []).append(ms)
+    emit({"phase": "kernel_dropout", "rate": DROPOUT, "max_abs_err_o": err_o, "o_bound": O_BOUND,
+          "max_abs_err_lse": err_lse, "lse_bound": LSE_BOUND, "rate0_bit_identical": True,
+          "ms": times})
+    return err_o
+
+
+def backward_flops(lengths, vocab=REL_VOCAB):
+    """(dq pass, dkv pass, whole backward) FLOPs at these lengths."""
+    L = np.asarray(lengths, np.float64)
+    l2, l1 = (L**2).sum() * HEAD_DIM * HEADS, L.sum() * vocab * HEAD_DIM * HEADS
+    return 6 * l2 + 6 * l1, 8 * l2 + 2 * l1, 10 * l2 + 6 * l1
+
+
+def backward_bytes(lengths, seq_len):
+    """(dq pass, dkv pass, whole backward) bytes: each input read once (the
+    real rows of q, k, v, do, lse and delta, the table, the lengths), each
+    output written once (all rows of dq / dk / dv; dRel per example for the
+    dq pass, summed for the whole)."""
+    batch, real = len(lengths), float(np.sum(lengths))
+    row = HEADS * HEAD_DIM * 2
+    reads = 4 * real * row + 2 * real * HEADS * 4 + HEADS * 64 * HEAD_DIM * 2 + batch * 4
+    out_rows = batch * seq_len * row
+    dq = reads + out_rows + batch * HEADS * 64 * HEAD_DIM * 4
+    dkv = reads + 2 * out_rows
+    whole = reads + 3 * out_rows + REL_VOCAB * HEADS * HEAD_DIM * 4
+    return dq, dkv, whole
+
+
+def bound_ms(flops, nbytes):
+    f, b = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(f, b), "operations" if f >= b else "bytes"
+
+
+def sdpa_backward_ms(q, k, v, table, geo, lengths, iters):
+    """SDPA handed the materialised bias as a non-differentiable mask:
+    forward+backward time minus forward time."""
+    mask = materialised_bias(q, table, geo, lengths)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    do = torch.randn_like(qt)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), iters)
+
+    def fwd_bwd():
+        torch.autograd.grad(sdpa(qt, kt, vt, attn_mask=mask), (qt, kt, vt), do)
+
+    both = cuda_ms(fwd_bwd, iters)
+    return both - fwd
+
+
+def profile_kernel_ms(fn, names, iters=5):
+    """Device ms per call of each kernel whose name contains one of ``names``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {n: 0.0 for n in names}
+    for name, start, end in device_intervals(prof):
+        for n in names:
+            if n in name:
+                out[n] += (end - start) / 1e3 / iters
+    return out
+
+
+def drel_row_error(g, w):
+    """Largest ||g - w|| / ||w|| over the (id, head) rows of dRel [V, H, D];
+    raises if a row that is 0 in ``w`` is not 0 in ``g``."""
+    err, ref = (g - w).norm(dim=-1), w.norm(dim=-1)
+    zero = ref == 0
+    if torch.any(err[zero] > 0):
+        raise AssertionError("dRel rows of ids that no pair has are not 0")
+    return (err[~zero] / ref[~zero]).max().item()
+
+
+def grad_errors(got, want, lengths):
+    """Max abs and relative (to max |plain|) errors of (dq, dk, dv, drel),
+    and dRel's worst per-row error."""
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv", "drel"), got, want):
+        g, w = g.float(), w.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"non-finite {name} from the backward kernels")
+        if name != "drel":
+            for b, n in enumerate(lengths):
+                if not (torch.all(g[b, n:] == 0)):
+                    raise AssertionError(f"{name} rows past the length are not 0")
+        err = (g - w).abs().max().item()
+        out[name] = {"max_abs_err": err, "rel_err": err / max(w.abs().max().item(), 1e-30)}
+    out["drel"]["row_rel_err"] = drel_row_error(got[3].float(), want[3].float())
+    return out
+
+
+def check_grad_errors(errs, where):
+    for name, e in errs.items():
+        bound = DREL_REL_BOUND if name == "drel" else GRAD_REL_BOUND
+        if not e["rel_err"] <= bound:
+            raise AssertionError(f"{where}: {name} {e} > {bound}")
+    if not errs["drel"]["row_rel_err"] <= DREL_ROW_BOUND:
+        raise AssertionError(f"{where}: drel row {errs['drel']} > {DREL_ROW_BOUND}")
+
+
+def phase_kernel_bwd():
+    """The backward kernels against the plain backward at two shapes, with
+    and without dropout; times at both shapes."""
+    from mmt_tpu_torch.ops import fused_attention as fa
+
+    rng = np.random.default_rng(2)
+    flagship_lengths = rng.integers(SEQ_LEN // 2, SEQ_LEN + 1, BATCH).tolist()
+    shapes = {"flagship": lambda: attention_inputs(flagship_lengths, seed=3),
+              "train": lambda: train_attention_inputs(seed=5)}
+    results, worst = {}, {"dq": 0.0, "dk": 0.0, "dv": 0.0, "drel": 0.0}
+    for shape_name, make in shapes.items():
+        q, k, v, table, geo, lengths = make()
+        lens = lengths.tolist()
+        drng = np.random.default_rng(6)
+        do = torch.from_numpy(drng.standard_normal(q.shape, np.float32)).cuda().to(torch.bfloat16)
+        for rate in (0.0, DROPOUT):
+            seed = 911 if rate else None
+            o, lse = fa.relative_attention_forward(q, k, v, table, geo, lengths, "cuda", rate, seed)
+            delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float()).contiguous()
+            args = (q, k, v, do, lse, delta, table, geo, lengths)
+            got = fa.relative_attention_backward(*args, "cuda", rate, seed)
+            torch.cuda.synchronize()
+            want = fa.relative_attention_backward_plain(*args, rate, seed)
+            errs = grad_errors(got, want, lens)
+            del got, want
+            check_grad_errors(errs, f"{shape_name} rate {rate}")
+            for name, e in errs.items():
+                worst[name] = max(worst[name], e["max_abs_err"])
+            entry = {"errors": errs}
+            if rate == DROPOUT or shape_name == "flagship":
+                iters = 10 if shape_name == "flagship" else 50
+                call = lambda: fa.relative_attention_backward(*args, "cuda", rate, seed)  # noqa: E731
+                entry["ms"] = cuda_ms(call, iters)
+                entry["kernel_ms"] = profile_kernel_ms(
+                    call, ["rel_attention_bwd_dq_kernel", "rel_attention_bwd_dkv_kernel"])
+                entry["plain_ms"] = cuda_ms(
+                    lambda: fa.relative_attention_backward_plain(*args, rate, seed), 2)
+                if rate == 0.0 or shape_name == "train":
+                    entry["library_ms"] = sdpa_backward_ms(q, k, v, table, geo, lengths,
+                                                           5 if shape_name == "flagship" else 20)
+            dq_f, dkv_f, all_f = backward_flops(lens)
+            dq_b, dkv_b, all_b = backward_bytes(lens, q.shape[1])
+            entry["bound_ms"] = {"dq": bound_ms(dq_f, dq_b), "dkv": bound_ms(dkv_f, dkv_b),
+                                 "whole": bound_ms(all_f, all_b)}
+            entry["flops_whole"], entry["bytes_whole"] = all_f, all_b
+            results[f"{shape_name}_rate_{rate}"] = entry
+        del q, k, v, do, o, lse, delta, args
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_bwd", "bound_rel": GRAD_REL_BOUND, "drel_bound_rel": DREL_REL_BOUND,
+          "drel_row_bound": DREL_ROW_BOUND, "results": results})
+    train = results[f"train_rate_{DROPOUT}"]
+    entries = []
+    for short, kname, errs in (("dq", "rel_attention_bwd_dq_kernel", ("dq", "drel")),
+                                ("dkv", "rel_attention_bwd_dkv_kernel", ("dk", "dv"))):
+        bound, by = train["bound_ms"][short]
+        entries.append({
+            "name": f"rel_attention_bwd_{short}",
+            "route": "cuda",
+            "source": "mmt_tpu_torch/csrc/rel_attention_bwd.cu",
+            "replaces": ("mmt_tpu/ops/pallas_attention.py:2249 (_bwd_fused_kernel, K3) and "
+                         + ("mmt_tpu/ops/pallas_attention.py:2100 (_bwd_dq_kernel, K5)"
+                            if short == "dq" else
+                            "mmt_tpu/ops/pallas_attention.py:2182 (_bwd_dkv_kernel, K5)")),
+            "launches": None,
+            "max_abs_err": max(worst[e] for e in errs),
+            "ms": train["kernel_ms"][kname],
+            # The plain version and the library call compute the whole
+            # backward (both passes): their times are the whole backward's.
+            "plain_ms": train["plain_ms"],
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": train["library_ms"],
+        })
+    return entries
+
+
+def pretrain_experiment(attention_impl="pallas", hidden_dropout=DROPOUT,
+                        attention_dropout=DROPOUT, train_steps=TRAIN_STEPS):
+    """configs/exp_yamls/pretrain/wit/mlm_itm_2d.yaml as a Python config
+    (the card's machine has no yaml package), with dummy input (the
+    batches are made here) and a short run."""
+    from mmt_tpu_torch.configs import get_experiment_config, override
+
+    enc = {"relative_att_num_core_layers": 1, "relative_pos_max_distance": 12,
+           "relative_vocab_size": 49, "attention_impl": attention_impl,
+           "compute_dtype": "bfloat16", "hidden_dropout_prob": hidden_dropout,
+           "attention_probs_dropout_prob": attention_dropout}
+    data = {"seed": 128, "input_path": "dummy", "max_seq_len": TRAIN_SEQ, "tasks": "mlm,itm",
+            "mpp_fraction_to_mask": 0.0, "relative_att_num_core_layers": 1,
+            "is_training": True, "global_batch_size": TRAIN_GLOBAL, "use_rand_aug": True,
+            "image_data_field": "image_data", "image_key_field": "canonical_doc_id"}
+    return override(get_experiment_config("mmt/pretraining"), {
+        "task": {"model": {"encoder": {"type": "mmt", "mmt": enc},
+                           "cls_heads": [{"inner_dim": 768, "num_classes": 2, "name": "itm"}]},
+                 "train_data": data},
+        "trainer": {"checkpoint_interval": 1000, "max_to_keep": 32, "steps_per_loop": 1,
+                    "summary_interval": 1, "train_steps": train_steps,
+                    "validation_interval": 2000, "validation_steps": -1,
+                    "micro_batch_size": TRAIN_MICRO,
+                    "optimizer_config": {
+                        "polynomial": {"initial_learning_rate": 0.0005, "decay_steps": 20000},
+                        "warmup": {"warmup_steps": 2000}}},
+    })
+
+
+def synthetic_pretrain_batch(data_cfg, vocab_size, batch, gen, device="cuda"):
+    """A seeded pretraining batch made on the card: random word ids, 196
+    random patch vectors, lengths ~ U[204, 256], ~15% of the real text
+    positions masked for MLM ([MASK] = 103), no MPP targets (the
+    configuration masks no patches), ITM labels half negative."""
+    dev = torch.device(device)
+    S, n = data_cfg.max_seq_len, data_cfg.num_patches
+    m, p = data_cfg.mlm_max_selections_per_seq, data_cfg.mpp_max_selections_per_seq
+    pos = torch.arange(S, device=dev)
+    lengths = torch.randint(TRAIN_MIN_LEN, S + 1, (batch,), generator=gen, device=dev)
+    real = pos[None] < lengths[:, None]
+    text = real & (pos[None] >= 2 + n)
+    words = torch.randint(1000, vocab_size, (batch, S), generator=gen, device=dev) * real
+    select = text & (torch.rand(batch, S, generator=gen, device=dev) < 0.15)
+    order = torch.argsort((~select).int() * S + pos[None], dim=1)[:, :m]  # selected first
+    weights = torch.gather(select, 1, order).float()
+    positions = order * weights.long()
+    labels = torch.gather(words, 1, positions) * weights.long()
+    words = torch.where(select, torch.full_like(words, 103), words)
+    return {
+        "word_ids": words,
+        "segment_ids": torch.where(pos[None] < 2 + n, 0, 1).expand(batch, S).contiguous(),
+        "patch_embeddings": torch.randn(batch, n, 3 * data_cfg.patch_size**2, generator=gen,
+                                        device=dev),
+        "lengths": lengths,
+        "mlm_positions": positions, "mlm_label_ids": labels, "mlm_label_weights": weights,
+        "mpp_positions": torch.zeros(batch, p, dtype=torch.long, device=dev),
+        "mpp_label_ids": torch.zeros(batch, p, dtype=torch.long, device=dev),
+        "mpp_label_weights": torch.zeros(batch, p, device=dev),
+        "itm_label_ids": (torch.rand(batch, generator=gen, device=dev) < 0.5).long(),
+        "itm_label_weights": torch.ones(batch, device=dev),
+    }
+
+
+def phase_train():
+    """Three optimizer steps of WIT pretraining at full width through
+    ``run_training``."""
+    from mmt_tpu_torch.models import DropoutRngs
+    from mmt_tpu_torch.ops import fused_attention as fa
+    from mmt_tpu_torch.train.loop import run_training
+    from mmt_tpu_torch.train.optimizer import create_optimizer
+    from mmt_tpu_torch.train.tasks import PretrainingTask
+    from mmt_tpu_torch.train.train_state import TrainState
+
+    cfg = pretrain_experiment()
+    task = PretrainingTask(cfg.task, cfg.trainer, device="cuda", seed=0)
+    vocab = cfg.task.model.encoder.mmt.vocab_size
+    optimizer = create_optimizer(cfg.trainer.optimizer_config, cfg.trainer.train_steps, task.model)
+    state = TrainState.create(task.model, optimizer)
+    gen = torch.Generator("cuda").manual_seed(1)
+    batches = (synthetic_pretrain_batch(cfg.task.train_data, vocab, TRAIN_GLOBAL, gen)
+               for _ in iter(int, 1))
+    rngs = DropoutRngs(host=torch.Generator().manual_seed(2),
+                       device=torch.Generator("cuda").manual_seed(3))
+    micro_per_step = TRAIN_GLOBAL // TRAIN_MICRO
+    torch.cuda.synchronize()
+    fa.relative_attention_forward.launches = 0
+    fa.relative_attention_backward.launches_dq = 0
+    fa.relative_attention_backward.launches_dkv = 0
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as model_dir:
+        t0 = time.perf_counter()
+        run_training(train_step=task.make_train_step(cfg.trainer.micro_batch_size),
+                     state=state, train_iter=batches, trainer=cfg.trainer,
+                     model_dir=model_dir, rngs=rngs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        summaries = [json.loads(l) for l in
+                     Path(model_dir, "train_summaries.jsonl").read_text().splitlines()]
+    launches = {"fwd": fa.relative_attention_forward.launches,
+                "bwd_dq": fa.relative_attention_backward.launches_dq,
+                "bwd_dkv": fa.relative_attention_backward.launches_dkv}
+    layers = cfg.task.model.encoder.mmt.num_hidden_layers
+    expected = layers * micro_per_step * TRAIN_STEPS
+    if set(launches.values()) != {expected}:
+        raise AssertionError(f"launches {launches}, expected {expected} each")
+    if len(summaries) != TRAIN_STEPS or not all(
+            math.isfinite(v) for s in summaries for v in s.values()):
+        raise AssertionError(f"bad train summaries: {summaries}")
+    later = [1.0 / s["steps_per_sec"] for s in summaries[1:]]
+    ms_step = float(np.mean(later)) * 1e3
+    emit({"phase": "train", "global_batch": TRAIN_GLOBAL, "micro_batch": TRAIN_MICRO,
+          "micro_batches_per_step": micro_per_step, "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "seconds": seconds, "ms_per_step_after_first": ms_step,
+          "examples_per_s": TRAIN_GLOBAL / (ms_step / 1e3),
+          "ms_per_micro_batch": ms_step / micro_per_step,
+          "first_step_ms": 1e3 / summaries[0]["steps_per_sec"],
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "launches_per_micro_batch": layers,
+          "summaries": summaries})
+    return task, cfg, launches
+
+
+def phase_train_profile(task, cfg):
+    """Device time by kernel group over one micro-batch forward+backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmt_tpu_torch.models import DropoutRngs
+
+    gen = torch.Generator("cuda").manual_seed(4)
+    batch = synthetic_pretrain_batch(cfg.task.train_data, cfg.task.model.encoder.mmt.vocab_size,
+                                     TRAIN_MICRO, gen)
+    rngs = DropoutRngs(host=torch.Generator().manual_seed(5),
+                       device=torch.Generator("cuda").manual_seed(6))
+
+    def micro_step():
+        loss, _ = task.compute_loss(batch, rngs)
+        loss.backward()
+
+    micro_step()
+    task.model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        micro_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    task.model.zero_grad(set_to_none=True)
+    emit({"phase": "train_profile", "micro_batch": TRAIN_MICRO, **trace_summary(
+        prof, wall_ms, {"rel_attention_fwd": ("rel_attention_fwd",),
+                        "rel_attention_bwd": ("rel_attention_bwd",), "cublas": CUBLAS_TAGS})})
+
+
+def phase_train_reference():
+    """Per-tensor gradients, kernels against dense attention, on a
+    2-example micro-batch with attention dropout at the same seeds."""
+    from mmt_tpu_torch.models import DropoutRngs
+    from mmt_tpu_torch.train.tasks import PretrainingTask
+
+    grads = {}
+    for impl in ("pallas", "xla"):
+        cfg = pretrain_experiment(impl, hidden_dropout=0.0, attention_dropout=DROPOUT)
+        task = PretrainingTask(cfg.task, cfg.trainer, device="cuda", seed=7)
+        batch = synthetic_pretrain_batch(cfg.task.train_data, cfg.task.model.encoder.mmt.vocab_size,
+                                         2, torch.Generator("cuda").manual_seed(8))
+        loss, _ = task.compute_loss(batch, DropoutRngs(host=torch.Generator().manual_seed(9)))
+        loss.backward()
+        grads[impl] = {n: p.grad for n, p in task.model.named_parameters()}
+        del task
+    worst, worst_name, n_zero, errors = 0.0, "", 0, {}
+    for name, g in grads["pallas"].items():
+        ref = grads["xla"][name]
+        if g is None or ref is None:
+            raise AssertionError(f"no gradient for {name}")
+        # The key bias's exact gradient is 0 (softmax is invariant to adding
+        # q . b_k to every logit of a row): both sides give rounding noise,
+        # so it is measured against the same layer's query-bias gradient.
+        scale_name = (name[: -len("key.bias")] + "query.bias"
+                      if name.endswith("attention.key.bias") else name)
+        ref_norm = grads["xla"][scale_name].norm().item()
+        if ref_norm == 0.0:
+            n_zero += 1
+            if g.norm().item() != 0.0:
+                raise AssertionError(f"{name}: dense gradient is 0, kernel gradient is not")
+            continue
+        err = (g - ref).norm().item() / ref_norm
+        errors[name] = err
+        if err > worst:
+            worst, worst_name = err, name
+    top = sorted(errors.items(), key=lambda kv: -kv[1])[:5]
+    emit({"phase": "train_reference", "tensors": len(grads["pallas"]), "zero_tensors": n_zero,
+          "max_rel_frobenius_err": worst, "worst_tensor": worst_name, "bound": TRAIN_GRAD_BOUND,
+          "largest_errors": top})
+    if not worst <= TRAIN_GRAD_BOUND:
+        raise AssertionError(f"{worst_name}: gradient error {worst} > {TRAIN_GRAD_BOUND}")
 
 
 def main() -> int:
@@ -376,11 +851,24 @@ def main() -> int:
     entry = phase_kernel()
     model = MmtClassificationModel(flagship_config("pallas"))
     launches, batch = phase_main(model)
-    entry["launches"] = launches
     phase_profile(model, batch)
     phase_reference(model, batch)
+    del model, batch
+    torch.cuda.empty_cache()
+    entry["max_abs_err"] = max(entry["max_abs_err"], phase_kernel_dropout())
+    bwd_entries = phase_kernel_bwd()
+    task, cfg, train_launches = phase_train()
+    # The forward runs on both main paths: retrieval (phase main) and
+    # pretraining (phase train); the backward on the second.
+    entry["launches"] = launches + train_launches["fwd"]
+    bwd_entries[0]["launches"] = train_launches["bwd_dq"]
+    bwd_entries[1]["launches"] = train_launches["bwd_dkv"]
+    phase_train_profile(task, cfg)
+    del task
+    torch.cuda.empty_cache()
+    phase_train_reference()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    kernels = {"kernels": [entry]}
+    kernels = {"kernels": [entry, *bwd_entries]}
     print(json.dumps(kernels), flush=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.jsonl").write_text("\n".join(_lines + [json.dumps(kernels)]) + "\n")

@@ -7,8 +7,24 @@ from mmt_tpu_torch.configs.base import (  # noqa: F401
     parse_params_override,
     to_dict,
 )
+from mmt_tpu_torch.configs.data import MmtDataConfig, MmtPretrainDataConfig  # noqa: F401
 from mmt_tpu_torch.configs.encoder import EncoderConfig, MmtEncoderConfig  # noqa: F401
+from mmt_tpu_torch.configs.experiments import (  # noqa: F401
+    ExperimentConfig,
+    PretrainingTaskConfig,
+    RuntimeConfig,
+    TrainerConfig,
+    get_experiment_config,
+    register_experiment,
+)
 from mmt_tpu_torch.configs.model import (  # noqa: F401
     ClassificationModelConfig,
     ClsHeadConfig,
+    PretrainModelConfig,
+)
+from mmt_tpu_torch.configs.optimization import (  # noqa: F401
+    AdamWConfig,
+    OptimizationConfig,
+    PolynomialLrConfig,
+    PolynomialWarmupConfig,
 )

@@ -50,7 +50,7 @@ class MmtEncoderConfig(Config):
     compute_dtype: str = "bfloat16"
     # "xla" (dense attention) or "pallas" (fused relative-attention kernel).
     attention_impl: str = "xla"
-    # Kept for yaml compatibility; inference in the port needs no remat.
+    # Kept for yaml compatibility; the port does not rematerialise layers.
     remat: bool = False
     # Tile sizes of the JAX package's TPU kernel.  Kept for yaml
     # compatibility; the Hopper kernel picks its own tiles.

@@ -1,4 +1,4 @@
-"""Classification-model configurations (fields of ``mmt_tpu/configs/model.py``)."""
+"""Model configurations (fields of ``mmt_tpu/configs/model.py``)."""
 
 from __future__ import annotations
 
@@ -28,3 +28,16 @@ class ClassificationModelConfig(Config):
     encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
     num_classes: int = 0
     cls_heads: List[ClsHeadConfig] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class PretrainModelConfig(Config):
+    """Encoder plus MLM, MPP and classification heads."""
+
+    encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
+    mlm_activation: str = "gelu"
+    mlm_initializer: str = "glorot_uniform"
+    mpp_activation: str = "gelu"
+    mpp_initializer: str = "glorot_uniform"
+    cls_heads: List[ClsHeadConfig] = dataclasses.field(default_factory=list)
+    bind_word_embedding_table: bool = True

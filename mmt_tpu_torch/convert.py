@@ -8,13 +8,16 @@ jax or flax) and returns tensors named as the port's modules name them:
 * q/k/v DenseGeneral ``kernel[H, A, D]`` -> ``weight[A*D, H]``, ``bias[A, D]``
   -> ``bias[A*D]``; output DenseGeneral ``kernel[A, D, H]`` -> ``weight[H, A*D]``;
 * LayerNorm ``scale`` -> ``weight``;
-* ``embedding_table``, ``relative_emb_table[V, A, D]`` and
-  ``absolute_position_embeddings`` keep their layout;
+* ``embedding_table``, ``relative_emb_table[V, A, D]``,
+  ``absolute_position_embeddings``, the pretraining model's untied
+  ``mlm_embedding_table`` and the MLM/MPP heads' ``output_bias`` keep
+  their layout;
 * ``transformer/layer_<i>`` -> ``transformer.layers.<i>``,
   ``cls_head_<name>`` -> ``cls_heads.<name>``.
 
 A leaf that no rule consumes raises.  Given ``model``, the result must
 name exactly the model's parameters with their shapes, or this raises.
+``flax_paths(model)`` is the inverse map: each port parameter's Flax path.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import numpy as np
 import torch
 from torch import nn
 
-_TABLES = ("embedding_table", "relative_emb_table", "absolute_position_embeddings")
+_TABLES = ("embedding_table", "relative_emb_table", "absolute_position_embeddings",
+           "mlm_embedding_table", "output_bias")
 _QKV = ("query", "key", "value")
 
 
@@ -100,3 +104,32 @@ def params_from_flax(tree: Mapping, model: Optional[nn.Module] = None) -> Dict[s
                 raise ValueError(
                     f"{name}: converted shape {tuple(state[name].shape)} != {tuple(shape)}")
     return state
+
+
+def _flax_module_path(names) -> list:
+    parts, it = [], iter(names)
+    for name in it:
+        if name in ("layers", "cls_heads"):
+            child = next(it)
+            parts.append(f"layer_{child}" if name == "layers" else f"cls_head_{child}")
+        else:
+            parts.append(name)
+    return parts
+
+
+def flax_paths(model: nn.Module) -> Dict[str, str]:
+    """Port parameter name -> the ``/``-joined Flax path that
+    ``params_from_flax`` maps to it (without the ``params`` root):
+    LayerNorm ``weight`` -> ``scale``, Linear ``weight`` -> ``kernel``."""
+    out = {}
+    for module_name, module in model.named_modules():
+        for leaf, _ in module.named_parameters(recurse=False):
+            flax_leaf = leaf
+            if leaf == "weight" and isinstance(module, nn.LayerNorm):
+                flax_leaf = "scale"
+            elif leaf == "weight" and isinstance(module, nn.Linear):
+                flax_leaf = "kernel"
+            parts = module_name.split(".") if module_name else []
+            name = ".".join(parts + [leaf])
+            out[name] = "/".join(_flax_module_path(parts) + [flax_leaf])
+    return out

@@ -15,6 +15,11 @@
 //   s[i, j] += -10000 where (i < L_b) != (j < L_b)
 //   o_i = softmax_j(s[i, :]) . v   (p rounded to bf16 before p.v, as the
 //   TPU kernel does), lse_i = log sum_j exp(s[i, j]).
+// Attention dropout (K1's in-kernel dropout, pallas_attention.py:1740-1751)
+// multiplies p in fp32 by the keep factor of the hash (dropout_keep in
+// rel_attention_common.cuh) after p has entered the row sum l and before
+// the bf16 rounding for p.v, so lse is unchanged by dropout.  The dropout is
+// a template argument: at rate 0 the kernel is the one without dropout.
 // Only key tiles with k0 < L_b run (the TPU kernel's exact pad-tile skip);
 // a query tile with q0 >= L_b writes o = 0 and lse = -inf.  id(i, j) is the
 // closed form of mmt_tpu_torch/features/relative_position.py: 2D patch ids
@@ -45,130 +50,24 @@
 // bias into the row statistics, as the TPU split schedule does), and __expf
 // on every element instead of exp2 with a folded log2(e) scale.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "rel_attention_common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block (4 warps x 16 rows)
-constexpr int kBK = 64;        // keys per tile
-constexpr int kVP = 64;        // relative-vocab columns of qr (V <= 64, padded)
-constexpr int kThreads = 128;
-constexpr int kPad = 8;        // bf16 row padding of shared tiles (bank spread)
-constexpr float kMaskBias = -10000.0f;
+using namespace mmt;
 
-struct Geometry {
-  int image_len;          // P^2 for the 2D scheme, 0 for 1D ids only
-  int patch_per_row;      // P
-  int core_layers;        // r
-  int text_max_distance;  // clip distance of the 1D ids
-  int image_part_id;
-  int text_part_id;
-  int vocab;              // V; ids >= V give zero bias; 0 = no bias
-};
-
-__device__ __forceinline__ int relative_id(int i, int j, const Geometry& g) {
-  if (i < g.image_len) {
-    if (j >= g.image_len) return g.text_part_id;
-    const int p = g.patch_per_row, r = g.core_layers, d = 2 * r + 1;
-    const int dy = j / p - i / p, dx = j % p - i % p;
-    const bool above = dy < -r, below = dy > r, left = dx < -r, right = dx > r;
-    const bool mid_y = !above && !below, mid_x = !left && !right;
-    if (mid_y && mid_x) {
-      const int f = (dy * d + dx) % (d * d);
-      return f < 0 ? f + d * d : f;
-    }
-    const int base = d * d;  // directions: top, top-right, right,
-    if (above && mid_x) return base + 0;  // bottom-right, bottom,
-    if (above && right) return base + 1;  // bottom-left, left, top-left
-    if (mid_y && right) return base + 2;
-    if (below && right) return base + 3;
-    if (below && mid_x) return base + 4;
-    if (below && left) return base + 5;
-    if (mid_y && left) return base + 6;
-    return base + 7;
-  }
-  if (j < g.image_len) return g.image_part_id;
-  const int off = j - i;
-  const int a = min(abs(off), g.text_max_distance);
-  return off >= 0 ? a : g.text_max_distance + a;
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [0, 64) of a [rows, D] tile into shared memory (row stride D + kPad);
-// rows >= rows_valid are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int rows_valid, size_t row_stride) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid) val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
-  }
-}
-
-// The same tile stored transposed: dst[c][r] (row stride kBK + kPad).
-template <int D>
-__device__ __forceinline__ void load_tile_transposed(__nv_bfloat16* dst,
-                                                     const __nv_bfloat16* src,
-                                                     int rows_valid, size_t row_stride) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < kBK * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid) val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) dst[(c + u) * (kBK + kPad) + r] = e[u];
-  }
-}
-
-// acc[n] = A . B^T for this warp's 16 rows: A in registers (16 x D), B a
-// [64, D] shared tile whose rows are the 64 output columns.
-template <int D>
-__device__ __forceinline__ void matmul_abt(float (&acc)[8][4], uint32_t (&a)[D / 16][4],
-                                           const __nv_bfloat16* b_tile, int g, int t) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const __nv_bfloat16* p = b_tile + (n * 8 + g) * (D + kPad) + kk * 16 + t * 2;
-      mma_16816(acc[n], a[kk], *reinterpret_cast<const uint32_t*>(p),
-                *reinterpret_cast<const uint32_t*>(p + 8));
-    }
-  }
-}
-
-template <int D>
+template <int D, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 rel_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ rel,
                          const int* __restrict__ lengths, __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse, int S, int H, Geometry geo, float scale) {
+                         float* __restrict__ lse, int S, int H, Geometry geo, float scale,
+                         Dropout dr) {
   constexpr int LD = D + kPad;
-  constexpr int LDV = kBK + kPad;
   constexpr int LDR = kVP + 1;
   __shared__ __align__(16) __nv_bfloat16 s_q[kBQ * LD];
   __shared__ __align__(16) __nv_bfloat16 s_k[kBK * LD];  // R_h first, then K tiles
-  __shared__ __align__(16) __nv_bfloat16 s_vt[D * LDV];
+  __shared__ __align__(16) __nv_bfloat16 s_vt[D * (kBK + kPad)];
   __shared__ float s_qr[kBQ * LDR];
 
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
@@ -198,14 +97,7 @@ rel_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 
   const int r_lo = warp * 16 + g;  // this lane's rows: r_lo and r_lo + 8
   uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* p = s_q + r_lo * LD + kk * 16 + t * 2;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
-  }
+  load_a_fragments<D>(qa, s_q, warp * 16 + g, t);
 
   float acc[8][4];
   if (has_rel) {  // qr = q_tile . R_h^T, read back only by this warp
@@ -219,6 +111,7 @@ rel_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
       s_qr[(r_lo + 8) * LDR + c + 1] = acc[n][3];
     }
   }
+  const uint32_t seed_b = kDropout ? example_seed(dr, b) : 0u;
 
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
@@ -285,21 +178,19 @@ rel_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
       }
     }
 
+    if constexpr (kDropout) {  // after l has the full sum; only p.v sees the mask
 #pragma unroll
-    for (int kc = 0; kc < kBK / 16; ++kc) {
-      const uint32_t pa[4] = {
-          pack_bf16(acc[2 * kc][0], acc[2 * kc][1]),
-          pack_bf16(acc[2 * kc][2], acc[2 * kc][3]),
-          pack_bf16(acc[2 * kc + 1][0], acc[2 * kc + 1][1]),
-          pack_bf16(acc[2 * kc + 1][2], acc[2 * kc + 1][3]),
-      };
+      for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const __nv_bfloat16* p = s_vt + (nd * 8 + g) * LDV + kc * 16 + t * 2;
-        mma_16816(o_acc[nd], pa, *reinterpret_cast<const uint32_t*>(p),
-                  *reinterpret_cast<const uint32_t*>(p + 8));
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t i = q0 + r_lo + (e >> 1) * 8;
+          const uint32_t j = k0 + n * 8 + t * 2 + (e & 1);
+          acc[n][e] *= dropout_keep(dr, seed_b, h, i, j);
+        }
       }
     }
+
+    matmul_pb<D>(o_acc, acc, s_vt, g, t);
   }
 
 #pragma unroll
@@ -317,20 +208,36 @@ rel_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   }
 }
 
+template <int D, bool kDropout>
+void launch(dim3 grid, cudaStream_t s, const __nv_bfloat16* q, const __nv_bfloat16* k,
+            const __nv_bfloat16* v, const __nv_bfloat16* rel, const int* lengths,
+            __nv_bfloat16* o, float* lse, int S, int H, const Geometry& geo, float scale,
+            const Dropout& dr) {
+  rel_attention_fwd_kernel<D, kDropout><<<grid, kThreads, 0, s>>>(q, k, v, rel, lengths, o, lse,
+                                                                   S, H, geo, scale, dr);
+}
+
 }  // namespace
 
 // q, k, v, o: bf16 [B, S, H, D] contiguous; rel: bf16 [H, 64, D] contiguous
 // (rows >= V zero) or null; lengths: int32 [B]; lse: fp32 [B, H, S].
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// dropout_threshold = round(rate * 2^24) (0: no dropout), keep_scale =
+// float32(1 / (1 - rate)), seed: the call's int32 seed, batch_start: global
+// index of example 0.  Launches on `stream`, allocates nothing, returns
+// cudaGetLastError().
 extern "C" int mmt_rel_attention_fwd(const void* q, const void* k, const void* v, const void* rel,
                                      const void* lengths, void* o, void* lse, int batch,
                                      int seq_len, int num_heads, int head_dim, int vocab,
                                      int image_len, int patch_per_row, int core_layers,
                                      int text_max_distance, int image_part_id, int text_part_id,
-                                     float scale, void* stream) {
-  if (vocab < 0 || vocab > kVP) return static_cast<int>(cudaErrorInvalidValue);
+                                     float scale, int dropout_threshold, float keep_scale,
+                                     int seed, int batch_start, void* stream) {
+  if (vocab < 0 || vocab > kVP || dropout_threshold < 0 || dropout_threshold > (1 << 24))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Geometry geo{image_len,         patch_per_row, core_layers, text_max_distance,
                      image_part_id,     text_part_id,  rel ? vocab : 0};
+  const Dropout dr{static_cast<uint32_t>(dropout_threshold), keep_scale,
+                   static_cast<uint32_t>(seed), static_cast<uint32_t>(batch_start)};
   const dim3 grid((seq_len + kBQ - 1) / kBQ, num_heads, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -340,12 +247,13 @@ extern "C" int mmt_rel_attention_fwd(const void* q, const void* k, const void* v
   const auto* lp = static_cast<const int*>(lengths);
   auto* op = static_cast<__nv_bfloat16*>(o);
   auto* sp = static_cast<float*>(lse);
+  const bool drop = dropout_threshold > 0;
   if (head_dim == 64) {
-    rel_attention_fwd_kernel<64><<<grid, kThreads, 0, s>>>(qp, kp, vp, rp, lp, op, sp, seq_len,
-                                                           num_heads, geo, scale);
+    (drop ? launch<64, true> : launch<64, false>)(grid, s, qp, kp, vp, rp, lp, op, sp, seq_len,
+                                                  num_heads, geo, scale, dr);
   } else if (head_dim == 32) {
-    rel_attention_fwd_kernel<32><<<grid, kThreads, 0, s>>>(qp, kp, vp, rp, lp, op, sp, seq_len,
-                                                           num_heads, geo, scale);
+    (drop ? launch<32, true> : launch<32, false>)(grid, s, qp, kp, vp, rp, lp, op, sp, seq_len,
+                                                  num_heads, geo, scale, dr);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,6 +5,7 @@ Torch counterpart of ``mmt_tpu/models/classification_model.py``: returns
 on ``device`` (default ``"cuda"``, which raises when no GPU is present)
 with parameters drawn from a numpy ``seed``; load converted Flax
 parameters with ``convert.params_from_flax`` + ``load_state_dict``.
+Dropout runs in ``train()`` mode from ``rngs`` (see ``DropoutRngs``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from torch import nn
 
 from mmt_tpu_torch.configs.model import ClassificationModelConfig
 from mmt_tpu_torch.device import resolve_device
-from mmt_tpu_torch.models.common import init_params
+from mmt_tpu_torch.models.common import DropoutRngs, init_params
 from mmt_tpu_torch.models.encoder import MmtEncoder
 from mmt_tpu_torch.models.heads import ClassificationHead
 
@@ -37,10 +38,12 @@ class MmtClassificationModel(nn.Module):
         self.cls_heads = nn.ModuleDict({
             str(h.name): ClassificationHead(
                 encoder_cfg.hidden_size, h.inner_dim, h.num_classes, h.activation,
-                h.cls_token_idx, dtype=self.encoder.dtype, device=dev)
+                h.cls_token_idx, dtype=self.encoder.dtype, dropout_rate=h.dropout_rate,
+                device=dev)
             for h in config.cls_heads
         })
         init_params(self, seed, encoder_cfg.initializer_range)
+        self.eval()  # dropout off until train(), as JAX's deterministic=True default
 
     @property
     def device(self) -> torch.device:
@@ -52,8 +55,9 @@ class MmtClassificationModel(nn.Module):
         segment_ids: Optional[torch.Tensor] = None,
         patch_embeddings: Optional[torch.Tensor] = None,
         lengths: Optional[torch.Tensor] = None,
+        rngs: Optional[DropoutRngs] = None,
     ) -> Dict[str, torch.Tensor]:
-        outputs = self.encoder(word_ids, segment_ids, patch_embeddings, lengths)
+        outputs = self.encoder(word_ids, segment_ids, patch_embeddings, lengths, rngs)
         for name, head in self.cls_heads.items():
-            outputs[f"{name}_logits"] = head(outputs["sequence_output"])
+            outputs[f"{name}_logits"] = head(outputs["sequence_output"], rngs)
         return outputs

@@ -9,16 +9,48 @@
   normal for kernels and tables, zeros for biases, ones for LayerNorm
   scales; drawn from a numpy seed, so one seed gives one model on any
   device.
+* Dropout (``DropoutRngs``) is active in ``model.train()`` and off in
+  ``model.eval()``, standing in for Flax's ``deterministic`` flag; the
+  models start in ``eval()``, as ``deterministic`` defaults to True.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+@dataclasses.dataclass
+class DropoutRngs:
+    """Random streams of a training call (Flax's ``rngs={"dropout": ...}``).
+
+    ``host`` is a CPU generator: the attention-dropout seeds (one int32 per
+    layer per call) are drawn from it on the host, so drawing one never
+    waits for the card.  ``device`` is a generator on the model's device:
+    the hidden-dropout masks are drawn from it.  A stream left None draws
+    from torch's default generator of that device.
+    """
+
+    host: Optional[torch.Generator] = None
+    device: Optional[torch.Generator] = None
+
+    def seed(self) -> int:
+        """An int32 seed for the in-kernel attention dropout."""
+        return int(torch.randint(-(1 << 31), 1 << 31, (), generator=self.host))
+
+    def dropout(self, x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+        """Flax ``nn.Dropout``: zero each element with probability ``rate``
+        and divide the kept ones by ``1 - rate``; the identity when not
+        training or at rate 0."""
+        if not training or rate == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.device, device=x.device) >= rate
+        return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -62,18 +94,35 @@ def _truncated_normal(rng: np.random.Generator, shape, stddev: float) -> np.ndar
     return (x * np.float32(stddev / 0.87962566103423978)).reshape(shape)
 
 
+def _glorot_uniform(rng: np.random.Generator, shape) -> np.ndarray:
+    """Flax ``glorot_uniform`` for a torch ``[out, in]`` weight."""
+    fan_out, fan_in = shape
+    limit = np.sqrt(6.0 / (fan_in + fan_out))
+    return rng.uniform(-limit, limit, shape).astype(np.float32)
+
+
 @torch.no_grad()
 def init_params(module: nn.Module, seed: int, stddev: float) -> None:
-    """Fills every parameter of ``module`` from a numpy seed."""
+    """Fills every parameter of ``module`` from a numpy seed.
+
+    Linear layers whose module sets ``glorot_init = True`` (the MLM and
+    MPP transforms) take Flax's ``glorot_uniform``.
+    """
     rng = np.random.default_rng(seed)
     layer_norm_params = {
         id(p) for m in module.modules() if isinstance(m, nn.LayerNorm)
         for p in m.parameters()
+    }
+    glorot_params = {
+        id(m.weight) for m in module.modules()
+        if isinstance(m, nn.Linear) and getattr(m, "glorot_init", False)
     }
     for name, p in module.named_parameters():
         if id(p) in layer_norm_params:
             p.fill_(1.0 if name.endswith("weight") else 0.0)
         elif name.endswith("bias"):
             p.zero_()
+        elif id(p) in glorot_params:
+            p.copy_(torch.from_numpy(_glorot_uniform(rng, tuple(p.shape))))
         else:
             p.copy_(torch.from_numpy(_truncated_normal(rng, tuple(p.shape), stddev)))

@@ -11,6 +11,10 @@ Torch counterpart of ``mmt_tpu/models/encoder.py``, with its semantics:
   misalignment, kept.
 * ``segment_ids=None`` defaults to all ones; ``lengths=None`` means every
   position is real.
+* Dropout in ``train()`` mode: on the layer-normed word embeddings (the
+  JAX encoder's ``embedding_dropout``, before the segment, position and
+  patch embeddings are added), and inside every layer (see
+  ``relative_attention``), from the streams of ``DropoutRngs``.
 * The pooler output, when enabled, is returned as ``"pooled_output"``.
 
 The attention id map and padding mask are derived from the static
@@ -30,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmt_tpu_torch.configs.encoder import MmtEncoderConfig
-from mmt_tpu_torch.models.common import dense, layer_norm
+from mmt_tpu_torch.models.common import DropoutRngs, dense, layer_norm
 from mmt_tpu_torch.models.embeddings import EmbeddingLookup
 from mmt_tpu_torch.models.relative_attention import RelativeTransformerLayers
 from mmt_tpu_torch.ops.fused_attention import RelGeometry
@@ -98,6 +102,8 @@ class MmtEncoder(nn.Module):
             dtype=self.dtype,
             use_pre_activation_order=cfg.use_pre_activation_order,
             attention_impl=cfg.attention_impl,
+            hidden_dropout=cfg.hidden_dropout_prob,
+            attention_dropout=cfg.attention_probs_dropout_prob,
             device=device,
         )
         self.pooler_transform = None
@@ -110,16 +116,20 @@ class MmtEncoder(nn.Module):
         segment_ids: Optional[torch.Tensor] = None,
         patch_embeddings: Optional[torch.Tensor] = None,
         lengths: Optional[torch.Tensor] = None,
+        rngs: Optional[DropoutRngs] = None,
     ) -> Dict[str, torch.Tensor]:
         """Returns ``sequence_output`` [B, S, H] (float32) and, with the
-        pooler on, ``pooled_output`` [B, H]."""
+        pooler on, ``pooled_output`` [B, H].  ``rngs`` feeds the dropout
+        in ``train()`` mode (torch's default generators when None)."""
         batch, seq_len = word_ids.shape
         if segment_ids is None:
             segment_ids = torch.ones_like(word_ids)
         if lengths is None:
             lengths = torch.full((batch,), seq_len, dtype=torch.int32, device=word_ids.device)
 
+        rngs = rngs or DropoutRngs()
         emb = layer_norm(self.word_embeddings(word_ids), self.embeddings_layer_norm)
+        emb = rngs.dropout(emb, self.config.hidden_dropout_prob, self.training)
         emb = emb + self.segment_embeddings(segment_ids)
         if self.absolute_position_embeddings is not None:
             emb = emb + self.absolute_position_embeddings[None, :seq_len]
@@ -128,7 +138,7 @@ class MmtEncoder(nn.Module):
             projected = dense(patch_embeddings, self.patch_embedding_projection, self.dtype)
             emb = emb + F.pad(projected, (0, 0, 2, seq_len - 2 - num_patches))
 
-        x = self.transformer(emb.to(self.dtype), lengths).float()
+        x = self.transformer(emb.to(self.dtype), lengths, rngs).float()
         outputs = {"sequence_output": x}
         if self.pooler_transform is not None:
             outputs["pooled_output"] = torch.tanh(

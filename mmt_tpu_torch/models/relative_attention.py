@@ -5,15 +5,23 @@ Torch counterpart of ``mmt_tpu/models/relative_attention.py``:
 * score(b,h,q,k) = (q . k  +  q . R[id(q,k), h]) / sqrt(head_dim), with
   out-of-vocabulary relative ids giving **zero** bias;
 * pairs across the length boundary get -10000;
-* post order: x = LN(x + att(x)); x = LN(x + ffn(x))
-  pre order:  x = x + att(LN(x)); x = x + ffn(LN(x));
+* post order: x = LN(x + drop(att(x))); x = LN(x + drop(ffn(x)))
+  pre order:  x = x + drop(att(LN(x))); x = x + drop(ffn(LN(x)));
 * the FFN uses the tanh-approximated GELU.
 
-``attention_impl="xla"`` runs the dense path (``relative_attention_plain``);
-``"pallas"`` runs the fused kernel (``relative_attention_forward``: the
-Hopper kernel on CUDA tensors, the plain version on CPU tensors).  Both
-derive the id map from the static geometry and the padding mask from
-``lengths``.  The port is inference only: no dropout.
+``attention_impl="xla"`` runs the dense path through autograd
+(``relative_attention_plain``); ``"pallas"`` runs the fused op
+(``relative_attention``: the Hopper forward and backward kernels on CUDA
+tensors, their plain versions on CPU tensors).  Both derive the id map
+from the static geometry and the padding mask from ``lengths``.
+
+Dropout is active in ``train()`` mode: hidden dropout on the attention and
+FFN outputs from the device stream of ``DropoutRngs``, and attention-probs
+dropout inside the attention op, from one int32 seed per layer per call
+drawn on the host.  Both attention impls apply the same hash mask
+(``fused_attention.dropout_keep``) for a given seed, so they agree in
+training too (the JAX package's dense path draws a Bernoulli mask
+instead).
 
 Parameter layout: the q/k/v projections are ``nn.Linear(hidden, A*D)``
 (Flax DenseGeneral kernel ``[hidden, A, D]``), the output projection
@@ -28,10 +36,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mmt_tpu_torch.models.common import dense, gelu, layer_norm
+from mmt_tpu_torch.models.common import DropoutRngs, dense, gelu, layer_norm
 from mmt_tpu_torch.ops.fused_attention import (
     RelGeometry,
-    relative_attention_forward,
+    relative_attention,
     relative_attention_plain,
 )
 
@@ -47,6 +55,7 @@ class RelativeAttention(nn.Module):
         geometry: Optional[RelGeometry],
         dtype: torch.dtype,
         attention_impl: str = "xla",
+        attention_dropout: float = 0.0,
         device=None,
     ):
         super().__init__()
@@ -60,6 +69,7 @@ class RelativeAttention(nn.Module):
         self.geometry = geometry
         self.dtype = dtype
         self.attention_impl = attention_impl
+        self.attention_dropout = attention_dropout
         self.query = nn.Linear(hidden_size, hidden_size, device=device)
         self.key = nn.Linear(hidden_size, hidden_size, device=device)
         self.value = nn.Linear(hidden_size, hidden_size, device=device)
@@ -69,19 +79,22 @@ class RelativeAttention(nn.Module):
                 relative_vocab_size, num_heads, self.head_dim, device=device))
         self.output = nn.Linear(hidden_size, hidden_size, device=device)
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor,
+                rngs: Optional[DropoutRngs] = None) -> torch.Tensor:
         batch, seq_len, _ = x.shape
         shape = (batch, seq_len, self.num_heads, self.head_dim)
         q = dense(x, self.query, self.dtype).view(shape)
         k = dense(x, self.key, self.dtype).view(shape)
         v = dense(x, self.value, self.dtype).view(shape)
+        rate, seed = 0.0, None
+        if self.training and self.attention_dropout > 0.0:
+            rate, seed = self.attention_dropout, (rngs or DropoutRngs()).seed()
         if self.attention_impl == "pallas":
-            ctx, _ = relative_attention_forward(
-                q, k, v, self.relative_emb_table, self.geometry, lengths,
-                device=x.device.type)
+            ctx = relative_attention(q, k, v, self.relative_emb_table, self.geometry, lengths,
+                                     rate, seed, device=x.device.type)
         else:
             ctx, _ = relative_attention_plain(
-                q, k, v, self.relative_emb_table, self.geometry, lengths)
+                q, k, v, self.relative_emb_table, self.geometry, lengths, rate, seed)
         return dense(ctx.reshape(batch, seq_len, -1), self.output, self.dtype)
 
 
@@ -96,14 +109,17 @@ class RelativeTransformerLayer(nn.Module):
         dtype: torch.dtype,
         use_pre_activation_order: bool = False,
         attention_impl: str = "xla",
+        hidden_dropout: float = 0.0,
+        attention_dropout: float = 0.0,
         device=None,
     ):
         super().__init__()
         self.dtype = dtype
         self.use_pre_activation_order = use_pre_activation_order
+        self.hidden_dropout = hidden_dropout
         self.attention = RelativeAttention(
             hidden_size, num_heads, relative_vocab_size, geometry, dtype,
-            attention_impl, device=device)
+            attention_impl, attention_dropout, device=device)
         self.attention_layer_norm = nn.LayerNorm(hidden_size, eps=1e-12, device=device)
         self.ffn_layer_norm = nn.LayerNorm(hidden_size, eps=1e-12, device=device)
         self.intermediate = nn.Linear(hidden_size, intermediate_size, device=device)
@@ -113,13 +129,19 @@ class RelativeTransformerLayer(nn.Module):
         h = gelu(dense(h, self.intermediate, self.dtype))
         return dense(h, self.ffn_output, self.dtype)
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor,
+                rngs: Optional[DropoutRngs] = None) -> torch.Tensor:
+        rngs = rngs or DropoutRngs()
+
+        def drop(h):
+            return rngs.dropout(h, self.hidden_dropout, self.training)
+
         if self.use_pre_activation_order:
-            x = x + self.attention(
-                layer_norm(x, self.attention_layer_norm).to(self.dtype), lengths)
-            return x + self._ffn(layer_norm(x, self.ffn_layer_norm).to(self.dtype))
-        x = layer_norm(x + self.attention(x, lengths), self.attention_layer_norm)
-        return layer_norm(x + self._ffn(x.to(self.dtype)), self.ffn_layer_norm)
+            x = x + drop(self.attention(
+                layer_norm(x, self.attention_layer_norm).to(self.dtype), lengths, rngs))
+            return x + drop(self._ffn(layer_norm(x, self.ffn_layer_norm).to(self.dtype)))
+        x = layer_norm(x + drop(self.attention(x, lengths, rngs)), self.attention_layer_norm)
+        return layer_norm(x + drop(self._ffn(x.to(self.dtype))), self.ffn_layer_norm)
 
 
 class RelativeTransformerLayers(nn.Module):
@@ -128,7 +150,8 @@ class RelativeTransformerLayers(nn.Module):
         self.layers = nn.ModuleList(
             RelativeTransformerLayer(**layer_kwargs) for _ in range(num_hidden_layers))
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor,
+                rngs: Optional[DropoutRngs] = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, lengths)
+            x = layer(x, lengths, rngs)
         return x

@@ -3,7 +3,8 @@
 Each ``mmt_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled on its own by ``nvcc`` for ``sm_90a`` into
 ``mmt_tpu_torch/_build/<name>-<hash>.so`` (the directory is git-ignored),
-keyed by a hash of the source and the flags, at first use.  It is loaded
+keyed by a hash of the source, the shared ``csrc/*.cuh`` headers and the
+flags, at first use.  It is loaded
 with ``ctypes``.  A failed build raises; nothing falls back.
 """
 
@@ -52,8 +53,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The build of ``name``, keyed by its source, the shared headers and the flags."""
+    parts = [(CSRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -1,14 +1,30 @@
-"""The Hopper relative-attention kernel against its plain version, on the card.
+"""The Hopper relative-attention kernels against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and skip without one.  The file imports no
 JAX, so that it runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Bounds (bf16 inputs): 2e-2 on o and 1e-3 on lse, on real rows.  Both
-versions round p to bf16 before p.v, but the kernel rounds the
-unnormalised p and divides after the product, sums in another order and
-uses the fast exponential.
+Bounds (bf16 inputs):
+
+* forward: 2e-2 on o and 1e-3 on lse, on real rows.  Both versions round
+  p to bf16 before p.v, but the kernel rounds the unnormalised p and
+  divides after the product, sums in another order and uses the fast
+  exponential.
+* backward: max |kernel - plain| <= 2e-2 * max |plain| for each of dq,
+  dk and dv.  The kernels round p * keep and dS to bf16 for the dv, dk
+  and dq products (the plain version keeps them in fp32: 2**-9 relative
+  per term), write bf16 outputs (one more rounding) and sum in another
+  order.  Rows past the length must be exactly 0 in both.
+* dRel stays fp32 from dS on and differs only by the fast exponential and
+  the order of its sums and atomics: max |kernel - plain| <= 1e-4 * max
+  |plain|, and each (id, head) row within 1e-3 of its own norm, so that a
+  lost or doubled run of a rare id fails; rows that are 0 in the plain
+  version (ids no pair has) must be 0.
+* model gradients: relative Frobenius error <= 5e-2 per parameter tensor
+  between the fused and the dense model in bf16, whose attention rounds
+  p at other places and whose backward runs through autograd (the key
+  bias, whose exact gradient is 0, against the query bias's norm).
 """
 
 import numpy as np
@@ -18,7 +34,20 @@ import torch
 from mmt_tpu_torch.ops import fused_attention as fa
 
 O_BOUND, LSE_BOUND = 2e-2, 1e-3
+GRAD_REL_BOUND = 2e-2
+DREL_REL_BOUND, DREL_ROW_BOUND = 1e-4, 1e-3
+MODEL_GRAD_BOUND = 5e-2
 FLAGSHIP = fa.RelGeometry(text_max_distance=12, num_patch_per_row=14, num_core_layers=1)
+
+CASES = [
+    (FLAGSHIP, 512, 4, 64, 49, [512, 301, 70]),
+    (FLAGSHIP, 512, 2, 32, 49, [512, 257]),
+    (FLAGSHIP, 200, 2, 64, 49, [200, 131]),  # S not a multiple of the tile
+    (fa.RelGeometry(3, 4, 1), 128, 2, 64, 33, [128, 100]),  # part ids in vocabulary
+    (fa.RelGeometry(12), 384, 2, 64, 25, [384, 200]),  # 1D ids only
+    (None, 256, 2, 64, 1, [256, 65]),  # no relative bias
+]
+CASE_IDS = ["flagship", "head_dim_32", "ragged_s", "parts_in_vocab", "1d", "no_rel"]
 
 
 @pytest.fixture
@@ -36,27 +65,89 @@ def _inputs(dev, B, S, H, D, V, lengths, seed=0):
     return q, k, v, table, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
 
-@pytest.mark.parametrize("geo,S,H,D,V,lengths", [
-    (FLAGSHIP, 512, 4, 64, 49, [512, 301, 70]),
-    (FLAGSHIP, 512, 2, 32, 49, [512, 257]),
-    (FLAGSHIP, 200, 2, 64, 49, [200, 131]),  # S not a multiple of the tile
-    (fa.RelGeometry(3, 4, 1), 128, 2, 64, 33, [128, 100]),  # part ids in vocabulary
-    (fa.RelGeometry(12), 384, 2, 64, 25, [384, 200]),  # 1D ids only
-    (None, 256, 2, 64, 1, [256, 65]),  # no relative bias
-], ids=["flagship", "head_dim_32", "ragged_s", "parts_in_vocab", "1d", "no_rel"])
-def test_kernel_matches_plain(cuda, geo, S, H, D, V, lengths):
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("geo,S,H,D,V,lengths", CASES, ids=CASE_IDS)
+def test_kernel_matches_plain(cuda, geo, S, H, D, V, lengths, rate):
     q, k, v, table, lens = _inputs(cuda, len(lengths), S, H, D, V, lengths)
+    seed = 1234 if rate else None
     before = fa.relative_attention_forward.launches
-    o, lse = fa.relative_attention_forward(q, k, v, table, geo, lens)
+    o, lse = fa.relative_attention_forward(q, k, v, table, geo, lens, "cuda", rate, seed)
     torch.cuda.synchronize()
     assert fa.relative_attention_forward.launches == before + 1
-    o_ref, lse_ref = fa.relative_attention_plain(q, k, v, table, geo, lens)
+    o_ref, lse_ref = fa.relative_attention_plain(q, k, v, table, geo, lens, rate, seed)
     for b, n in enumerate(lengths):
         assert (o[b, :n].float() - o_ref[b, :n].float()).abs().max().item() < O_BOUND
         assert (lse[b, :, :n] - lse_ref[b, :, :n]).abs().max().item() < LSE_BOUND
         first_pad_tile = -(-n // 64) * 64  # query tiles past the length
         assert torch.all(o[b, first_pad_tile:] == 0)
         assert torch.all(lse[b, :, first_pad_tile:] == float("-inf"))
+
+
+def test_rate_zero_is_the_kernel_without_dropout(cuda):
+    q, k, v, table, lens = _inputs(cuda, 2, 512, 4, 64, 49, [512, 301])
+    o, lse = fa.relative_attention_forward(q, k, v, table, FLAGSHIP, lens)
+    o0, lse0 = fa.relative_attention_forward(q, k, v, table, FLAGSHIP, lens, "cuda", 0.0, 99)
+    assert torch.equal(o, o0) and torch.equal(lse, lse0)
+    o1, lse1 = fa.relative_attention_forward(q, k, v, table, FLAGSHIP, lens, "cuda", 0.1, 99)
+    assert torch.equal(lse, lse1)  # l sums p before the dropout
+    assert not torch.equal(o, o1)
+
+
+def _backward_case(dev, geo, S, H, D, V, lengths, rate, seed=5):
+    q, k, v, table, lens = _inputs(dev, len(lengths), S, H, D, V, lengths, seed=seed)
+    drop_seed = -77 if rate else None
+    o, lse = fa.relative_attention_forward(q, k, v, table, geo, lens, "cuda", rate, drop_seed)
+    rng = np.random.default_rng(seed + 1)
+    do = torch.from_numpy(rng.standard_normal(q.shape, np.float32)).to(dev, torch.bfloat16)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float()).contiguous()
+    args = (q, k, v, do, lse, delta, table if geo is not None else None, geo, lens)
+    return args, rate, drop_seed
+
+
+def _assert_grads_close(got, want, lengths):
+    for name, g, w in zip(("dq", "dk", "dv", "drel"), got, want):
+        if w is None:
+            assert g is None
+            continue
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all(), name
+        err = (g - w).abs().max().item()
+        bound = DREL_REL_BOUND if name == "drel" else GRAD_REL_BOUND
+        assert err <= bound * w.abs().max().item(), (name, err, w.abs().max().item())
+        if name == "drel":
+            row_err, row_ref = (g - w).norm(dim=-1), w.norm(dim=-1)
+            zero = row_ref == 0
+            assert torch.all(row_err[zero] == 0), "rows of ids no pair has"
+            worst = (row_err[~zero] / row_ref[~zero]).max().item()
+            assert worst <= DREL_ROW_BOUND, ("drel row", worst)
+        else:
+            for b, n in enumerate(lengths):
+                assert torch.all(g[b, n:] == 0) and torch.all(w[b, n:] == 0), name
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("geo,S,H,D,V,lengths", CASES, ids=CASE_IDS)
+def test_backward_kernels_match_plain(cuda, geo, S, H, D, V, lengths, rate):
+    args, rate, seed = _backward_case(cuda, geo, S, H, D, V, lengths, rate)
+    before = (fa.relative_attention_backward.launches_dq,
+              fa.relative_attention_backward.launches_dkv)
+    got = fa.relative_attention_backward(*args, "cuda", rate, seed)
+    torch.cuda.synchronize()
+    assert (fa.relative_attention_backward.launches_dq,
+            fa.relative_attention_backward.launches_dkv) == (before[0] + 1, before[1] + 1)
+    want = fa.relative_attention_backward_plain(*args, rate, seed)
+    _assert_grads_close(got, want, lengths)
+
+
+def test_function_grads_reach_every_input(cuda):
+    q, k, v, table, lens = _inputs(cuda, 2, 256, 2, 64, 49, [256, 200])
+    q, k, v, table = (t.detach().requires_grad_() for t in (q, k, v, table))
+    o = fa.relative_attention(q, k, v, table, FLAGSHIP, lens, 0.1, 3)
+    o.float().square().sum().backward()
+    for t in (q, k, v, table):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        fa.relative_attention_forward(q, k, v, table, FLAGSHIP, lens)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -68,3 +159,53 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     q16 = q[..., :16].contiguous()
     with pytest.raises(ValueError):
         fa.relative_attention_forward(q16, q16, q16, table[..., :16], FLAGSHIP, lens)
+    with pytest.raises(ValueError, match="dropout_seed"):
+        fa.relative_attention_forward(q, k, v, table, FLAGSHIP, lens, "cuda", 0.1)
+
+
+def test_fused_model_grads_match_dense(cuda):
+    """The model with attention_impl="pallas" gets gradients for every
+    parameter through the kernels, and they match the same model with
+    dense attention (autograd through the plain version)."""
+    from mmt_tpu_torch.configs import (
+        ClassificationModelConfig, ClsHeadConfig, EncoderConfig, MmtEncoderConfig)
+    from mmt_tpu_torch.models import DropoutRngs, MmtClassificationModel
+
+    def model(impl):
+        enc = MmtEncoderConfig(
+            vocab_size=100, hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+            intermediate_size=256, relative_vocab_size=49, relative_att_num_core_layers=1,
+            hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.1, attention_impl=impl)
+        cfg = ClassificationModelConfig(encoder=EncoderConfig(mmt=enc), num_classes=2,
+                                        cls_heads=[ClsHeadConfig(inner_dim=128, name="itm")])
+        return MmtClassificationModel(cfg, num_patch_per_row=4, patch_dim=48, device=cuda,
+                                      seed=0).train()
+
+    rng = np.random.default_rng(0)
+    inputs = dict(
+        word_ids=torch.from_numpy(rng.integers(0, 100, (2, 128))).to(cuda),
+        patch_embeddings=torch.from_numpy(rng.standard_normal((2, 16, 48), np.float32)).to(cuda),
+        lengths=torch.tensor([128, 90], device=cuda))
+    grads = []
+    for impl in ("pallas", "xla"):
+        m = model(impl)
+        rngs = DropoutRngs(host=torch.Generator().manual_seed(7))
+        m(**inputs, rngs=rngs)["itm_logits"].sum().backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    errors = {}
+    for name, g in grads[0].items():
+        want = grads[1][name]
+        assert g is not None and want is not None, name
+        errors[name] = (g - want).norm().item() / gradient_scale(grads[1], name)
+    assert max(errors.values()) <= MODEL_GRAD_BOUND, sorted(errors.items(), key=lambda kv: -kv[1])[:5]
+
+
+def gradient_scale(grads, name):
+    """The norm a gradient's error is measured against: its own, except
+    for the key bias, whose exact gradient is 0 (softmax is invariant to
+    adding q . b_k to every logit of a row), so that both sides give
+    rounding noise; it is measured against the same layer's query-bias
+    gradient."""
+    if name.endswith("attention.key.bias"):
+        name = name[: -len("key.bias")] + "query.bias"
+    return max(grads[name].norm().item(), 1e-12)
