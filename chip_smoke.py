@@ -57,6 +57,36 @@ Phases, each printed as one JSON line:
    (autograd through the plain version), with attention dropout 0.1 at
    the same seeds and hidden dropout 0: relative Frobenius error within
    TRAIN_GRAD_BOUND.
+12. kernel_window: the forward kernel's sliding-window variant (window
+   512, global prefix 198 = [CLS] [PATCH] and the 196 patches) at the 4k
+   pretraining micro-batch (B=8, S=4096, lengths ~ U[2048, 4096]) against
+   the plain version with the window term, at dropout 0 and 0.1 (the o /
+   lse bounds of phase 3); at window >= S bit-identical to the dense
+   kernel; its time against the plain version's, against
+   ``scaled_dot_product_attention`` handed the bias, length and window
+   masks materialised as one additive mask, and against the bound from
+   the allowed real pairs.
+13. kernel_bwd_window: both backward kernels' windowed variants at the
+   same shape and rates against the plain backward (the bounds of phase
+   8), each pass's device time, the whole backward's, the plain
+   version's, SDPA's backward with the same mask, and the bounds.
+14. train_window: the 4k sliding-window pretraining experiment
+   (configs/exp_yamls/pretrain/wit/mlm_itm_2d_long4k_window.yaml, built in
+   Python: the WIT model at S=4096 with window 512 and the image part
+   global, MLM + ITM, dropout 0.1, remat on, global batch 256 as 32
+   micro-batches of 8) takes WINDOW_STEPS optimizer steps on seeded
+   synthetic batches (lengths ~ U[2048, 4096]) made on the card; every
+   step's losses and accuracies must be finite; per micro-batch the
+   windowed forward kernel must launch exactly 24 times (12 layers, each
+   recomputed once by remat) and each windowed backward kernel 12 times,
+   the dense kernels never.  Then one micro-batch with remat off and one
+   with it on: remat must lower the peak memory.
+15. train_window_profile: device time by kernel group over one windowed
+   micro-batch (forward, recompute and backward) and the idle share.
+16. train_window_reference: per-tensor gradients of the windowed model on a
+   2-example micro-batch at S=4096, kernels against dense attention, remat
+   on, hidden and attention dropout 0.1 from the same seeds: relative
+   Frobenius error within TRAIN_GRAD_BOUND.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises, so the exit code is not 0 and no result is
@@ -112,6 +142,11 @@ TRAIN_MIN_LEN = 204  # 2 + 196 image slots + at least 6 text tokens
 # model: ||g - g_ref|| <= TRAIN_GRAD_BOUND * ||g_ref||.  The two paths
 # round p to bf16 at other places and run 12 bf16 layers of backward.
 TRAIN_GRAD_BOUND = 5e-2
+# 4k sliding-window pretraining micro-batch
+# (configs/exp_yamls/pretrain/wit/mlm_itm_2d_long4k_window.yaml).
+WINDOW_SEQ, WINDOW_MICRO, WINDOW_GLOBAL, WINDOW_STEPS = 4096, 8, 256, 3
+WINDOW, WINDOW_NUM_GLOBAL = 512, 198  # attention_num_global -1: 2 + 14**2
+WINDOW_MIN_LEN = WINDOW_SEQ // 2
 
 _lines = []
 
@@ -162,7 +197,7 @@ def phase_build() -> None:
           "ptxas": usage})
 
 
-def attention_inputs(lengths, seed, seq_len=SEQ_LEN):
+def attention_inputs(lengths, seed, seq_len=SEQ_LEN, window=0):
     from mmt_tpu_torch.ops.fused_attention import RelGeometry
 
     rng = np.random.default_rng(seed)
@@ -171,7 +206,8 @@ def attention_inputs(lengths, seed, seq_len=SEQ_LEN):
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev, torch.bfloat16)
                for _ in range(3))
     table = torch.from_numpy(rng.standard_normal((REL_VOCAB, HEADS, HEAD_DIM), np.float32)).to(dev)
-    geo = RelGeometry(text_max_distance=12, num_patch_per_row=14, num_core_layers=1)
+    geo = RelGeometry(text_max_distance=12, num_patch_per_row=14, num_core_layers=1,
+                      window=window, num_global=WINDOW_NUM_GLOBAL if window else 0)
     return q, k, v, table, geo, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
 
@@ -193,21 +229,25 @@ def kernel_errors(args, rate=0.0, seed=None):
 
 
 def materialised_bias(q, table, geo, lengths):
-    """[B, H, S, S] relative bias plus length mask, scaled, in q.dtype: what
-    the kernels compute in place, handed to the library yardstick."""
-    from mmt_tpu_torch.ops.fused_attention import NEG_INF, relative_att_ids
+    """[B, H, S, S] relative bias plus length mask (and window mask, when
+    ``geo.window > 0``), scaled, in q.dtype: what the kernels compute in
+    place, handed to the library yardstick."""
+    from mmt_tpu_torch.ops.fused_attention import NEG_INF, relative_att_ids, window_allowed
 
     seq = q.shape[1]
     ids = torch.from_numpy(relative_att_ids(geo, seq)).to(q.device).long()
     valid = ids < table.shape[0]
     scale = 1.0 / math.sqrt(HEAD_DIM)
+    pos = torch.arange(seq, device=q.device)
+    window = (torch.where(window_allowed(geo, pos[:, None], pos[None, :]), 0.0, NEG_INF)
+              if geo.window > 0 else 0.0)
     masks = []
     for b in range(q.shape[0]):  # per example, to bound the fp32 temporaries
         qr = torch.einsum("qhd,vhd->hqv", q[b].float(), table.to(q.dtype).float())
         bias = torch.gather(qr, -1, torch.where(valid, ids, 0).expand(HEADS, -1, -1))
         bias = torch.where(valid, bias, 0.0) * scale
         real = torch.arange(seq, device=q.device) < lengths[b]
-        bias = bias + (real[:, None] != real[None, :]).float() * NEG_INF
+        bias = bias + (real[:, None] != real[None, :]).float() * NEG_INF + window
         masks.append(bias.to(q.dtype))
     return torch.stack(masks)
 
@@ -462,10 +502,12 @@ def phase_kernel_dropout():
     return err_o
 
 
-def backward_flops(lengths, vocab=REL_VOCAB):
-    """(dq pass, dkv pass, whole backward) FLOPs at these lengths."""
+def backward_flops(lengths, vocab=REL_VOCAB, pairs=None):
+    """(dq pass, dkv pass, whole backward) FLOPs at these lengths, over
+    ``pairs`` query-key pairs (default: every real pair, sum of L**2)."""
     L = np.asarray(lengths, np.float64)
-    l2, l1 = (L**2).sum() * HEAD_DIM * HEADS, L.sum() * vocab * HEAD_DIM * HEADS
+    pairs = (L**2).sum() if pairs is None else pairs
+    l2, l1 = pairs * HEAD_DIM * HEADS, L.sum() * vocab * HEAD_DIM * HEADS
     return 6 * l2 + 6 * l1, 8 * l2 + 2 * l1, 10 * l2 + 6 * l1
 
 
@@ -641,15 +683,30 @@ def pretrain_experiment(attention_impl="pallas", hidden_dropout=DROPOUT,
     """configs/exp_yamls/pretrain/wit/mlm_itm_2d.yaml as a Python config
     (the card's machine has no yaml package), with dummy input (the
     batches are made here) and a short run."""
+    return _wit_experiment({}, TRAIN_SEQ, TRAIN_GLOBAL, TRAIN_MICRO, attention_impl,
+                           hidden_dropout, attention_dropout, train_steps)
+
+
+def window_experiment(attention_impl="pallas"):
+    """configs/exp_yamls/pretrain/wit/mlm_itm_2d_long4k_window.yaml as a
+    Python config: mlm_itm_2d.yaml at S=4096 with the sliding window, the
+    image part global, remat, and global batch 256 in micro-batches of 8."""
+    window = {"attention_window": WINDOW, "attention_num_global": -1, "remat": True}
+    return _wit_experiment(window, WINDOW_SEQ, WINDOW_GLOBAL, WINDOW_MICRO, attention_impl,
+                           DROPOUT, DROPOUT, WINDOW_STEPS)
+
+
+def _wit_experiment(enc_extra, seq_len, global_batch, micro_batch, attention_impl,
+                    hidden_dropout, attention_dropout, train_steps):
     from mmt_tpu_torch.configs import get_experiment_config, override
 
     enc = {"relative_att_num_core_layers": 1, "relative_pos_max_distance": 12,
            "relative_vocab_size": 49, "attention_impl": attention_impl,
            "compute_dtype": "bfloat16", "hidden_dropout_prob": hidden_dropout,
-           "attention_probs_dropout_prob": attention_dropout}
-    data = {"seed": 128, "input_path": "dummy", "max_seq_len": TRAIN_SEQ, "tasks": "mlm,itm",
+           "attention_probs_dropout_prob": attention_dropout, **enc_extra}
+    data = {"seed": 128, "input_path": "dummy", "max_seq_len": seq_len, "tasks": "mlm,itm",
             "mpp_fraction_to_mask": 0.0, "relative_att_num_core_layers": 1,
-            "is_training": True, "global_batch_size": TRAIN_GLOBAL, "use_rand_aug": True,
+            "is_training": True, "global_batch_size": global_batch, "use_rand_aug": True,
             "image_data_field": "image_data", "image_key_field": "canonical_doc_id"}
     return override(get_experiment_config("mmt/pretraining"), {
         "task": {"model": {"encoder": {"type": "mmt", "mmt": enc},
@@ -658,23 +715,24 @@ def pretrain_experiment(attention_impl="pallas", hidden_dropout=DROPOUT,
         "trainer": {"checkpoint_interval": 1000, "max_to_keep": 32, "steps_per_loop": 1,
                     "summary_interval": 1, "train_steps": train_steps,
                     "validation_interval": 2000, "validation_steps": -1,
-                    "micro_batch_size": TRAIN_MICRO,
+                    "micro_batch_size": micro_batch,
                     "optimizer_config": {
                         "polynomial": {"initial_learning_rate": 0.0005, "decay_steps": 20000},
                         "warmup": {"warmup_steps": 2000}}},
     })
 
 
-def synthetic_pretrain_batch(data_cfg, vocab_size, batch, gen, device="cuda"):
+def synthetic_pretrain_batch(data_cfg, vocab_size, batch, gen, device="cuda",
+                             min_len=TRAIN_MIN_LEN):
     """A seeded pretraining batch made on the card: random word ids, 196
-    random patch vectors, lengths ~ U[204, 256], ~15% of the real text
+    random patch vectors, lengths ~ U[min_len, S], ~15% of the real text
     positions masked for MLM ([MASK] = 103), no MPP targets (the
     configuration masks no patches), ITM labels half negative."""
     dev = torch.device(device)
     S, n = data_cfg.max_seq_len, data_cfg.num_patches
     m, p = data_cfg.mlm_max_selections_per_seq, data_cfg.mpp_max_selections_per_seq
     pos = torch.arange(S, device=dev)
-    lengths = torch.randint(TRAIN_MIN_LEN, S + 1, (batch,), generator=gen, device=dev)
+    lengths = torch.randint(min_len, S + 1, (batch,), generator=gen, device=dev)
     real = pos[None] < lengths[:, None]
     text = real & (pos[None] >= 2 + n)
     words = torch.randint(1000, vocab_size, (batch, S), generator=gen, device=dev) * real
@@ -699,11 +757,28 @@ def synthetic_pretrain_batch(data_cfg, vocab_size, batch, gen, device="cuda"):
     }
 
 
+def launch_counts():
+    """Every kernel launch counter of the attention op, by name."""
+    from mmt_tpu_torch.ops import fused_attention as fa
+
+    fwd, bwd = fa.relative_attention_forward, fa.relative_attention_backward
+    return {"fwd": fwd.launches, "fwd_window": fwd.launches_window,
+            "bwd_dq": bwd.launches_dq, "bwd_dkv": bwd.launches_dkv,
+            "bwd_dq_window": bwd.launches_dq_window, "bwd_dkv_window": bwd.launches_dkv_window}
+
+
+def reset_launch_counts() -> None:
+    from mmt_tpu_torch.ops import fused_attention as fa
+
+    fwd, bwd = fa.relative_attention_forward, fa.relative_attention_backward
+    fwd.launches = fwd.launches_window = 0
+    bwd.launches_dq = bwd.launches_dkv = bwd.launches_dq_window = bwd.launches_dkv_window = 0
+
+
 def phase_train():
     """Three optimizer steps of WIT pretraining at full width through
     ``run_training``."""
     from mmt_tpu_torch.models import DropoutRngs
-    from mmt_tpu_torch.ops import fused_attention as fa
     from mmt_tpu_torch.train.loop import run_training
     from mmt_tpu_torch.train.optimizer import create_optimizer
     from mmt_tpu_torch.train.tasks import PretrainingTask
@@ -721,9 +796,7 @@ def phase_train():
                        device=torch.Generator("cuda").manual_seed(3))
     micro_per_step = TRAIN_GLOBAL // TRAIN_MICRO
     torch.cuda.synchronize()
-    fa.relative_attention_forward.launches = 0
-    fa.relative_attention_backward.launches_dq = 0
-    fa.relative_attention_backward.launches_dkv = 0
+    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as model_dir:
         t0 = time.perf_counter()
@@ -734,13 +807,12 @@ def phase_train():
         seconds = time.perf_counter() - t0
         summaries = [json.loads(l) for l in
                      Path(model_dir, "train_summaries.jsonl").read_text().splitlines()]
-    launches = {"fwd": fa.relative_attention_forward.launches,
-                "bwd_dq": fa.relative_attention_backward.launches_dq,
-                "bwd_dkv": fa.relative_attention_backward.launches_dkv}
+    counts = launch_counts()
+    launches = {k: counts[k] for k in ("fwd", "bwd_dq", "bwd_dkv")}
     layers = cfg.task.model.encoder.mmt.num_hidden_layers
     expected = layers * micro_per_step * TRAIN_STEPS
-    if set(launches.values()) != {expected}:
-        raise AssertionError(f"launches {launches}, expected {expected} each")
+    if set(launches.values()) != {expected} or any(counts[k] for k in counts if "window" in k):
+        raise AssertionError(f"launches {counts}, expected {expected} of each dense kernel")
     if len(summaries) != TRAIN_STEPS or not all(
             math.isfinite(v) for s in summaries for v in s.values()):
         raise AssertionError(f"bad train summaries: {summaries}")
@@ -832,6 +904,350 @@ def phase_train_reference():
         raise AssertionError(f"{worst_name}: gradient error {worst} > {TRAIN_GRAD_BOUND}")
 
 
+def window_attention_inputs(seed):
+    """q, k, v, table, geometry, lengths at the 4k pretraining micro-batch
+    (B=8, S=4096, lengths ~ U[2048, 4096]) with the sliding window."""
+    lengths = np.random.default_rng(seed).integers(WINDOW_MIN_LEN, WINDOW_SEQ + 1, WINDOW_MICRO)
+    return attention_inputs(lengths.tolist(), seed + 1, WINDOW_SEQ, window=WINDOW)
+
+
+def live_tile_share(lengths, window, num_global):
+    """Share of the 64 x 64 tiles below each length that hold an allowed
+    pair (the tiles the windowed kernels visit)."""
+    tile = 64
+    live = total = 0
+    for length in lengths:
+        n = -(-length // tile)
+        head = min(-(-num_global // tile), n)
+        total += n * n
+        for r0 in range(0, n * tile, tile):
+            if r0 < num_global:
+                live += n
+                continue
+            lo = max(max(r0 - window, 0) // tile, head)
+            hi = min((r0 + tile - 1 + window) // tile + 1, n)
+            live += head + max(hi - lo, 0)
+    return live / total
+
+
+def phase_kernel_window():
+    """The windowed forward against the plain version at the 4k pretraining
+    micro-batch; bit-identity with the dense kernel at window >= S; times."""
+    import dataclasses
+
+    from mmt_tpu_torch.ops import fused_attention as fa
+
+    args = window_attention_inputs(seed=30)
+    q, k, v, table, geo, lengths = args
+    lens = lengths.tolist()
+    seed = 4242
+    err_o = err_lse = 0.0
+    for rate in (0.0, DROPOUT):
+        e_o, e_lse = kernel_errors(args, rate, seed if rate else None)
+        err_o, err_lse = max(err_o, e_o), max(err_lse, e_lse)
+    if not (err_o <= O_BOUND and err_lse <= LSE_BOUND):
+        raise AssertionError(f"windowed kernel disagrees with plain: o {err_o} lse {err_lse}")
+    wide = dataclasses.replace(geo, window=WINDOW_SEQ)
+    dense = dataclasses.replace(geo, window=0, num_global=0)
+    for rate in (0.0, DROPOUT):
+        sd = seed if rate else None
+        o_w, lse_w = fa.relative_attention_forward(q, k, v, table, wide, lengths, "cuda", rate, sd)
+        o_d, lse_d = fa.relative_attention_forward(q, k, v, table, dense, lengths, "cuda", rate,
+                                                   sd)
+        if not (torch.equal(o_w, o_d) and torch.equal(lse_w, lse_d)):
+            raise AssertionError(f"window >= S differs from the dense kernel at rate {rate}")
+    del o_w, lse_w, o_d, lse_d
+
+    times = {}
+    for rate in (0.0, DROPOUT, DROPOUT, 0.0):  # in turns
+        sd = seed if rate else None
+        ms = cuda_ms(lambda: fa.relative_attention_forward(*args, "cuda", rate, sd), iters=20)
+        times.setdefault(f"rate_{rate}", []).append(ms)
+    ms = float(np.mean(times[f"rate_{DROPOUT}"]))
+    plain_ms = cuda_ms(lambda: fa.relative_attention_plain(*args, DROPOUT, seed), iters=2)
+    library = sdpa_with_bias(*args)
+    library_ms = cuda_ms(library, iters=5)
+    del library
+    torch.cuda.empty_cache()
+
+    pairs = fa.allowed_real_pairs(geo, lens)
+    L = np.asarray(lens, np.float64)
+    flops = 4 * pairs * HEAD_DIM * HEADS + 2 * L.sum() * REL_VOCAB * HEAD_DIM * HEADS
+    row_bytes = HEADS * HEAD_DIM * 2
+    nbytes = (3 * L.sum() * row_bytes + WINDOW_MICRO * WINDOW_SEQ * row_bytes
+              + WINDOW_MICRO * HEADS * WINDOW_SEQ * 4 + REL_VOCAB * HEADS * HEAD_DIM * 4
+              + WINDOW_MICRO * 4)
+    bound, by = bound_ms(flops, nbytes)
+    entry = {
+        "name": "rel_attention_fwd_window",
+        "route": "cuda",
+        "source": "mmt_tpu_torch/csrc/rel_attention_fwd.cu",
+        "replaces": "mmt_tpu/ops/pallas_attention.py:1283 (_fwd_list_kernel, K2, over the "
+                    "window list _window_tile_list :1245)",
+        "launches": None,
+        "max_abs_err": err_o,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": library_ms,
+    }
+    emit({"phase": "kernel_window", "shape": [WINDOW_MICRO, WINDOW_SEQ, HEADS, HEAD_DIM],
+          "window": WINDOW, "num_global": WINDOW_NUM_GLOBAL, "lengths": lens,
+          "allowed_real_pairs": pairs, "allowed_share": pairs / float((L**2).sum()),
+          "live_tile_share": live_tile_share(lens, WINDOW, WINDOW_NUM_GLOBAL),
+          "max_abs_err_o": err_o, "o_bound": O_BOUND, "max_abs_err_lse": err_lse,
+          "lse_bound": LSE_BOUND, "window_ge_seq_bit_identical": True, "ms_by_rate": times,
+          "flops": flops, "bytes": nbytes, "achieved_tflops": flops / ms / 1e9,
+          **{k: entry[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
+    return entry
+
+
+def phase_kernel_bwd_window():
+    """The windowed backward kernels against the plain backward at the 4k
+    pretraining micro-batch, with and without dropout; times."""
+    import dataclasses
+
+    from mmt_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, table, geo, lengths = window_attention_inputs(seed=30)
+    lens = lengths.tolist()
+    do = torch.from_numpy(np.random.default_rng(31).standard_normal(q.shape, np.float32)).cuda()
+    do = do.to(torch.bfloat16)
+    wide = dataclasses.replace(geo, window=WINDOW_SEQ)
+    dense = dataclasses.replace(geo, window=0, num_global=0)
+    pairs = fa.allowed_real_pairs(geo, lens)
+    dq_f, dkv_f, all_f = backward_flops(lens, pairs=pairs)
+    dq_b, dkv_b, all_b = backward_bytes(lens, WINDOW_SEQ)
+    bounds = {"dq": bound_ms(dq_f, dq_b), "dkv": bound_ms(dkv_f, dkv_b),
+              "whole": bound_ms(all_f, all_b)}
+    names = ["rel_attention_bwd_dq_kernel", "rel_attention_bwd_dkv_kernel"]
+    results, worst = {}, {"dq": 0.0, "dk": 0.0, "dv": 0.0, "drel": 0.0}
+    for rate in (0.0, DROPOUT):
+        seed = 911 if rate else None
+        o, lse = fa.relative_attention_forward(q, k, v, table, geo, lengths, "cuda", rate, seed)
+        delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float()).contiguous()
+        args = (q, k, v, do, lse, delta, table, geo, lengths)
+        got = fa.relative_attention_backward(*args, "cuda", rate, seed)
+        torch.cuda.synchronize()
+        want = fa.relative_attention_backward_plain(*args, rate, seed)
+        errs = grad_errors(got, want, lens)
+        del got, want
+        check_grad_errors(errs, f"window rate {rate}")
+        for name, e in errs.items():
+            worst[name] = max(worst[name], e["max_abs_err"])
+        # window >= S against the dense kernels: dk, dv bit-identical (and
+        # dq at rate 0); dRel's atomics add in a run-dependent order.
+        g_w = fa.relative_attention_backward(q, k, v, do, lse, delta, table, wide, lengths,
+                                             "cuda", rate, seed)
+        g_d = fa.relative_attention_backward(q, k, v, do, lse, delta, table, dense, lengths,
+                                             "cuda", rate, seed)
+        identical = [torch.equal(a, b) for a, b in zip(g_w[:3], g_d[:3])]
+        if not (identical[1] and identical[2] and (rate or identical[0])):
+            raise AssertionError(f"window >= S backward differs from dense: {identical}")
+        dq_rel = ((g_w[0].float() - g_d[0].float()).abs().max()
+                  / g_d[0].float().abs().max()).item()
+        if dq_rel > GRAD_REL_BOUND:
+            raise AssertionError(f"window >= S dq differs from dense by {dq_rel}")
+        del g_w, g_d
+        call = lambda: fa.relative_attention_backward(*args, "cuda", rate, seed)  # noqa: E731
+        results[f"rate_{rate}"] = {
+            "errors": errs,
+            "window_ge_seq_identical_dq_dk_dv": identical, "window_ge_seq_dq_rel_diff": dq_rel,
+            "ms": cuda_ms(call, 10),
+            "kernel_ms": profile_kernel_ms(call, names),
+            "plain_ms": cuda_ms(lambda: fa.relative_attention_backward_plain(*args, rate, seed),
+                                2),
+            "library_ms": sdpa_backward_ms(q, k, v, table, geo, lengths, 5),
+        }
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_bwd_window", "shape": [WINDOW_MICRO, WINDOW_SEQ, HEADS, HEAD_DIM],
+          "window": WINDOW, "num_global": WINDOW_NUM_GLOBAL, "allowed_real_pairs": pairs,
+          "bound_rel": GRAD_REL_BOUND, "drel_bound_rel": DREL_REL_BOUND,
+          "drel_row_bound": DREL_ROW_BOUND, "bound_ms": bounds, "flops_whole": all_f,
+          "bytes_whole": all_b, "results": results})
+    main_rate = results[f"rate_{DROPOUT}"]
+    entries = []
+    for short, kname, errs, tpu in (
+            ("dq", names[0], ("dq", "drel"),
+             "mmt_tpu/ops/pallas_attention.py:2373 (_bwd_dq_list_kernel, K6)"),
+            ("dkv", names[1], ("dk", "dv"),
+             "mmt_tpu/ops/pallas_attention.py:2454 (_bwd_dkv_list_kernel, K6)")):
+        entries.append({
+            "name": f"rel_attention_bwd_{short}_window",
+            "route": "cuda",
+            "source": "mmt_tpu_torch/csrc/rel_attention_bwd.cu",
+            "replaces": "mmt_tpu/ops/pallas_attention.py:2521 (_bwd_fused_list_kernel, K4) "
+                        "and " + tpu,
+            "launches": None,
+            "max_abs_err": max(worst[e] for e in errs),
+            "ms": main_rate["kernel_ms"][kname],
+            # The plain version and the library call compute the whole
+            # backward (both passes): their times are the whole backward's.
+            "plain_ms": main_rate["plain_ms"],
+            "bound_ms": bounds[short][0],
+            "bound_by": bounds[short][1],
+            "library_ms": main_rate["library_ms"],
+        })
+    return entries
+
+
+def window_micro_batch(cfg, batch, gen):
+    return synthetic_pretrain_batch(cfg.task.train_data, cfg.task.model.encoder.mmt.vocab_size,
+                                    batch, gen, min_len=WINDOW_MIN_LEN)
+
+
+def phase_train_window():
+    """WINDOW_STEPS optimizer steps of the 4k sliding-window pretraining
+    experiment at full width through ``run_training``; then the peak
+    memory of one micro-batch with remat off and on."""
+    from mmt_tpu_torch.models import DropoutRngs
+    from mmt_tpu_torch.train.loop import run_training
+    from mmt_tpu_torch.train.optimizer import create_optimizer
+    from mmt_tpu_torch.train.tasks import PretrainingTask
+    from mmt_tpu_torch.train.train_state import TrainState
+
+    cfg = window_experiment()
+    task = PretrainingTask(cfg.task, cfg.trainer, device="cuda", seed=0)
+    optimizer = create_optimizer(cfg.trainer.optimizer_config, cfg.trainer.train_steps, task.model)
+    state = TrainState.create(task.model, optimizer)
+    gen = torch.Generator("cuda").manual_seed(21)
+    batches = (window_micro_batch(cfg, WINDOW_GLOBAL, gen) for _ in iter(int, 1))
+    rngs = DropoutRngs(host=torch.Generator().manual_seed(22),
+                       device=torch.Generator("cuda").manual_seed(23))
+    micro_per_step = WINDOW_GLOBAL // WINDOW_MICRO
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as model_dir:
+        t0 = time.perf_counter()
+        run_training(train_step=task.make_train_step(cfg.trainer.micro_batch_size),
+                     state=state, train_iter=batches, trainer=cfg.trainer,
+                     model_dir=model_dir, rngs=rngs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        summaries = [json.loads(l) for l in
+                     Path(model_dir, "train_summaries.jsonl").read_text().splitlines()]
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layers = cfg.task.model.encoder.mmt.num_hidden_layers
+    micro_batches = micro_per_step * WINDOW_STEPS
+    expected = {"fwd": 0, "fwd_window": 2 * layers * micro_batches, "bwd_dq": 0, "bwd_dkv": 0,
+                "bwd_dq_window": layers * micro_batches, "bwd_dkv_window": layers * micro_batches}
+    if counts != expected:
+        raise AssertionError(f"launches {counts}, expected {expected}")
+    if len(summaries) != WINDOW_STEPS or not all(
+            math.isfinite(v) for s in summaries for v in s.values()):
+        raise AssertionError(f"bad train summaries: {summaries}")
+    later = [1.0 / s["steps_per_sec"] for s in summaries[1:]]
+    ms_step = float(np.mean(later)) * 1e3
+
+    # One micro-batch with remat off, then on: remat must lower the peak.
+    batch = window_micro_batch(cfg, WINDOW_MICRO, torch.Generator("cuda").manual_seed(24))
+    peaks, remat_launches = {}, {}
+    for remat in (False, True):
+        task.model.encoder.transformer.remat = remat
+        task.model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        loss, _ = task.compute_loss(batch, DropoutRngs(host=torch.Generator().manual_seed(25)))
+        loss.backward()
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        remat_launches[remat] = launch_counts()["fwd_window"]
+        del loss
+    task.model.zero_grad(set_to_none=True)
+    if not peaks[True] < peaks[False] or remat_launches != {False: layers, True: 2 * layers}:
+        raise AssertionError(f"remat: peaks {peaks} GB, forward launches {remat_launches}")
+    emit({"phase": "train_window", "global_batch": WINDOW_GLOBAL, "micro_batch": WINDOW_MICRO,
+          "micro_batches_per_step": micro_per_step, "seq_len": WINDOW_SEQ, "window": WINDOW,
+          "num_global": WINDOW_NUM_GLOBAL, "remat": True, "steps": WINDOW_STEPS,
+          "seconds": seconds, "ms_per_step_after_first": ms_step,
+          "examples_per_s": WINDOW_GLOBAL / (ms_step / 1e3),
+          "ms_per_micro_batch": ms_step / micro_per_step,
+          "first_step_ms": 1e3 / summaries[0]["steps_per_sec"], "peak_memory_gb": peak_gb,
+          "micro_batch_peak_above_state_gb": {"remat_off": peaks[False], "remat_on": peaks[True]},
+          "launches": counts, "launches_per_micro_batch": {
+              "fwd_window": 2 * layers, "bwd_dq_window": layers, "bwd_dkv_window": layers},
+          "summaries": summaries})
+    return task, cfg, counts
+
+
+def phase_train_window_profile(task, cfg):
+    """Device time by kernel group over one windowed micro-batch: forward,
+    remat's recompute and backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmt_tpu_torch.models import DropoutRngs
+
+    batch = window_micro_batch(cfg, WINDOW_MICRO, torch.Generator("cuda").manual_seed(26))
+    rngs = DropoutRngs(host=torch.Generator().manual_seed(27),
+                       device=torch.Generator("cuda").manual_seed(28))
+
+    def micro_step():
+        loss, _ = task.compute_loss(batch, rngs)
+        loss.backward()
+
+    task.model.encoder.transformer.remat = True
+    micro_step()
+    task.model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        micro_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    task.model.zero_grad(set_to_none=True)
+    emit({"phase": "train_window_profile", "micro_batch": WINDOW_MICRO, **trace_summary(
+        prof, wall_ms, {"rel_attention_fwd": ("rel_attention_fwd",),
+                        "rel_attention_bwd": ("rel_attention_bwd",), "cublas": CUBLAS_TAGS})})
+
+
+def phase_train_window_reference():
+    """Per-tensor gradients of the windowed model with remat, kernels
+    against dense attention, on a 2-example micro-batch at S=4096 with
+    hidden and attention dropout from the same seeds."""
+    from mmt_tpu_torch.models import DropoutRngs
+    from mmt_tpu_torch.train.tasks import PretrainingTask
+
+    grads = {}
+    for impl in ("pallas", "xla"):
+        cfg = window_experiment(impl)
+        task = PretrainingTask(cfg.task, cfg.trainer, device="cuda", seed=7)
+        batch = window_micro_batch(cfg, 2, torch.Generator("cuda").manual_seed(8))
+        rngs = DropoutRngs(host=torch.Generator().manual_seed(9),
+                           device=torch.Generator("cuda").manual_seed(10))
+        loss, _ = task.compute_loss(batch, rngs)
+        loss.backward()
+        grads[impl] = {n: p.grad for n, p in task.model.named_parameters()}
+        del task, loss
+        torch.cuda.empty_cache()
+    worst, worst_name, errors = 0.0, "", {}
+    for name, g in grads["pallas"].items():
+        ref = grads["xla"][name]
+        if g is None or ref is None:
+            raise AssertionError(f"no gradient for {name}")
+        # The key bias against the query bias's norm, as in train_reference.
+        scale_name = (name[: -len("key.bias")] + "query.bias"
+                      if name.endswith("attention.key.bias") else name)
+        ref_norm = grads["xla"][scale_name].norm().item()
+        if ref_norm == 0.0:
+            if g.norm().item() != 0.0:
+                raise AssertionError(f"{name}: dense gradient is 0, kernel gradient is not")
+            continue
+        errors[name] = (g - ref).norm().item() / ref_norm
+        if errors[name] > worst:
+            worst, worst_name = errors[name], name
+    top = sorted(errors.items(), key=lambda kv: -kv[1])[:5]
+    emit({"phase": "train_window_reference", "tensors": len(grads["pallas"]),
+          "max_rel_frobenius_err": worst, "worst_tensor": worst_name, "bound": TRAIN_GRAD_BOUND,
+          "largest_errors": top})
+    if not worst <= TRAIN_GRAD_BOUND:
+        raise AssertionError(f"{worst_name}: gradient error {worst} > {TRAIN_GRAD_BOUND}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -867,8 +1283,18 @@ def main() -> int:
     del task
     torch.cuda.empty_cache()
     phase_train_reference()
+    win_entry = phase_kernel_window()
+    win_bwd_entries = phase_kernel_bwd_window()
+    task, cfg, win_launches = phase_train_window()
+    win_entry["launches"] = win_launches["fwd_window"]
+    win_bwd_entries[0]["launches"] = win_launches["bwd_dq_window"]
+    win_bwd_entries[1]["launches"] = win_launches["bwd_dkv_window"]
+    phase_train_window_profile(task, cfg)
+    del task
+    torch.cuda.empty_cache()
+    phase_train_window_reference()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    kernels = {"kernels": [entry, *bwd_entries]}
+    kernels = {"kernels": [entry, *bwd_entries, win_entry, *win_bwd_entries]}
     print(json.dumps(kernels), flush=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.jsonl").write_text("\n".join(_lines + [json.dumps(kernels)]) + "\n")

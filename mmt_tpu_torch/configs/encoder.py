@@ -50,13 +50,15 @@ class MmtEncoderConfig(Config):
     compute_dtype: str = "bfloat16"
     # "xla" (dense attention) or "pallas" (fused relative-attention kernel).
     attention_impl: str = "xla"
-    # Kept for yaml compatibility; the port does not rematerialise layers.
+    # Recompute each transformer layer's forward in the backward
+    # (activation checkpointing per layer, as the JAX package's nn.remat).
     remat: bool = False
     # Tile sizes of the JAX package's TPU kernel.  Kept for yaml
     # compatibility; the Hopper kernel picks its own tiles.
     attention_block_q: int = 256
     attention_block_k: int = 512
-    # Sliding-window pattern (0 = dense).  The port raises on window > 0.
+    # Sliding-window pattern (0 = dense): text attends within +-window and
+    # to the first attention_num_global slots (-1 = the image part, 2+P^2).
     attention_window: int = 0
     attention_num_global: int = -1
     # "none" only in the port; "int8_dynamic" raises.

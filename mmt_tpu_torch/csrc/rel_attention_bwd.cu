@@ -3,19 +3,30 @@
 //
 // Replaces the TPU backward kernels of mmt_tpu/ops/pallas_attention.py:
 //   K3 `_bwd_fused_kernel` (the default one-pass backward, body
-//   `_bwd_tile_core`, dRel via `_tile_dsv_multi`) and
+//   `_bwd_tile_core`, dRel via `_tile_dsv_multi`),
 //   K5 `_bwd_dq_kernel` + `_bwd_dkv_kernel` (the two-pass backward,
-//   MMT_ATTN_BWD=split).
+//   MMT_ATTN_BWD=split), and their sliding-window forms over the static
+//   live-tile lists (`_backward_window_list`):
+//   K4 `_bwd_fused_list_kernel` (the default) and
+//   K6 `_bwd_dq_list_kernel` + `_bwd_dkv_list_kernel` (split).
 // K3 keeps dk/dv for the whole key length in VMEM scratch ([hb, nk, bk, D]
 // fp32, 4 MB at S=4096); a Hopper block has at most 227 KB of shared memory
 // and blocks run in no order, so the schedule here is K5's: pass 1 owns 64
 // query rows and sweeps the keys (dq, dRel), pass 2 owns 64 keys and sweeps
-// the queries (dk, dv).  Both compute the function K3 computes.
+// the queries (dk, dv).  Both compute the function K3 computes.  With the
+// window (a template argument, as the dropout is), pass 1 sweeps only the
+// block's live key tiles and pass 2 only the key block's live query tiles
+// (LiveTiles in rel_attention_common.cuh: for a global key block every
+// query tile below the length, else the global query tiles and the band),
+// which is K6's q- and k-sorted lists computed per block, and both add the
+// window term wherever they recompute s; K4 is K6 fused, so the same two
+// passes replace it.
 //
 // What they compute, per (b, h), with s the forward's scaled, masked logits
 // (same bias, mask and dropout hash as rel_attention_fwd.cu), lse and
 // delta = rowsum(do * o) from the caller, K the dropout keep factor and
-// "real" = (i < L_b) and (j < L_b):
+// "real" = (i < L_b) and (j < L_b) (a pair the window disallows has p = 0
+// exactly, so it adds nothing to dq, dk, dv or dRel):
 //   p = exp(s - lse)  (lse < -1e38 clamped to 3e38, as at :2074)
 //   dS = real ? p * (do_i . v_j * K - delta_i) : 0
 //   dq_i = scale * (sum_j dS_ij k_j + sum_v dSV[i, v] R_h[v]),
@@ -24,7 +35,8 @@
 //          caller sums over b, as at :2972)
 //   dk_j = scale * sum_i dS_ij q_i,   dv_j = sum_i (real ? p * K : 0) do_i
 // Only tiles with real queries and real keys run (the TPU kernels' exact
-// pad-tile skip); dq/dk/dv rows past the length come out 0.
+// pad-tile skip), and with the window only live tiles; dq/dk/dv rows past
+// the length come out 0.
 //
 // Design: 4 warps per block, 16 rows per warp, mma.sync m16n8k16 bf16 ->
 // fp32 as in the forward.  Pass 1 (grid: 64-query tile, head, example):
@@ -51,13 +63,16 @@
 // term is ~2.4 TFLOP -> ~2.4 ms, bytes ~0.2 ms: bound by operations.  At
 // the pretraining micro-batch (B=64, S=256, L ~ U[204, 256]) the operations
 // are ~26 GFLOP (~0.03 ms) and the bytes ~0.18 GB (~0.05 ms): bound by
-// bytes.
+// bytes.  Windowed (w = 512, g = 198, B=8, S=4096, L ~ U[2048, 4096]),
+// sum_b L_b^2 becomes the allowed real pairs (~40%): ~0.24 TFLOP, ~0.25 ms,
+// still bound by operations.
 //
 // What the simple design leaves on the table: mma.sync instead of wgmma, no
 // TMA or cp.async pipeline, the logits and the bias gather recomputed in
 // both passes (K3 on the TPU pays them once), transposed tiles written
-// element by element into shared memory (bank conflicts), and per-element
-// id and hash arithmetic.
+// element by element into shared memory (bank conflicts), per-element id
+// and hash arithmetic, and, windowed, the pattern test on every element of
+// every live tile.
 
 #include "rel_attention_common.cuh"
 
@@ -110,7 +125,7 @@ __device__ __forceinline__ void zero_rows(__nv_bfloat16* dst, int r0, int S, siz
 }
 
 // Pass 1: dq and the per-example dRel.  Grid (query tiles, H, B).
-template <int D, bool kDropout>
+template <int D, bool kDropout, bool kWindow>
 __global__ void __launch_bounds__(kThreads) rel_attention_bwd_dq_kernel(BwdArgs a) {
   constexpr int LD = D + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -175,9 +190,9 @@ __global__ void __launch_bounds__(kThreads) rel_attention_bwd_dq_kernel(BwdArgs 
   for (int nd = 0; nd < D / 8; ++nd)
     dq_acc[nd][0] = dq_acc[nd][1] = dq_acc[nd][2] = dq_acc[nd][3] = 0.f;
 
-  const int n_tiles = (L + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
+  const LiveTiles live = live_tiles<kWindow>(q0, L, geo);
+  for (int it = 0; it < live.count(); ++it) {
+    const int k0 = live.tile(it) * kBK;
     const size_t off = head0 + static_cast<size_t>(k0) * row_stride;
     __syncthreads();  // the previous tiles (or R_h, dO) are no longer read
     load_tile<D>(s_k, a.k + off, S - k0, row_stride);
@@ -206,6 +221,7 @@ __global__ void __launch_bounds__(kThreads) rel_attention_bwd_dq_kernel(BwdArgs 
         }
         x *= a.scale;
         if ((i < L) != (j < L)) x += kMaskBias;
+        if (kWindow && !window_allowed(i, j, geo)) x += kMaskBias;
         const float p = __expf(x - lse_r[hr]);
         float dpv = dp[n][e];
         if constexpr (kDropout) dpv *= dropout_keep(a.dr, seed_b, h, i, j);
@@ -275,7 +291,7 @@ __global__ void __launch_bounds__(kThreads) rel_attention_bwd_dq_kernel(BwdArgs 
 
 // Pass 2: dk and dv.  Grid (key tiles, H, B).  The accumulators hold
 // transposed tiles: rows are this block's keys, columns the queries.
-template <int D, bool kDropout>
+template <int D, bool kDropout, bool kWindow>
 __global__ void __launch_bounds__(kThreads) rel_attention_bwd_dkv_kernel(BwdArgs a) {
   constexpr int LD = D + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -325,9 +341,9 @@ __global__ void __launch_bounds__(kThreads) rel_attention_bwd_dkv_kernel(BwdArgs
   }
 
   float acc[8][4], dp[8][4];
-  const int n_tiles = (L + kBQ - 1) / kBQ;
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * kBQ;
+  const LiveTiles live = live_tiles<kWindow>(k0, L, geo);
+  for (int it = 0; it < live.count(); ++it) {
+    const int q0 = live.tile(it) * kBQ;
     const size_t off = head0 + static_cast<size_t>(q0) * row_stride;
     __syncthreads();  // the previous tiles (or K, V, R_h) are no longer read
     load_tile<D>(s_q, a.q + off, S - q0, row_stride);
@@ -372,6 +388,7 @@ __global__ void __launch_bounds__(kThreads) rel_attention_bwd_dkv_kernel(BwdArgs
         }
         x *= a.scale;
         if ((i < L) != (j < L)) x += kMaskBias;
+        if (kWindow && !window_allowed(i, j, geo)) x += kMaskBias;
         const float p = __expf(x - s_lse[c]);
         float keep = 1.f;
         if constexpr (kDropout) keep = dropout_keep(a.dr, seed_b, h, i, j);
@@ -401,10 +418,10 @@ __global__ void __launch_bounds__(kThreads) rel_attention_bwd_dkv_kernel(BwdArgs
   }
 }
 
-template <int D, bool kDropout>
+template <int D, bool kDropout, bool kWindow>
 cudaError_t launch(bool dq_pass, dim3 grid, cudaStream_t s, const BwdArgs& a) {
-  auto kernel = dq_pass ? rel_attention_bwd_dq_kernel<D, kDropout>
-                        : rel_attention_bwd_dkv_kernel<D, kDropout>;
+  auto kernel = dq_pass ? rel_attention_bwd_dq_kernel<D, kDropout, kWindow>
+                        : rel_attention_bwd_dkv_kernel<D, kDropout, kWindow>;
   const size_t smem = dq_pass ? dq_smem_bytes<D>() : dkv_smem_bytes<D>();
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -413,13 +430,22 @@ cudaError_t launch(bool dq_pass, dim3 grid, cudaStream_t s, const BwdArgs& a) {
   return cudaGetLastError();
 }
 
+using LaunchFn = decltype(&launch<64, false, false>);
+
+template <int D>
+LaunchFn pick(bool drop, bool window) {
+  if (drop) return window ? launch<D, true, true> : launch<D, true, false>;
+  return window ? launch<D, false, true> : launch<D, false, false>;
+}
+
 int run(bool dq_pass, const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, const void* rel, const void* lengths, void* out0,
         void* out1, void* drel, int batch, int seq_len, int num_heads, int head_dim, int vocab,
         int image_len, int patch_per_row, int core_layers, int text_max_distance,
-        int image_part_id, int text_part_id, float scale, int dropout_threshold,
-        float keep_scale, int seed, int batch_start, void* stream) {
-  if (vocab < 0 || vocab > kVP || dropout_threshold < 0 || dropout_threshold > (1 << 24))
+        int image_part_id, int text_part_id, int window, int num_global, float scale,
+        int dropout_threshold, float keep_scale, int seed, int batch_start, void* stream) {
+  if (vocab < 0 || vocab > kVP || dropout_threshold < 0 || dropout_threshold > (1 << 24) ||
+      window < 0 || (window > 0 && num_global <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dq_pass && rel != nullptr && vocab > 0 && drel == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -437,23 +463,25 @@ int run(bool dq_pass, const void* q, const void* k, const void* v, const void* d
   a.drel = static_cast<float*>(drel);
   a.S = seq_len;
   a.H = num_heads;
-  a.geo = Geometry{image_len,     patch_per_row, core_layers, text_max_distance,
-                   image_part_id, text_part_id,  rel ? vocab : 0};
+  if (window > seq_len) window = seq_len;  // the same pattern; keeps r0 + w from overflowing
+  a.geo = Geometry{image_len,     patch_per_row, core_layers,     text_max_distance,
+                   image_part_id, text_part_id,  rel ? vocab : 0, window,
+                   num_global};
   a.scale = scale;
   a.dr = Dropout{static_cast<uint32_t>(dropout_threshold), keep_scale,
                  static_cast<uint32_t>(seed), static_cast<uint32_t>(batch_start)};
   const dim3 grid((seq_len + kBQ - 1) / kBQ, num_heads, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = dropout_threshold > 0;
-  cudaError_t err;
+  LaunchFn fn;
   if (head_dim == 64) {
-    err = drop ? launch<64, true>(dq_pass, grid, s, a) : launch<64, false>(dq_pass, grid, s, a);
+    fn = pick<64>(drop, window > 0);
   } else if (head_dim == 32) {
-    err = drop ? launch<32, true>(dq_pass, grid, s, a) : launch<32, false>(dq_pass, grid, s, a);
+    fn = pick<32>(drop, window > 0);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+  return static_cast<int>(fn(dq_pass, grid, s, a));
 }
 
 }  // namespace
@@ -461,7 +489,7 @@ int run(bool dq_pass, const void* q, const void* k, const void* v, const void* d
 // q, k, v, do, dq, dk, dv: bf16 [B, S, H, D] contiguous; lse, delta: fp32
 // [B, H, S]; rel: bf16 [H, 64, D] (rows >= V zero) or null; lengths: int32
 // [B]; drel: fp32 [B, H, 64, D], zeroed by the caller (null without rel).
-// Dropout arguments as in mmt_rel_attention_fwd.  Each launches one kernel
+// Window and dropout arguments as in mmt_rel_attention_fwd.  Each launches one kernel
 // on `stream`, allocates nothing and returns the CUDA error code.
 extern "C" int mmt_rel_attention_bwd_dq(const void* q, const void* k, const void* v,
                                         const void* dout, const void* lse, const void* delta,
@@ -470,13 +498,13 @@ extern "C" int mmt_rel_attention_bwd_dq(const void* q, const void* k, const void
                                         int head_dim, int vocab, int image_len,
                                         int patch_per_row, int core_layers,
                                         int text_max_distance, int image_part_id,
-                                        int text_part_id, float scale, int dropout_threshold,
-                                        float keep_scale, int seed, int batch_start,
-                                        void* stream) {
+                                        int text_part_id, int window, int num_global,
+                                        float scale, int dropout_threshold, float keep_scale,
+                                        int seed, int batch_start, void* stream) {
   return run(true, q, k, v, dout, lse, delta, rel, lengths, dq, nullptr, drel, batch, seq_len,
              num_heads, head_dim, vocab, image_len, patch_per_row, core_layers,
-             text_max_distance, image_part_id, text_part_id, scale, dropout_threshold,
-             keep_scale, seed, batch_start, stream);
+             text_max_distance, image_part_id, text_part_id, window, num_global, scale,
+             dropout_threshold, keep_scale, seed, batch_start, stream);
 }
 
 extern "C" int mmt_rel_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -486,13 +514,13 @@ extern "C" int mmt_rel_attention_bwd_dkv(const void* q, const void* k, const voi
                                          int head_dim, int vocab, int image_len,
                                          int patch_per_row, int core_layers,
                                          int text_max_distance, int image_part_id,
-                                         int text_part_id, float scale, int dropout_threshold,
-                                         float keep_scale, int seed, int batch_start,
-                                         void* stream) {
+                                         int text_part_id, int window, int num_global,
+                                         float scale, int dropout_threshold, float keep_scale,
+                                         int seed, int batch_start, void* stream) {
   return run(false, q, k, v, dout, lse, delta, rel, lengths, dk, dv, nullptr, batch, seq_len,
              num_heads, head_dim, vocab, image_len, patch_per_row, core_layers,
-             text_max_distance, image_part_id, text_part_id, scale, dropout_threshold,
-             keep_scale, seed, batch_start, stream);
+             text_max_distance, image_part_id, text_part_id, window, num_global, scale,
+             dropout_threshold, keep_scale, seed, batch_start, stream);
 }
 
 extern "C" const char* mmt_cuda_error_string(int code) {

@@ -1,7 +1,8 @@
 // Pieces shared by the relative-attention kernels (rel_attention_fwd.cu,
-// rel_attention_bwd.cu): the closed-form relative id, the attention-dropout
-// hash, and the mma.sync tile helpers.  Header-only; every function is
-// inlined into the kernel that uses it.
+// rel_attention_bwd.cu): the closed-form relative id, the sliding-window
+// pattern and its live tiles, the attention-dropout hash, and the mma.sync
+// tile helpers.  Header-only; every function is inlined into the kernel
+// that uses it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,6 +27,8 @@ struct Geometry {
   int image_part_id;
   int text_part_id;
   int vocab;              // V; ids >= V give zero bias; 0 = no bias
+  int window;             // > 0: sliding-window pattern (|i - j| <= window)
+  int num_global;         // ... plus the global prefix [0, num_global)
 };
 
 // Attention-dropout parameters: keep iff the hash's low 24 bits are >=
@@ -63,6 +66,41 @@ __device__ __forceinline__ int relative_id(int i, int j, const Geometry& g) {
   const int off = j - i;
   const int a = min(abs(off), g.text_max_distance);
   return off >= 0 ? a : g.text_max_distance + a;
+}
+
+// The sliding-window + prefix-global pattern (pallas_attention.py:
+// _apply_window_mask): pair (i, j) is allowed iff i < g, j < g or
+// |i - j| <= window.  A disallowed pair gets kMaskBias on its scaled logit,
+// after the length mask.
+__device__ __forceinline__ bool window_allowed(int i, int j, const Geometry& g) {
+  return i < g.num_global || j < g.num_global || abs(i - j) <= g.window;
+}
+
+// The 64-wide tiles that one block of 64 rows starting at r0 visits on the
+// other axis: tiles [0, head), then [band_lo, band_hi), all below
+// ceil(L / 64).  The pattern is symmetric in (i, j), so the same rule gives
+// a query block's key tiles and a key block's query tiles.  Dense: every
+// tile below the length.  Windowed: every tile when the block meets the
+// global prefix (r0 < g); else the global tiles [0, ceil(g / 64)) and the
+// band [floor((r0 - w) / 64), floor((r0 + 63 + w) / 64)], a tile in both
+// visited once.  A tile left out holds no allowed pair
+// (_window_tile_contributes), and every real row keeps its diagonal tile,
+// so the skip is exact.  Tiles come in ascending order, so at a window
+// >= S the windowed kernels visit the dense kernels' tiles in their order.
+struct LiveTiles {
+  int head, band_lo, band_hi;
+  __device__ __forceinline__ int count() const { return head + band_hi - band_lo; }
+  __device__ __forceinline__ int tile(int n) const { return n < head ? n : band_lo + n - head; }
+};
+
+template <bool kWindow>
+__device__ __forceinline__ LiveTiles live_tiles(int r0, int L, const Geometry& g) {
+  const int n = (L + 63) / 64;
+  if (!kWindow || r0 < g.num_global) return {n, n, n};
+  const int head = min((g.num_global + 63) / 64, n);
+  const int lo = max(max(r0 - g.window, 0) / 64, head);
+  const int hi = min((r0 + 63 + g.window) / 64 + 1, n);
+  return {head, lo, max(lo, hi)};
 }
 
 // Per-example seed: seed + b * -1771729351 in 32-bit wrap-around.

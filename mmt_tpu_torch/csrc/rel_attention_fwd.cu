@@ -2,17 +2,18 @@
 //
 // Replaces the two TPU forward kernels of mmt_tpu/ops/pallas_attention.py:
 //   K1 `_fwd_kernel` (rect grid, `_attention_forward`) and
-//   K2 `_fwd_list_kernel` (list grid, `_run_fwd_list`, as used by the
-//   far/structured split schedule `_forward_split`), together with the
+//   K2 `_fwd_list_kernel` (list grid, `_run_fwd_list`), in both of its
+//   uses: the far/structured split schedule `_forward_split` (with the
 //   image-corner build `_build_img_corner` and the logsumexp combine of the
-//   split.  The split is a TPU schedule, not semantics: one pass here
-//   computes the function both compute.  The windowed list (window > 0) is
-//   not ported; the Python wrapper raises on it.
+//   split) and the sliding-window live-tile list `_window_tile_list`
+//   (`_attention_forward` :1891-1919).  Both lists are TPU schedules, not
+//   semantics: one pass here computes the function they compute.
 //
 // What it computes, for each (batch b, head h) and query row i < S:
 //   s[i, j] = (q_i . k_j + bias(i, j)) * scale          (fp32)
 //   bias(i, j) = qr[i, id(i, j)] if id < V else 0,   qr = q_tile . R_h^T
 //   s[i, j] += -10000 where (i < L_b) != (j < L_b)
+//   s[i, j] += -10000 where the window disallows (i, j)   (window > 0)
 //   o_i = softmax_j(s[i, :]) . v   (p rounded to bf16 before p.v, as the
 //   TPU kernel does), lse_i = log sum_j exp(s[i, j]).
 // Attention dropout (K1's in-kernel dropout, pallas_attention.py:1740-1751)
@@ -21,7 +22,11 @@
 // the bf16 rounding for p.v, so lse is unchanged by dropout.  The dropout is
 // a template argument: at rate 0 the kernel is the one without dropout.
 // Only key tiles with k0 < L_b run (the TPU kernel's exact pad-tile skip);
-// a query tile with q0 >= L_b writes o = 0 and lse = -inf.  id(i, j) is the
+// a query tile with q0 >= L_b writes o = 0 and lse = -inf.  The window is a
+// template argument too: the windowed variant visits only the block's live
+// key tiles (LiveTiles in rel_attention_common.cuh, the block's own
+// `_window_tile_contributes`; no static list) and adds the window term; at
+// window 0 the kernel is the dense one.  id(i, j) is the
 // closed form of mmt_tpu_torch/features/relative_position.py: 2D patch ids
 // for i, j < P^2 (on every tile that meets the image corner, which spans
 // 4x4 tiles of 64 at P = 14), the part ids for image x text pairs, and the
@@ -40,15 +45,19 @@
 // 4096]): FLOPs 4 * sum_b L_b^2 * D * H + 2 * sum_b L_b * V * D * H, about
 // 0.95 TFLOP per layer, over 989 TFLOP/s = ~1.0 ms; the bytes of q, k, v and
 // o are 4 * B * S * H * D * 2 = 0.4 GB over 3.35 TB/s = ~0.12 ms.  So the
-// kernel is bound by operations.
+// kernel is bound by operations.  Windowed (w = 512, g = 198, the 4k
+// pretraining micro-batch B=8), L_b^2 becomes the allowed real pairs, about
+// 40% of them: ~0.1 TFLOP, ~0.1 ms, still above the ~0.03 ms of bytes.
 //
 // What the simple design leaves on the table: mma.sync instead of wgmma
 // (Hopper's full tensor-core rate needs wgmma), no TMA and no
 // double-buffered cp.async pipeline (loads and math do not overlap within a
 // block), a per-element id computation and shared-memory gather for the
 // bias on every tile (far text tiles have one id per row and could fold the
-// bias into the row statistics, as the TPU split schedule does), and __expf
-// on every element instead of exp2 with a folded log2(e) scale.
+// bias into the row statistics, as the TPU split schedule does), __expf
+// on every element instead of exp2 with a folded log2(e) scale, and, in the
+// windowed variant, the per-element pattern test on every live tile (only
+// the band's two edge tiles and the corner tiles need it).
 
 #include "rel_attention_common.cuh"
 
@@ -56,7 +65,7 @@ namespace {
 
 using namespace mmt;
 
-template <int D, bool kDropout>
+template <int D, bool kDropout, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 rel_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ rel,
@@ -119,9 +128,9 @@ rel_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) o_acc[nd][0] = o_acc[nd][1] = o_acc[nd][2] = o_acc[nd][3] = 0.f;
 
-  const int n_tiles = (L + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
+  const LiveTiles live = live_tiles<kWindow>(q0, L, geo);
+  for (int it = 0; it < live.count(); ++it) {
+    const int k0 = live.tile(it) * kBK;
     __syncthreads();  // the previous tile (or R_h) is no longer read
     load_tile<D>(s_k, k + head0 + static_cast<size_t>(k0) * row_stride, S - k0, row_stride);
     load_tile_transposed<D>(s_vt, v + head0 + static_cast<size_t>(k0) * row_stride, S - k0,
@@ -144,6 +153,7 @@ rel_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
         }
         x *= scale;
         if ((i < L) != (j < L)) x += kMaskBias;
+        if (kWindow && !window_allowed(i, j, geo)) x += kMaskBias;
         acc[n][e] = x;
       }
     }
@@ -208,13 +218,21 @@ rel_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   }
 }
 
-template <int D, bool kDropout>
+template <int D, bool kDropout, bool kWindow>
 void launch(dim3 grid, cudaStream_t s, const __nv_bfloat16* q, const __nv_bfloat16* k,
             const __nv_bfloat16* v, const __nv_bfloat16* rel, const int* lengths,
             __nv_bfloat16* o, float* lse, int S, int H, const Geometry& geo, float scale,
             const Dropout& dr) {
-  rel_attention_fwd_kernel<D, kDropout><<<grid, kThreads, 0, s>>>(q, k, v, rel, lengths, o, lse,
-                                                                   S, H, geo, scale, dr);
+  rel_attention_fwd_kernel<D, kDropout, kWindow><<<grid, kThreads, 0, s>>>(
+      q, k, v, rel, lengths, o, lse, S, H, geo, scale, dr);
+}
+
+using LaunchFn = decltype(&launch<64, false, false>);
+
+template <int D>
+LaunchFn pick(bool drop, bool window) {
+  if (drop) return window ? launch<D, true, true> : launch<D, true, false>;
+  return window ? launch<D, false, true> : launch<D, false, false>;
 }
 
 }  // namespace
@@ -223,19 +241,23 @@ void launch(dim3 grid, cudaStream_t s, const __nv_bfloat16* q, const __nv_bfloat
 // (rows >= V zero) or null; lengths: int32 [B]; lse: fp32 [B, H, S].
 // dropout_threshold = round(rate * 2^24) (0: no dropout), keep_scale =
 // float32(1 / (1 - rate)), seed: the call's int32 seed, batch_start: global
-// index of example 0.  Launches on `stream`, allocates nothing, returns
-// cudaGetLastError().
+// index of example 0.  window > 0 selects the sliding-window pattern with
+// the global prefix [0, num_global) (num_global > 0; ignored at window 0).
+// Launches on `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int mmt_rel_attention_fwd(const void* q, const void* k, const void* v, const void* rel,
                                      const void* lengths, void* o, void* lse, int batch,
                                      int seq_len, int num_heads, int head_dim, int vocab,
                                      int image_len, int patch_per_row, int core_layers,
                                      int text_max_distance, int image_part_id, int text_part_id,
-                                     float scale, int dropout_threshold, float keep_scale,
-                                     int seed, int batch_start, void* stream) {
-  if (vocab < 0 || vocab > kVP || dropout_threshold < 0 || dropout_threshold > (1 << 24))
+                                     int window, int num_global, float scale,
+                                     int dropout_threshold, float keep_scale, int seed,
+                                     int batch_start, void* stream) {
+  if (vocab < 0 || vocab > kVP || dropout_threshold < 0 || dropout_threshold > (1 << 24) ||
+      window < 0 || (window > 0 && num_global <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Geometry geo{image_len,         patch_per_row, core_layers, text_max_distance,
-                     image_part_id,     text_part_id,  rel ? vocab : 0};
+  if (window > seq_len) window = seq_len;  // the same pattern; keeps r0 + w from overflowing
+  const Geometry geo{image_len,     patch_per_row, core_layers, text_max_distance,
+                     image_part_id, text_part_id,  rel ? vocab : 0, window, num_global};
   const Dropout dr{static_cast<uint32_t>(dropout_threshold), keep_scale,
                    static_cast<uint32_t>(seed), static_cast<uint32_t>(batch_start)};
   const dim3 grid((seq_len + kBQ - 1) / kBQ, num_heads, batch);
@@ -248,15 +270,15 @@ extern "C" int mmt_rel_attention_fwd(const void* q, const void* k, const void* v
   auto* op = static_cast<__nv_bfloat16*>(o);
   auto* sp = static_cast<float*>(lse);
   const bool drop = dropout_threshold > 0;
+  LaunchFn fn;
   if (head_dim == 64) {
-    (drop ? launch<64, true> : launch<64, false>)(grid, s, qp, kp, vp, rp, lp, op, sp, seq_len,
-                                                  num_heads, geo, scale, dr);
+    fn = pick<64>(drop, window > 0);
   } else if (head_dim == 32) {
-    (drop ? launch<32, true> : launch<32, false>)(grid, s, qp, kp, vp, rp, lp, op, sp, seq_len,
-                                                  num_heads, geo, scale, dr);
+    fn = pick<32>(drop, window > 0);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  fn(grid, s, qp, kp, vp, rp, lp, op, sp, seq_len, num_heads, geo, scale, dr);
   return static_cast<int>(cudaGetLastError());
 }
 

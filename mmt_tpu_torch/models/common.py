@@ -12,12 +12,15 @@
 * Dropout (``DropoutRngs``) is active in ``model.train()`` and off in
   ``model.eval()``, standing in for Flax's ``deterministic`` flag; the
   models start in ``eval()``, as ``deterministic`` defaults to True.
+  Each transformer layer call draws all of its randomness from two seeds
+  (``LayerSeeds``) taken before it runs, so that a recomputed layer
+  (remat) replays the same masks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -25,23 +28,38 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class LayerSeeds(NamedTuple):
+    """The randomness of one transformer layer call: the int32 seed of the
+    in-kernel attention dropout and the seed of a generator, on the layer's
+    device, for its two hidden-dropout masks.  A layer called again with
+    the same seeds draws the same masks."""
+
+    attention: int
+    hidden: int
+
+
 @dataclasses.dataclass
 class DropoutRngs:
     """Random streams of a training call (Flax's ``rngs={"dropout": ...}``).
 
-    ``host`` is a CPU generator: the attention-dropout seeds (one int32 per
-    layer per call) are drawn from it on the host, so drawing one never
-    waits for the card.  ``device`` is a generator on the model's device:
-    the hidden-dropout masks are drawn from it.  A stream left None draws
-    from torch's default generator of that device.
+    ``host`` is a CPU generator: the transformer layers' seeds
+    (``layer_seeds``, two int32 per layer per call) are drawn from it on
+    the host, so drawing them never waits for the card.  ``device`` is a
+    generator on the model's device: the embedding and head dropout masks
+    are drawn from it.  A stream left None draws from torch's default
+    generator of that device.
     """
 
     host: Optional[torch.Generator] = None
     device: Optional[torch.Generator] = None
 
     def seed(self) -> int:
-        """An int32 seed for the in-kernel attention dropout."""
+        """An int32 seed from the host stream."""
         return int(torch.randint(-(1 << 31), 1 << 31, (), generator=self.host))
+
+    def layer_seeds(self) -> LayerSeeds:
+        """The seeds of one transformer layer call."""
+        return LayerSeeds(self.seed(), self.seed())
 
     def dropout(self, x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
         """Flax ``nn.Dropout``: zero each element with probability ``rate``

@@ -17,12 +17,16 @@ Torch counterpart of ``mmt_tpu/models/encoder.py``, with its semantics:
   ``relative_attention``), from the streams of ``DropoutRngs``.
 * The pooler output, when enabled, is returned as ``"pooled_output"``.
 
-The attention id map and padding mask are derived from the static
-geometry and ``lengths`` inside the attention op.  Unlike the JAX
-encoder, there is no gate requiring the image block to fit one kernel
-tile: the Hopper kernel applies the 2D ids on every tile that meets it.
-Not ported yet: the ``images`` input path, MPP ``patch_mask``,
-``quantize="int8_dynamic"`` and ``attention_window > 0`` (these raise).
+The attention id map, padding mask and sliding-window pattern are
+derived from the static geometry and ``lengths`` inside the attention op.
+``attention_window > 0`` lets text attend within the window; the first
+``attention_num_global`` slots (-1: the image part, ``2 + P**2``, as in
+the JAX encoder) attend and are attended everywhere.  ``remat`` recomputes
+each layer's forward in the backward (see ``relative_attention``).
+Unlike the JAX encoder, there is no gate requiring the image block to fit
+one kernel tile: the Hopper kernel applies the 2D ids on every tile that
+meets it.  Not ported yet: the ``images`` input path, MPP ``patch_mask``
+and ``quantize="int8_dynamic"`` (these raise).
 """
 
 from __future__ import annotations
@@ -44,13 +48,27 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def encoder_geometry(config: MmtEncoderConfig, num_patch_per_row: int) -> Optional[RelGeometry]:
-    """The relative-id geometry of a config, or None when it has no bias."""
+    """The relative-id and attention-pattern geometry of a config, or None
+    when it has no bias.
+
+    ``attention_num_global < 0`` means the whole image part is global:
+    [CLS] [PATCH] and the P**2 patches, slots [0, 2 + P**2)
+    (``mmt_tpu/models/encoder.py:145-153``), while the 2D ids cover
+    [0, P**2): the reference's misalignment, kept.
+    """
+    num_global = config.attention_num_global
+    if num_global < 0:
+        num_global = 2 + num_patch_per_row**2
     if not (config.relative_vocab_size and config.relative_pos_max_distance):
+        if config.attention_window > 0:
+            raise ValueError("attention_window > 0 requires the relative-bias geometry")
         return None
     return RelGeometry(
         text_max_distance=config.relative_pos_max_distance,
         num_patch_per_row=num_patch_per_row,
         num_core_layers=config.relative_att_num_core_layers,
+        window=config.attention_window,
+        num_global=num_global,
     )
 
 
@@ -72,8 +90,6 @@ class MmtEncoder(nn.Module):
                 f"`relative_pos_max_distance` ({cfg.relative_pos_max_distance})")
         if cfg.quantize != "none":
             raise NotImplementedError(f"quantize={cfg.quantize!r} is not ported yet")
-        if cfg.attention_window > 0:
-            raise NotImplementedError("attention_window > 0 is not ported yet")
         if cfg.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
 
@@ -104,6 +120,7 @@ class MmtEncoder(nn.Module):
             attention_impl=cfg.attention_impl,
             hidden_dropout=cfg.hidden_dropout_prob,
             attention_dropout=cfg.attention_probs_dropout_prob,
+            remat=cfg.remat,
             device=device,
         )
         self.pooler_transform = None

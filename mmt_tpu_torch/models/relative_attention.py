@@ -15,13 +15,24 @@ Torch counterpart of ``mmt_tpu/models/relative_attention.py``:
 tensors, their plain versions on CPU tensors).  Both derive the id map
 from the static geometry and the padding mask from ``lengths``.
 
+``geometry.window > 0`` restricts attention to the sliding-window +
+prefix-global pattern, in both impls (the kernels' windowed variants on
+CUDA tensors).
+
 Dropout is active in ``train()`` mode: hidden dropout on the attention and
-FFN outputs from the device stream of ``DropoutRngs``, and attention-probs
-dropout inside the attention op, from one int32 seed per layer per call
-drawn on the host.  Both attention impls apply the same hash mask
-(``fused_attention.dropout_keep``) for a given seed, so they agree in
-training too (the JAX package's dense path draws a Bernoulli mask
-instead).
+FFN outputs, and attention-probs dropout inside the attention op.  A layer
+call takes both from its ``LayerSeeds``, drawn on the host before it runs:
+the hidden masks from a device generator seeded with ``seeds.hidden``, the
+attention mask from the hash of ``seeds.attention``.  Both attention impls
+apply the same hash mask (``fused_attention.dropout_keep``) for a given
+seed, so they agree in training too (the JAX package's dense path draws a
+Bernoulli mask instead).
+
+``remat=True`` wraps each layer in ``torch.utils.checkpoint`` (the
+counterpart of ``nn.remat`` at ``mmt_tpu/models/relative_attention.py:299``):
+only the layer's input is kept, and the backward runs the layer's forward
+again, attention kernel included, from the same seeds, so remat on and off
+give the same function and the same gradients.
 
 Parameter layout: the q/k/v projections are ``nn.Linear(hidden, A*D)``
 (Flax DenseGeneral kernel ``[hidden, A, D]``), the output projection
@@ -35,8 +46,9 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from mmt_tpu_torch.models.common import DropoutRngs, dense, gelu, layer_norm
+from mmt_tpu_torch.models.common import DropoutRngs, LayerSeeds, dense, gelu, layer_norm
 from mmt_tpu_torch.ops.fused_attention import (
     RelGeometry,
     relative_attention,
@@ -80,7 +92,9 @@ class RelativeAttention(nn.Module):
         self.output = nn.Linear(hidden_size, hidden_size, device=device)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
-                rngs: Optional[DropoutRngs] = None) -> torch.Tensor:
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        """``dropout_seed``: the int32 seed of the attention dropout, used in
+        ``train()`` mode at a rate > 0 (required there)."""
         batch, seq_len, _ = x.shape
         shape = (batch, seq_len, self.num_heads, self.head_dim)
         q = dense(x, self.query, self.dtype).view(shape)
@@ -88,7 +102,7 @@ class RelativeAttention(nn.Module):
         v = dense(x, self.value, self.dtype).view(shape)
         rate, seed = 0.0, None
         if self.training and self.attention_dropout > 0.0:
-            rate, seed = self.attention_dropout, (rngs or DropoutRngs()).seed()
+            rate, seed = self.attention_dropout, dropout_seed
         if self.attention_impl == "pallas":
             ctx = relative_attention(q, k, v, self.relative_emb_table, self.geometry, lengths,
                                      rate, seed, device=x.device.type)
@@ -130,28 +144,46 @@ class RelativeTransformerLayer(nn.Module):
         return dense(h, self.ffn_output, self.dtype)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
-                rngs: Optional[DropoutRngs] = None) -> torch.Tensor:
-        rngs = rngs or DropoutRngs()
+                seeds: Optional[LayerSeeds] = None) -> torch.Tensor:
+        """``seeds`` carries all of the call's randomness in ``train()`` mode
+        (drawn here from torch's default CPU generator when None)."""
+        if self.training and seeds is None:
+            seeds = DropoutRngs().layer_seeds()
+        hidden = DropoutRngs()
+        if self.training and self.hidden_dropout > 0.0:
+            hidden.device = torch.Generator(device=x.device).manual_seed(seeds.hidden)
+        attention_seed = seeds.attention if seeds is not None else None
 
         def drop(h):
-            return rngs.dropout(h, self.hidden_dropout, self.training)
+            return hidden.dropout(h, self.hidden_dropout, self.training)
 
         if self.use_pre_activation_order:
             x = x + drop(self.attention(
-                layer_norm(x, self.attention_layer_norm).to(self.dtype), lengths, rngs))
+                layer_norm(x, self.attention_layer_norm).to(self.dtype), lengths,
+                attention_seed))
             return x + drop(self._ffn(layer_norm(x, self.ffn_layer_norm).to(self.dtype)))
-        x = layer_norm(x + drop(self.attention(x, lengths, rngs)), self.attention_layer_norm)
+        x = layer_norm(x + drop(self.attention(x, lengths, attention_seed)),
+                       self.attention_layer_norm)
         return layer_norm(x + drop(self._ffn(x.to(self.dtype))), self.ffn_layer_norm)
 
 
 class RelativeTransformerLayers(nn.Module):
-    def __init__(self, num_hidden_layers: int, **layer_kwargs):
+    def __init__(self, num_hidden_layers: int, remat: bool = False, **layer_kwargs):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             RelativeTransformerLayer(**layer_kwargs) for _ in range(num_hidden_layers))
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 rngs: Optional[DropoutRngs] = None) -> torch.Tensor:
+        rngs = rngs or DropoutRngs()
         for layer in self.layers:
-            x = layer(x, lengths, rngs)
+            # Drawn before the call, so that a recompute replays them.
+            seeds = rngs.layer_seeds() if self.training else None
+            if self.remat and torch.is_grad_enabled():
+                # The layer draws nothing from torch's default generators.
+                x = checkpoint(layer, x, lengths, seeds, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, lengths, seeds)
         return x

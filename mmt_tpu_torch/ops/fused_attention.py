@@ -4,12 +4,23 @@ Counterpart of ``mmt_tpu/ops/pallas_attention.py``, forward and backward.
 
 * Forward kernel ``mmt_tpu_torch/csrc/rel_attention_fwd.cu`` replaces the
   TPU kernels K1 ``_fwd_kernel`` and K2 ``_fwd_list_kernel`` (with the
-  split schedule's logsumexp combine and the image-corner build) by one
-  flash-attention pass that regenerates the relative ids from positions
-  and applies the attention dropout in the kernel.
+  split schedule's logsumexp combine and the image-corner build, and the
+  windowed live-tile list) by one flash-attention pass that regenerates
+  the relative ids from positions and applies the attention dropout in
+  the kernel.
 * Backward kernels ``mmt_tpu_torch/csrc/rel_attention_bwd.cu`` replace K3
   ``_bwd_fused_kernel`` and K5 ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``
-  by K5's two-pass schedule: a dq + dRel pass and a dk/dv pass.
+  (and, windowed, K4 ``_bwd_fused_list_kernel`` and K6
+  ``_bwd_dq_list_kernel`` / ``_bwd_dkv_list_kernel``) by K5's two-pass
+  schedule: a dq + dRel pass and a dk/dv pass.
+
+The sliding-window + prefix-global pattern (``RelGeometry.window > 0``)
+allows a pair (i, j) iff ``i < num_global or j < num_global or |i - j| <=
+window``; a disallowed pair gets -10000 on its logit, after the scale and
+after the length mask (``pallas_attention.py:_apply_window_mask``).  The
+kernels' windowed variants (a template argument) visit only the key (or
+query) tiles that hold an allowed pair, which the block computes for
+itself; at ``window == 0`` the kernels are the dense ones.
 
 Public pieces:
 
@@ -19,14 +30,17 @@ Public pieces:
 * ``relative_attention_forward`` / ``relative_attention_backward`` are
   the launchers: on CUDA tensors they launch the kernels or raise; on CPU
   tensors they return the plain versions.  Each launcher counts its
-  kernel launches: ``relative_attention_forward.launches`` and, one per
-  backward kernel, ``relative_attention_backward.launches_dq`` /
-  ``.launches_dkv``.
+  kernel launches, dense and windowed apart:
+  ``relative_attention_forward.launches`` / ``.launches_window`` and, one
+  per backward kernel, ``relative_attention_backward.launches_dq`` /
+  ``.launches_dkv`` / ``.launches_dq_window`` / ``.launches_dkv_window``.
 * ``relative_attention_plain`` / ``relative_attention_backward_plain``
   are the plain PyTorch versions: dense formulas over the materialised id
-  map, chunked over the batch.
+  map and pattern mask, chunked over the batch.
 * ``dropout_keep`` / ``dropout_tile`` are a bit-exact copy of the JAX
   dropout hash.
+* ``allowed_real_pairs`` counts the pairs a batch's attention computes
+  (the kernels' bounds are written in it).
 
 Rows with ``i >= lengths[b]`` are unspecified in the forward: the kernel
 skips key tiles past the length and writes o = 0 / lse = -inf for query
@@ -77,8 +91,9 @@ class RelGeometry:
     ``num_core_layers > 0`` => MMT 2D scheme over the first
     ``num_patch_per_row**2`` positions + clipped 1D text after; else the
     ETC 1D scheme over the whole sequence (``image_len == 0``).
-    ``window``/``num_global`` describe the sliding-window pattern, which
-    the port does not run yet (the wrapper raises on ``window > 0``).
+    ``window > 0`` adds the sliding-window + prefix-global pattern: a
+    pair (i, j) is allowed iff ``i < num_global or j < num_global or
+    |i - j| <= window``; ``window == 0`` is dense attention.
     """
 
     text_max_distance: int
@@ -117,10 +132,47 @@ def relative_att_ids(geometry: RelGeometry, seq_len: int) -> np.ndarray:
     return gen.make_relative_att_ids(seq_len, batch_size=1)[0]
 
 
-def _check_pattern(geometry: Optional[RelGeometry]) -> None:
-    if geometry is not None and geometry.window > 0:
-        raise NotImplementedError(
-            "window > 0 (sliding-window attention) is not ported yet")
+def _check_pattern(geometry: Optional[RelGeometry], rel_table) -> None:
+    """The JAX validation of the pattern (``pallas_attention.py:3226-3230``)."""
+    if (geometry is not None and geometry.window > 0
+            and (rel_table is None or geometry.num_global <= 0)):
+        raise ValueError(
+            "window > 0 requires the relative-bias path (rel_table) and "
+            "num_global > 0 (the prefix-global token count)")
+
+
+def _windowed(geometry: Optional[RelGeometry]) -> bool:
+    return geometry is not None and geometry.window > 0
+
+
+def window_allowed(geometry: RelGeometry, i_pos, j_pos):
+    """Whether the pattern allows the pairs (i_pos, j_pos) (broadcast)."""
+    g = geometry.num_global
+    return (i_pos < g) | (j_pos < g) | ((j_pos - i_pos).abs() <= geometry.window)
+
+
+def _window_term(geometry: Optional[RelGeometry], seq_len: int, device):
+    """<float32>[S, S]: 0 on allowed pairs, -10000 elsewhere; None when dense."""
+    if not _windowed(geometry):
+        return None
+    pos = torch.arange(seq_len, device=device)
+    allowed = window_allowed(geometry, pos[:, None], pos[None, :])
+    return torch.where(allowed, 0.0, NEG_INF)
+
+
+def allowed_real_pairs(geometry: Optional[RelGeometry], lengths) -> int:
+    """sum_b |{(i, j) : i, j < L_b, allowed(i, j)}|: the pairs whose logits
+    the attention needs (L_b**2 per example when dense)."""
+    total = 0
+    for n in np.asarray(lengths, np.int64).tolist():
+        if not _windowed(geometry):
+            total += n * n
+            continue
+        g, w = min(geometry.num_global, n), geometry.window
+        i = np.arange(g, n, dtype=np.int64)  # rows past the global prefix
+        lo, hi = np.maximum(i - w, g), np.minimum(i + w, n - 1)
+        total += g * n + int(((n - g) * g + np.maximum(hi - lo + 1, 0).sum()))
+    return total
 
 
 # ------------------------------------------------------------ dropout hash
@@ -209,11 +261,16 @@ def _plain_ids(geometry, rel_table, seq_len, device):
     return torch.from_numpy(relative_att_ids(geometry, seq_len)).to(device)
 
 
-def _masked_logits(q, k, rel_table, ids, lengths):
+def _masked_logits(q, k, rel_table, ids, lengths, window_term=None):
+    """Scaled logits + the length mask, then the window term (the order of
+    ``_apply_window_mask``: after the scale and the length mask)."""
     seq_len = q.shape[1]
     logits = relative_attention_scores(q, k, rel_table, ids)
     mask = make_att_mask_from_length(seq_len, lengths)
-    return logits + (1.0 - mask[:, None].float()) * NEG_INF
+    logits = logits + (1.0 - mask[:, None].float()) * NEG_INF
+    if window_term is not None:
+        logits = logits + window_term
+    return logits
 
 
 def relative_attention_plain(
@@ -228,22 +285,24 @@ def relative_attention_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense masked relative attention -> (o [B,S,H,D] q.dtype, lse [B,H,S] fp32).
 
-    Logits, the -10000 length mask, softmax and lse are float32.  The
+    Logits, the -10000 length mask, the -10000 window term (when
+    ``geometry.window > 0``), softmax and lse are float32.  The
     dropout keep factors (the hash of ``dropout_keep``) multiply the
     probabilities after the softmax; the probabilities are then rounded
     to the compute dtype before ``p . v`` (summed in float32), as the
     kernel does.  The batch is processed in chunks of at most 1 GiB of
     logits.  Differentiable by autograd.
     """
-    _check_pattern(geometry)
+    _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
     batch, seq_len, num_heads, _ = q.shape
     ids = _plain_ids(geometry, rel_table, seq_len, q.device)
+    window = _window_term(geometry, seq_len, q.device)
     chunk = max(1, _PLAIN_CHUNK_ELEMENTS // (num_heads * seq_len * seq_len))
     outs, lses = [], []
     for b0 in range(0, batch, chunk):
         sl = slice(b0, b0 + chunk)
-        logits = _masked_logits(q[sl], k[sl], rel_table, ids, lengths[sl])
+        logits = _masked_logits(q[sl], k[sl], rel_table, ids, lengths[sl], window)
         lses.append(torch.logsumexp(logits, dim=-1))
         probs = torch.softmax(logits, dim=-1)
         del logits
@@ -273,7 +332,8 @@ def relative_attention_backward_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Dense backward -> (dq, dk, dv in q.dtype, drel [V,H,D] in the table's dtype or None).
 
-    With s the scaled logits, P = exp(s - lse), K the dropout keep
+    With s the scaled, masked logits (length mask and window term, as in
+    the forward), P = exp(s - lse), K the dropout keep
     factors, delta = rowsum(do * o) and "real" the pairs whose query and
     key are both real (< length):
 
@@ -284,7 +344,8 @@ def relative_attention_backward_plain(
       dRel = scale * sum_b dSV^T . q
 
     in float32 from the given tensors (R rounded to the compute dtype, as
-    in the forward).  ``lse`` below -1e38 (a row with no live key tile)
+    in the forward).  Pairs the window disallows need no term of their
+    own: their -10000 drives P to exactly 0, as in JAX.  ``lse`` below -1e38 (a row with no live key tile)
     is clamped to 3e38, as the kernels do.  Chunked over the batch like
     the forward.
 
@@ -293,11 +354,12 @@ def relative_attention_backward_plain(
       lse, delta: <float32>[B, H, S].
       rel_table: <float>[V, H, D] or None.
     """
-    _check_pattern(geometry)
+    _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
     batch, seq_len, num_heads, head_dim = q.shape
     scale = 1.0 / math.sqrt(head_dim)
     ids = _plain_ids(geometry, rel_table, seq_len, q.device)
+    window = _window_term(geometry, seq_len, q.device)
     use_rel = ids is not None
     if use_rel:
         vocab = rel_table.shape[0]
@@ -310,7 +372,8 @@ def relative_attention_backward_plain(
     for b0 in range(0, batch, chunk):
         sl = slice(b0, b0 + chunk)
         qf, kf, vf, dof = (t[sl].float() for t in (q, k, v, do))
-        s = _masked_logits(q[sl], k[sl], rel_table if use_rel else None, ids, lengths[sl])
+        s = _masked_logits(q[sl], k[sl], rel_table if use_rel else None, ids, lengths[sl],
+                           window)
         lse_c = lse[sl].float()
         lse_c = torch.where(lse_c < -1e38, torch.full_like(lse_c, 3e38), lse_c)
         p = torch.exp(s - lse_c[..., None])
@@ -358,7 +421,7 @@ def _fwd_kernel():
     lib = build.load_library("rel_attention_fwd")
     fn = lib.mmt_rel_attention_fwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_float]
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_float]
         + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -372,7 +435,7 @@ def _bwd_kernels():
     lib = build.load_library("rel_attention_bwd")
     for fn in (lib.mmt_rel_attention_bwd_dq, lib.mmt_rel_attention_bwd_dkv):
         fn.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_float]
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_float]
             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -403,7 +466,7 @@ def _check_devices(device: str, **tensors) -> torch.device:
 
 def _check_kernel_inputs(q, lengths, rel_table, geometry, **same_shape):
     """Shape/dtype/alignment checks shared by the launchers; returns the
-    kernel's geometry arguments."""
+    kernel's geometry arguments (ids, then window and num_global)."""
     batch, seq_len, num_heads, head_dim = q.shape
     for name, t in same_shape.items():
         if t.shape != q.shape:
@@ -424,8 +487,10 @@ def _check_kernel_inputs(q, lengths, rel_table, geometry, **same_shape):
             f"rel_table must be [V <= {MAX_KERNEL_VOCAB}, {num_heads}, {head_dim}], "
             f"got {tuple(rel_table.shape)}")
     geo = geometry if use_rel else RelGeometry(0)
+    window = geo.window if _windowed(geo) else 0
     return use_rel, vocab, (geo.image_len, geo.num_patch_per_row, geo.num_core_layers,
-                            geo.text_max_distance, geo.image_part_id, geo.text_part_id)
+                            geo.text_max_distance, geo.image_part_id, geo.text_part_id,
+                            window, geo.num_global if window else 0)
 
 
 def _kernel_table(rel_table, kernel_table):
@@ -484,8 +549,9 @@ def relative_attention_forward(
     """Fused relative attention forward -> (o [B,S,H,D], lse [B,H,S] fp32).
 
     ``device`` names where the tensors must lie.  On ``"cuda"`` the Hopper
-    kernel runs (bf16 q/k/v, head_dim 32 or 64, relative vocab <= 64) or
-    this raises; on ``"cpu"`` the plain version runs.  Not differentiable:
+    kernel runs (bf16 q/k/v, head_dim 32 or 64, relative vocab <= 64), its
+    windowed variant when ``geometry.window > 0``, or this raises; on
+    ``"cpu"`` the plain version runs.  Not differentiable:
     raises when grad mode is on and an input requires grad
     (``relative_attention`` is the differentiable op).
 
@@ -500,7 +566,7 @@ def relative_attention_forward(
       kernel_table: ``kernel_rel_table(rel_table)``, when the caller
         already built it (CUDA only); else it is built here.
     """
-    _check_pattern(geometry)
+    _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
     _refuse_grad(q, k, v, rel_table)
     dev = _check_devices(device, q=q, k=k, v=v, lengths=lengths)
@@ -528,11 +594,15 @@ def relative_attention_forward(
     if err:
         raise RuntimeError(f"rel_attention_fwd launch failed: CUDA error {err} "
                            f"({_error_string(lib, err)})")
-    relative_attention_forward.launches += 1
+    if _windowed(geometry):
+        relative_attention_forward.launches_window += 1
+    else:
+        relative_attention_forward.launches += 1
     return o, lse
 
 
 relative_attention_forward.launches = 0
+relative_attention_forward.launches_window = 0
 
 
 def relative_attention_backward(
@@ -553,14 +623,15 @@ def relative_attention_backward(
     """Fused relative attention backward -> (dq, dk, dv, drel).
 
     On ``"cuda"`` launches the two Hopper kernels (dq + per-example dRel,
-    then dk/dv; bf16 q/k/v/do, fp32 lse/delta) or raises; on ``"cpu"``
+    then dk/dv; bf16 q/k/v/do, fp32 lse/delta; their windowed variants when
+    ``geometry.window > 0``) or raises; on ``"cpu"``
     returns ``relative_attention_backward_plain``.  dq/dk/dv come in
     q.dtype; drel is [V, H, D] in the table's dtype (summed over the
     batch here, as ``pallas_attention.py:2972`` does), or None without a
     table.  Arguments as in ``relative_attention_backward_plain``;
     ``kernel_table`` as in ``relative_attention_forward``.
     """
-    _check_pattern(geometry)
+    _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
     dev = _check_devices(device, q=q, k=k, v=v, do=do, lse=lse, delta=delta,
                          lengths=lengths)
@@ -599,12 +670,19 @@ def relative_attention_backward(
     if err:
         raise RuntimeError(f"rel_attention_bwd dq launch failed: CUDA error {err} "
                            f"({_error_string(lib, err)})")
-    relative_attention_backward.launches_dq += 1
+    counter = relative_attention_backward
+    if _windowed(geometry):
+        counter.launches_dq_window += 1
+    else:
+        counter.launches_dq += 1
     err = lib.mmt_rel_attention_bwd_dkv(*inputs, dk.data_ptr(), dv.data_ptr(), *common)
     if err:
         raise RuntimeError(f"rel_attention_bwd dkv launch failed: CUDA error {err} "
                            f"({_error_string(lib, err)})")
-    relative_attention_backward.launches_dkv += 1
+    if _windowed(geometry):
+        counter.launches_dkv_window += 1
+    else:
+        counter.launches_dkv += 1
     drel = None
     if use_rel:
         drel = drel_b.sum(0)[:, :vocab].permute(1, 0, 2).to(rel_table.dtype)
@@ -613,6 +691,8 @@ def relative_attention_backward(
 
 relative_attention_backward.launches_dq = 0
 relative_attention_backward.launches_dkv = 0
+relative_attention_backward.launches_dq_window = 0
+relative_attention_backward.launches_dkv_window = 0
 
 
 # ------------------------------------------------------ differentiable op
@@ -671,10 +751,12 @@ def relative_attention(
     reference-order attention-probs dropout inside the kernels, from a
     hash of (dropout_seed, example, head, query, key) that the backward
     regenerates; ``dropout_seed`` (an int32) is required when
-    ``dropout_rate > 0`` -- derive one per call.  On ``"cuda"`` the
-    forward and backward run the Hopper kernels; on ``"cpu"`` their plain
-    versions.
+    ``dropout_rate > 0`` -- derive one per call.  ``geometry.window > 0``
+    adds the sliding-window + prefix-global pattern (it needs the table).
+    On ``"cuda"`` the forward and backward run the Hopper kernels; on
+    ``"cpu"`` their plain versions.
     """
+    _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
     if rel_table is None or geometry is None:
         rel_table = geometry = None

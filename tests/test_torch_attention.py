@@ -99,11 +99,19 @@ def test_plain_matches_pallas_interpret(block, split):
 
 
 def test_wrapper_rejects_window_and_device_mismatch():
+    """JAX's validation of the pattern (``tests/test_window_attention.py:
+    test_window_requires_rel_and_global``): window > 0 needs the table and
+    num_global > 0."""
     q = torch.zeros(1, 8, 1, 4)
+    table = torch.zeros(25, 1, 4)
     lengths = torch.full((1,), 8)
-    with pytest.raises(NotImplementedError):
-        fa.relative_attention_forward(q, q, q, None, fa.RelGeometry(2, window=4),
-                                      lengths, device="cpu")
+    for fn in (fa.relative_attention_forward, fa.relative_attention):
+        with pytest.raises(ValueError, match="num_global"):
+            fn(q, q, q, table, fa.RelGeometry(5, window=4, num_global=0), lengths, device="cpu")
+        with pytest.raises(ValueError, match="rel_table"):
+            fn(q, q, q, None, fa.RelGeometry(5, window=4, num_global=2), lengths, device="cpu")
+    with pytest.raises(ValueError, match="num_global"):
+        fa.relative_attention_plain(q, q, q, table, fa.RelGeometry(5, window=4), lengths)
     with pytest.raises(ValueError):
         fa.relative_attention_forward(q, q, q, None, None, lengths, device="cuda")
 

@@ -21,6 +21,15 @@ Bounds (bf16 inputs):
   |plain|, and each (id, head) row within 1e-3 of its own norm, so that a
   lost or doubled run of a rare id fails; rows that are 0 in the plain
   version (ids no pair has) must be 0.
+* windowed kernels (sliding window + global prefix): the same bounds
+  against the plain versions with the window term, and launches counted
+  apart.  At window >= S the windowed instantiations are bit-identical to
+  the dense ones in o, lse, dk and dv, and in dq at rate 0.  With dropout,
+  dq is held to its bound there: the two dq instantiations are compiled
+  apart and some elements come out one bf16 spacing apart (which rounding
+  differs is not established; each is deterministic from run to run).
+  dRel is held to its bound everywhere: its global atomics add in a
+  run-dependent order.
 * model gradients: relative Frobenius error <= 5e-2 per parameter tensor
   between the fused and the dense model in bf16, whose attention rounds
   p at other places and whose backward runs through autograd (the key
@@ -139,6 +148,62 @@ def test_backward_kernels_match_plain(cuda, geo, S, H, D, V, lengths, rate):
     _assert_grads_close(got, want, lengths)
 
 
+WINDOW_CASES = [
+    (fa.RelGeometry(5, 4, 1, window=48, num_global=18), 512, 2, 64, 32, [512, 300]),
+    (fa.RelGeometry(3, 4, 1, window=37, num_global=21), 256, 2, 32, 40, [256, 150]),
+    (fa.RelGeometry(12, 14, 1, window=128, num_global=198), 1024, 2, 64, 49, [1024, 700, 250]),
+    (fa.RelGeometry(12, window=64, num_global=16), 384, 2, 64, 25, [384, 200]),
+]
+WINDOW_IDS = ["2d_w48", "unaligned_w37_d32", "flagship_w128", "1d_w64"]
+
+
+def _window_counts():
+    return (fa.relative_attention_forward.launches, fa.relative_attention_forward.launches_window,
+            fa.relative_attention_backward.launches_dq, fa.relative_attention_backward.launches_dkv,
+            fa.relative_attention_backward.launches_dq_window,
+            fa.relative_attention_backward.launches_dkv_window)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("geo,S,H,D,V,lengths", WINDOW_CASES, ids=WINDOW_IDS)
+def test_window_kernels_match_plain(cuda, geo, S, H, D, V, lengths, rate):
+    before = _window_counts()
+    args, rate, seed = _backward_case(cuda, geo, S, H, D, V, lengths, rate)
+    q, k, v, do, lse, delta, table, _, lens = args
+    o, _ = fa.relative_attention_forward(q, k, v, table, geo, lens, "cuda", rate, seed)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.relative_attention_plain(q, k, v, table, geo, lens, rate, seed)
+    for b, n in enumerate(lengths):
+        assert (o[b, :n].float() - o_ref[b, :n].float()).abs().max().item() < O_BOUND
+        assert (lse[b, :, :n] - lse_ref[b, :, :n]).abs().max().item() < LSE_BOUND
+    got = fa.relative_attention_backward(*args, "cuda", rate, seed)
+    torch.cuda.synchronize()
+    # Two windowed forwards (one in _backward_case), one windowed backward.
+    assert _window_counts() == (before[0], before[1] + 2, before[2], before[3],
+                                before[4] + 1, before[5] + 1)
+    _assert_grads_close(got, fa.relative_attention_backward_plain(*args, rate, seed), lengths)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_window_at_least_seq_is_dense(cuda, rate):
+    dense = fa.RelGeometry(12, 14, 1)
+    windowed = fa.RelGeometry(12, 14, 1, window=512, num_global=198)
+    args, rate, seed = _backward_case(cuda, dense, 512, 2, 64, 49, [512, 301], rate)
+    q, k, v, do, lse, delta, table, _, lens = args
+    o_d, lse_d = fa.relative_attention_forward(q, k, v, table, dense, lens, "cuda", rate, seed)
+    o_w, lse_w = fa.relative_attention_forward(q, k, v, table, windowed, lens, "cuda", rate, seed)
+    assert torch.equal(o_d, o_w) and torch.equal(lse_d, lse_w)
+    grads_d = fa.relative_attention_backward(*args, "cuda", rate, seed)
+    grads_w = fa.relative_attention_backward(q, k, v, do, lse, delta, table, windowed, lens,
+                                             "cuda", rate, seed)
+    assert torch.equal(grads_d[1], grads_w[1]) and torch.equal(grads_d[2], grads_w[2])
+    if rate == 0.0:
+        assert torch.equal(grads_d[0], grads_w[0])
+    for g_d, g_w, bound in ((grads_d[0], grads_w[0], GRAD_REL_BOUND),
+                            (grads_d[3], grads_w[3], DREL_REL_BOUND)):
+        assert (g_w - g_d).abs().max().item() <= bound * g_d.abs().max().item()
+
+
 def test_function_grads_reach_every_input(cuda):
     q, k, v, table, lens = _inputs(cuda, 2, 256, 2, 64, 49, [256, 200])
     q, k, v, table = (t.detach().requires_grad_() for t in (q, k, v, table))
@@ -163,40 +228,56 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fa.relative_attention_forward(q, k, v, table, FLAGSHIP, lens, "cuda", 0.1)
 
 
-def test_fused_model_grads_match_dense(cuda):
-    """The model with attention_impl="pallas" gets gradients for every
-    parameter through the kernels, and they match the same model with
-    dense attention (autograd through the plain version)."""
+def _model_grads(dev, impl, **enc_extra):
+    """Parameter gradients of a small classification model (2 layers,
+    hidden 128, S=128, P=4) on a seeded batch, in train() mode."""
     from mmt_tpu_torch.configs import (
         ClassificationModelConfig, ClsHeadConfig, EncoderConfig, MmtEncoderConfig)
     from mmt_tpu_torch.models import DropoutRngs, MmtClassificationModel
 
-    def model(impl):
-        enc = MmtEncoderConfig(
-            vocab_size=100, hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
-            intermediate_size=256, relative_vocab_size=49, relative_att_num_core_layers=1,
-            hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.1, attention_impl=impl)
-        cfg = ClassificationModelConfig(encoder=EncoderConfig(mmt=enc), num_classes=2,
-                                        cls_heads=[ClsHeadConfig(inner_dim=128, name="itm")])
-        return MmtClassificationModel(cfg, num_patch_per_row=4, patch_dim=48, device=cuda,
-                                      seed=0).train()
-
+    enc = MmtEncoderConfig(**{
+        "vocab_size": 100, "hidden_size": 128, "num_hidden_layers": 2, "num_attention_heads": 2,
+        "intermediate_size": 256, "relative_vocab_size": 49, "relative_att_num_core_layers": 1,
+        "hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.1, "attention_impl": impl,
+        **enc_extra})
+    cfg = ClassificationModelConfig(encoder=EncoderConfig(mmt=enc), num_classes=2,
+                                    cls_heads=[ClsHeadConfig(inner_dim=128, name="itm")])
+    model = MmtClassificationModel(cfg, num_patch_per_row=4, patch_dim=48, device=dev,
+                                   seed=0).train()
     rng = np.random.default_rng(0)
     inputs = dict(
-        word_ids=torch.from_numpy(rng.integers(0, 100, (2, 128))).to(cuda),
-        patch_embeddings=torch.from_numpy(rng.standard_normal((2, 16, 48), np.float32)).to(cuda),
-        lengths=torch.tensor([128, 90], device=cuda))
-    grads = []
-    for impl in ("pallas", "xla"):
-        m = model(impl)
-        rngs = DropoutRngs(host=torch.Generator().manual_seed(7))
-        m(**inputs, rngs=rngs)["itm_logits"].sum().backward()
-        grads.append({n: p.grad for n, p in m.named_parameters()})
+        word_ids=torch.from_numpy(rng.integers(0, 100, (2, 128))).to(dev),
+        patch_embeddings=torch.from_numpy(rng.standard_normal((2, 16, 48), np.float32)).to(dev),
+        lengths=torch.tensor([128, 90], device=dev))
+    rngs = DropoutRngs(host=torch.Generator().manual_seed(7),
+                       device=torch.Generator(dev).manual_seed(8))
+    model(**inputs, rngs=rngs)["itm_logits"].sum().backward()
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+def test_fused_model_grads_match_dense(cuda):
+    """The model with attention_impl="pallas" gets gradients for every
+    parameter through the kernels, and they match the same model with
+    dense attention (autograd through the plain version)."""
+    _assert_model_grads_close(_model_grads(cuda, "pallas"), _model_grads(cuda, "xla"))
+
+
+def test_windowed_remat_model_grads_match_dense(cuda):
+    """The same with the sliding window (24, auto global prefix 18) and
+    remat: the windowed kernels run twice forward and once backward per
+    layer, and hidden dropout replays its masks in the recompute."""
+    counts = _window_counts()
+    extra = dict(attention_window=24, remat=True, hidden_dropout_prob=0.1)
+    got = _model_grads(cuda, "pallas", **extra)
+    assert np.subtract(_window_counts(), counts).tolist() == [0, 4, 0, 0, 2, 2]
+    _assert_model_grads_close(got, _model_grads(cuda, "xla", **extra))
+
+
+def _assert_model_grads_close(got, want):
     errors = {}
-    for name, g in grads[0].items():
-        want = grads[1][name]
-        assert g is not None and want is not None, name
-        errors[name] = (g - want).norm().item() / gradient_scale(grads[1], name)
+    for name, g in got.items():
+        assert g is not None and want[name] is not None, name
+        errors[name] = (g - want[name]).norm().item() / gradient_scale(want, name)
     assert max(errors.values()) <= MODEL_GRAD_BOUND, sorted(errors.items(), key=lambda kv: -kv[1])[:5]
 
 
