@@ -88,6 +88,37 @@ Phases, each printed as one JSON line:
    on, hidden and attention dropout 0.1 from the same seeds: relative
    Frobenius error within TRAIN_GRAD_BOUND.
 
+17. probe_split: the far / structured split schedule as two probe passes
+   (``probes.split_probe``): each pass and their logsumexp combine against
+   the plain versions and the one-pass kernel at the check lengths (the o /
+   lse bounds of phase 3), then the probe's entry point at the retrieval
+   shape: far pass, structured pass, one-pass kernel, the share of far
+   tiles; each pass also against its bound and against
+   ``scaled_dot_product_attention`` handed the bias and the class mask.
+18. probe_op_cost: every variant of the op-cost probe
+   (``probes.op_cost_probe``) against its plain version at the retrieval
+   shape (and, inside the probe's entry point, at B=1, H=2, S=512), then
+   the entry point's timings at the retrieval shape: ms per variant and
+   the delta against the baseline.
+19. probe_hopper: every primitive probe of ``probes.hopper_probe`` (wgmma,
+   TMA load / store, cp.async ring, ldmatrix.trans + stmatrix, cluster
+   shared memory, 227 KB shared memory, setmaxnreg, red.v4.f32) against its
+   plain version; any status other than OK fails the run.
+20. predict_cli: synthetic Flickr30k-style records (16 images x 40 captions
+   = 640 pairs, PNG images, a generated vocab, an ``input_meta_data`` JSON
+   with ``max_seq_length`` 256), a seeded random checkpoint of the
+   full-width model of configs/exp_yamls/finetune/flickr30k/
+   itm_2d_from_vit.yaml (built in Python), then
+   ``mmt_tpu_torch.cli.predict.main`` at batch 128: 640 rows in
+   ``results.csv``, the 8 keys of ``recall.json``, 12 forward-kernel
+   launches per batch, every score finite and in [0, 1]; on the first
+   batch, against the same model with dense attention, the scores and the
+   ITM logits within 4 bf16 spacings and the encoder's output on real rows
+   within SEQUENCE_REL_BOUND of its norm; the forward kernel against its
+   plain version at this path's shape (B=128, S=256, the first batch's
+   lengths, no dropout; the o / lse bounds of phase 3); pairs/s of the whole call, of the host part (records ->
+   batches) and of the device part (batches -> scores).
+
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises, so the exit code is not 0 and no result is
 printed; so does a machine without a CUDA device or a directory without
@@ -1248,6 +1279,404 @@ def phase_train_window_reference():
         raise AssertionError(f"{worst_name}: gradient error {worst} > {TRAIN_GRAD_BOUND}")
 
 
+# ------------------------------------------------------------------ probes
+
+
+def probe_entry(name, source, replaces, err, ms, plain_ms, flops, nbytes, library_ms=None):
+    """One row of the ``kernels`` line for a probe kernel; ``launches`` is
+    filled in from the probe's entry-point run."""
+    flops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(flops_ms, bytes_ms),
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms}
+
+
+def require_launched(entries, where) -> None:
+    missing = [e["name"] for e in entries if not e["launches"]]
+    if missing:
+        raise AssertionError(f"{where}: no launch of {missing} in the entry point's run")
+
+
+def split_pass_pairs(geo, lengths, seq_len):
+    """Real (query, key) pairs in far and in structured tiles, summed over
+    the batch: what each pass's products must cover."""
+    from mmt_tpu_torch.probes import split_probe as sp
+
+    classes = sp.tile_classes(geo, seq_len)
+    far = struct = 0
+    for length in lengths:
+        n = -(-length // sp.TILE)
+        real = np.minimum(sp.TILE, length - np.arange(n) * sp.TILE).astype(np.float64)
+        pairs = real[:, None] * real[None, :]
+        is_far = classes[:n, :n] != sp.STRUCTURED
+        far += pairs[is_far].sum()
+        struct += pairs[~is_far].sum()
+    return far, struct
+
+
+def phase_probe_split():
+    from mmt_tpu_torch.ops import fused_attention as fa
+    from mmt_tpu_torch.probes import common, split_probe as sp
+
+    checks = sp.check(CHECK_LENGTHS, seed=1)
+    lengths = common.retrieval_lengths()
+    q, k, v, table, lens = common.attention_inputs(lengths, seed=3)
+    geo = common.FLAGSHIP
+    rel = fa.kernel_rel_table(table)
+    # Each pass at the retrieval shape: plain version and the library
+    # yardstick (SDPA handed the bias, the length mask and the class mask).
+    classes = torch.from_numpy(sp.tile_classes(geo, SEQ_LEN) != sp.STRUCTURED).cuda()
+    in_far = classes.repeat_interleave(sp.TILE, 0).repeat_interleave(sp.TILE, 1)
+    mask = materialised_bias(q, table, geo, lens)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    plain_ms, library_ms = {}, {}
+    for far in (True, False):
+        plain_ms[far] = cuda_ms(lambda: sp.split_pass_plain(q, k, v, table, geo, lens, far),
+                                iters=1, warmup=0)
+        class_mask = mask.masked_fill((in_far != far)[None, None], fa.NEG_INF)
+        library_ms[far] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=class_mask), iters=3)
+        del class_mask
+    del mask
+    torch.cuda.empty_cache()
+
+    sp.split_pass.launches_far = sp.split_pass.launches_structured = 0
+    result = sp.run()  # the probe's entry point: its checks, then its timings
+    times = result["times"]
+    far_pairs, struct_pairs = split_pass_pairs(geo, lengths, SEQ_LEN)
+    L = float(np.sum(lengths))
+    row_bytes = HEADS * HEAD_DIM * 2
+    # q, k, v read once; o (fp32) and lse written once.
+    nbytes = 3 * L * row_bytes + BATCH * SEQ_LEN * HEADS * HEAD_DIM * 4 + BATCH * HEADS * SEQ_LEN * 4
+    source = "mmt_tpu_torch/csrc/probe_split.cu"
+    replaces = "scripts/split_probe.py:32 (one_pass over one list of _split_tile_lists, P1)"
+    entries = [
+        probe_entry("probe_split_far", source, replaces,
+                    checks["far_vs_plain"]["o"], times["far_ms"], plain_ms[True],
+                    4 * far_pairs * HEAD_DIM * HEADS + 2 * L * 2 * HEAD_DIM * HEADS, nbytes,
+                    library_ms[True]),
+        probe_entry("probe_split_structured", source, replaces,
+                    checks["structured_vs_plain"]["o"], times["structured_ms"], plain_ms[False],
+                    4 * struct_pairs * HEAD_DIM * HEADS + 2 * L * REL_VOCAB * HEAD_DIM * HEADS,
+                    nbytes, library_ms[False]),
+    ]
+    entries[0]["launches"] = sp.split_pass.launches_far
+    entries[1]["launches"] = sp.split_pass.launches_structured
+    require_launched(entries, "probe_split")
+    emit({"phase": "probe_split", "checks": checks, "entry_point_checks": result["checks"],
+          **times, "far_pairs": far_pairs, "structured_pairs": struct_pairs,
+          "plain_ms": {"far": plain_ms[True], "structured": plain_ms[False]},
+          "library_ms": {"far": library_ms[True], "structured": library_ms[False]}})
+    return entries
+
+
+def phase_probe_op_cost():
+    from mmt_tpu_torch.probes import common, op_cost_probe as oc
+
+    # Every variant against its plain version at the retrieval shape, on the
+    # inputs the entry point times the kernel on; the plain version's one
+    # call (it loops over the examples) is timed as it is made.
+    lengths = common.retrieval_lengths()
+    q, k, v, table, lens = common.attention_inputs(lengths, seed=3)
+    errors, bounds, plain_ms = {}, {}, {}
+    for name in oc.VARIANTS:
+        want = []
+        plain_ms[name] = cuda_ms(lambda: want.append(oc.op_cost_plain(
+            name, q, k, v, table, common.FLAGSHIP, lens)), iters=1, warmup=0)
+        got = oc.op_cost(name, q, k, v, table, common.FLAGSHIP, lens)
+        torch.cuda.synchronize()
+        bounds[name] = oc.PV_RETRIEVAL_REL_BOUND if name == "pv" else oc.REL_BOUND
+        errors[name] = oc.relative_error(name, got, want[0], bounds[name])  # raises above it
+        del want, got
+    del q, k, v
+
+    for name in oc.VARIANTS:
+        oc.op_cost.launches[name] = 0
+    # The probe's entry point: its checks (B=1, H=2, S=512), then its timings.
+    result = oc.run()
+    visited = np.asarray([-(-n // oc.TILE) * oc.TILE for n in lengths], np.float64)
+    row_bytes = HEADS * HEAD_DIM * 2
+    out_bytes = BATCH * HEADS * SEQ_LEN * 4
+    # Columns of q . R^T a variant reads: column 0 is in every written sum.
+    qr_columns = {"gather": REL_VOCAB, "rank1": 3}
+    entries = []
+    for name in oc.VARIANTS:
+        reads_v = name in ("pv", "kt_store", "ldmatrix_trans")
+        flops = 2 * (visited**2).sum() * HEAD_DIM * HEADS * (2 if name == "pv" else 1) \
+            + 2 * visited.sum() * qr_columns.get(name, 1) * HEAD_DIM * HEADS
+        nbytes = (3 if reads_v else 2) * visited.sum() * row_bytes + out_bytes
+        entry = probe_entry(
+            f"probe_op_cost_{name}", "mmt_tpu_torch/csrc/probe_op_cost.cu",
+            "scripts/op_cost_probe.py:213 (bench over make's variants, P2)",
+            errors[name], result["ms"][name], plain_ms[name], flops, nbytes)
+        entry["err_relative_to"] = "max |plain| at the retrieval shape"
+        entry["rel_bound"] = bounds[name]
+        entry["launches"] = oc.op_cost.launches[name]
+        entries.append(entry)
+    require_launched(entries, "probe_op_cost")
+    emit({"phase": "probe_op_cost", "rel_errors": errors, "rel_bounds": bounds,
+          "small_shape_rel_errors": result["rel_errors"], "small_shape": oc.CHECK_SHAPE,
+          "shape": result["shape"], "ms": result["ms"], "delta_ms": result["delta_ms"],
+          "plain_ms": plain_ms})
+    return entries
+
+
+def phase_probe_hopper():
+    from mmt_tpu_torch.probes import hopper_probe as hp
+
+    entries = []
+    for name, (_, kernel, plain, atol) in hp.PROBES.items():
+        err = hp.run_probe(name)  # raises above the probe's tolerance
+        inputs = hp.probe_inputs(name)
+        nbytes = sum(t.numel() * t.element_size() for t in inputs)
+        out = plain(*inputs)
+        nbytes += out.numel() * out.element_size()
+        flops = 2 * 64 * 64 * 64 if name.startswith("wgmma") else 0
+        plain_ms = cuda_ms(lambda: plain(*inputs), iters=20)
+        # The library yardstick: one ATen call that computes the function.
+        # For the copies, the transpose, the flips and the column sum that
+        # is the plain version itself (clone, contiguous, flip, sum); for
+        # wgmma one cuBLAS product of the bf16 inputs; 3 x + 1 takes two
+        # calls, so setmaxnreg has none.
+        if name.startswith("wgmma"):
+            a, b = inputs
+            library_ms = cuda_ms(lambda: torch.mm(a, b.T), iters=20)
+        else:
+            library_ms = None if name == "setmaxnreg" else plain_ms
+        entries.append(probe_entry(
+            f"probe_hopper_{name}", "mmt_tpu_torch/csrc/probe_hopper.cu",
+            "scripts/mosaic_probe.py:26-125 (probe_*, P3)", err,
+            cuda_ms(lambda: kernel(*inputs), iters=20), plain_ms, flops, nbytes, library_ms))
+        entries[-1]["atol"] = atol
+    for name in hp.launches:
+        hp.launches[name] = 0
+    status = hp.run()  # the probe's entry point: one status per probe
+    for entry, name in zip(entries, hp.PROBES):
+        entry["launches"] = hp.launches[name]
+    emit({"phase": "probe_hopper", "status": status,
+          "max_abs_err": {e["name"]: e["max_abs_err"] for e in entries}})
+    bad = {name: s for name, s in status.items() if s != "OK"}
+    if bad:
+        raise AssertionError(f"Hopper primitive probes not OK: {bad}")
+    require_launched(entries, "probe_hopper")
+    return entries
+
+
+# ------------------------------------------------------------- predict CLI
+
+CLI_IMAGES, CLI_TEXTS, CLI_BATCH, CLI_SEQ = 16, 40, 128, 256
+CLI_VOCAB_SIZE, CLI_WORDS = 30522, 2000
+# The encoder's fp32 output after 12 bf16 layers, kernels against dense
+# attention (which sums in another order and rounds p at another place):
+# about 5 bf16 spacings of relative Frobenius error per example.
+SEQUENCE_REL_BOUND = 2e-2
+
+
+def flickr_experiment(vocab_path: str, attention_impl="pallas") -> dict:
+    """configs/exp_yamls/finetune/flickr30k/itm_2d_from_vit.yaml as nested
+    overrides of mmt/classification (written out as JSON text, which the
+    config loader reads without a yaml package): L12/H768/A12, I3072, P=14,
+    r=1, text distance 12, relative vocab 49, bf16."""
+    data = {"seed": 128, "cycle_length": 8, "vocab_filename": vocab_path, "pos_weight": 1.0,
+            "max_seq_len": CLI_SEQ, "image_data_field": "image_data",
+            "image_key_field": "image_key",
+            "text_special_token_field_dict": '{"caption": "[ATT]"}', "tasks": "itm",
+            "negative_positive_ratio": 3, "relative_att_num_core_layers": 1}
+    return {
+        "task": {
+            "model": {
+                "encoder": {"type": "mmt", "mmt": {
+                    "relative_att_num_core_layers": 1, "relative_pos_max_distance": 12,
+                    "relative_vocab_size": 49, "attention_impl": attention_impl,
+                    "compute_dtype": "bfloat16", "max_absolute_position_embeddings": 578}},
+                "cls_heads": [{"inner_dim": 768, "num_classes": 2, "name": "itm"}],
+                "num_classes": 2},
+            "train_data": {**data, "is_training": True, "drop_remainder": True,
+                           "global_batch_size": 512, "use_rand_aug": True},
+            "validation_data": {**data, "is_training": False, "drop_remainder": False,
+                                "global_batch_size": 256}},
+        "trainer": {"checkpoint_interval": 5000, "max_to_keep": 32, "steps_per_loop": 1000,
+                    "summary_interval": 1000, "train_steps": 6792, "validation_interval": 566,
+                    "validation_steps": -1,
+                    "optimizer_config": {
+                        "polynomial": {"initial_learning_rate": 1.0e-05, "decay_steps": 6792},
+                        "warmup": {"warmup_steps": 679}},
+                    "best_checkpoint_export_subdir": "best_ckpt",
+                    "best_checkpoint_eval_metric": "cls_accuracy",
+                    "best_checkpoint_metric_comp": "higher"}}
+
+
+def write_flickr_records(root: Path, seed: int = 0) -> dict:
+    """Seeded Flickr30k-style image records and text records, a BERT-layout
+    vocab file and the ``input_meta_data`` JSON; returns their paths."""
+    import io
+
+    from PIL import Image
+
+    from mmt_tpu_torch.data.tfrecord import TFRecordWriter, build_example
+
+    rng = np.random.default_rng(seed)
+    words = [f"w{i:04d}" for i in range(CLI_WORDS)]
+    vocab = (["[PAD]", "[ATT]", "[REF]", "[PATCH]"] + [f"[unused{i}]" for i in range(3, 99)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"[unused{i}]" for i in range(99, 994)]
+             + words)
+    vocab += [f"##s{i}" for i in range(CLI_VOCAB_SIZE - len(vocab))]
+    assert vocab.index("[unused99]") == 104 and len(vocab) == CLI_VOCAB_SIZE
+    (root / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    with TFRecordWriter(str(root / "images.tfrecord")) as w:
+        for i in range(CLI_IMAGES):
+            buf = io.BytesIO()
+            Image.fromarray(rng.integers(0, 256, (224, 224, 3), dtype=np.uint8)).save(
+                buf, format="PNG")
+            w.write(build_example({"image_data": [buf.getvalue()],
+                                   "image_key": [f"flickr{i}".encode()], "image_index": [i]}))
+    with TFRecordWriter(str(root / "texts.tfrecord")) as w:
+        for t in range(CLI_TEXTS):
+            caption = " ".join(rng.choice(words, size=int(rng.integers(8, 25))))
+            w.write(build_example({"caption": [caption.encode()], "text_index": [t],
+                                   "gt_image_index": [t % CLI_IMAGES]}))
+    meta = {"max_seq_length": CLI_SEQ,
+            "test_image_input_path": str(root / "images.tfrecord"),
+            "test_text_input_path": str(root / "texts.tfrecord"),
+            "test_num_image_examples": CLI_IMAGES, "test_num_text_examples": CLI_TEXTS}
+    (root / "meta.json").write_text(json.dumps(meta))
+    return meta
+
+
+def phase_predict_cli() -> int:
+    """Records -> ``cli.predict.main`` -> results.csv + recall.json at full
+    width; returns the forward kernel's launches in the CLI's run."""
+    from mmt_tpu_torch.cli import predict as cli_predict
+    from mmt_tpu_torch.configs import get_experiment_config, override
+    from mmt_tpu_torch.data.loaders import MmtRetrievalLoader
+    from mmt_tpu_torch.eval.predict import (MODEL_INPUT_KEYS, make_inference_step, predict,
+                                            scores_from_logits)
+    from mmt_tpu_torch.models import MmtClassificationModel
+    from mmt_tpu_torch.train.checkpoint import CheckpointManager
+    from mmt_tpu_torch.train.tasks import ClassificationTask
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        meta = write_flickr_records(root)
+        experiment = flickr_experiment(str(root / "vocab.txt"))
+        (root / "experiment.json").write_text(json.dumps(experiment))
+        cfg = override(get_experiment_config("mmt/classification"), experiment)
+        task = ClassificationTask(cfg.task, cfg.trainer, seed=4)
+        CheckpointManager(str(root / "ckpt")).save(0, task.model)
+
+        # The native data library is looked for (and, where it is missing,
+        # built) once per process: before the clock, and reported apart.
+        from mmt_tpu_torch.data import native
+
+        t0 = time.perf_counter()
+        native_available = native.available()
+        native_s = time.perf_counter() - t0
+        # The host part alone: records -> tokenizer -> batches.
+        data_cfg = cli_predict.build_retrieval_data_config(cfg.task.train_data, meta, "test",
+                                                           CLI_BATCH)
+        t0 = time.perf_counter()
+        batches = list(MmtRetrievalLoader(data_cfg).load())
+        host_s = time.perf_counter() - t0
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cli_predict.main([
+            f"--config_file={root / 'experiment.json'}",
+            f"--input_meta_data_path={root / 'meta.json'}", "--predict_split=test",
+            f"--init_checkpoint={root / 'ckpt'}", f"--test_output_dir={root / 'out'}",
+            f"--predict_global_batch_size={CLI_BATCH}"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts = launch_counts()
+        rows = Path(root, "out", "results.csv").read_text().splitlines()
+        recall = json.loads(Path(root, "out", "recall.json").read_text())
+
+    num_pairs = CLI_IMAGES * CLI_TEXTS
+    num_layers = cfg.task.model.encoder.mmt.num_hidden_layers
+    if counts["fwd"] != num_layers * len(batches) or len(batches) != 5 \
+            or any(v for k, v in counts.items() if k != "fwd"):
+        raise AssertionError(f"launches {counts}, expected fwd = {num_layers} x 5 batches")
+    if rows[0] != "image_index,text_index,gt_image_index,output" or len(rows) != 1 + num_pairs:
+        raise AssertionError(f"results.csv: {len(rows)} lines, header {rows[0]!r}")
+    keys = [f"{d} @ {k:>2}" for d in ("i2t", "t2i") for k in (1, 3, 5, 10)]
+    if list(recall) != keys:
+        raise AssertionError(f"recall.json keys {list(recall)}")
+    table = np.asarray([[float(x) for x in r.split(",")] for r in rows[1:]])
+    scores = table[:, 3]
+    if not np.all(np.isfinite(scores)) or scores.min() < 0 or scores.max() > 1:
+        raise AssertionError(f"bad scores: {scores}")
+    pairs = {(int(i), int(t)) for i, t in table[:, :2]}
+    if pairs != {(i, t) for i in range(CLI_IMAGES) for t in range(CLI_TEXTS)}:
+        raise AssertionError("results.csv does not hold every (image, text) pair once")
+
+    # The device part alone (batches -> scores), then the first batch
+    # against the same weights with dense attention.
+    step = make_inference_step(task.model)
+    t0 = time.perf_counter()
+    again = np.asarray([r.output for r in predict(step, batches)])
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    if np.abs(np.clip(again, 0, 1) - scores).max() > 1e-8 + 5e-9:  # the csv's 8 decimals
+        raise AssertionError("the CLI's scores differ from the same model run again")
+    dense_model = MmtClassificationModel(
+        override(cfg, flickr_experiment("", "xla")).task.model,
+        num_patch_per_row=data_cfg.num_patch_per_row)
+    dense_model.load_state_dict(task.model.state_dict())
+    inputs = {k: torch.as_tensor(np.asarray(batches[0][k])).cuda()
+              for k in MODEL_INPUT_KEYS if k in batches[0]}
+    with torch.inference_mode():
+        fused_out, dense_out = task.model(**inputs), dense_model(**inputs)
+    head = cfg.task.model.cls_heads[0]
+    dense = scores_from_logits(dense_out["itm_logits"], head.num_classes).cpu().numpy()
+    err = float(np.abs(dense - scores[:CLI_BATCH]).max())
+    bound = 4 * 2.0 ** -8  # 4 bf16 spacings just below 1, the scores' upper end
+    # With random weights every score lies within about 0.02 of the others,
+    # so the scores say little.  Two closer readings of the same forward: the
+    # ITM logits (4 bf16 spacings at the largest logit, as phase reference),
+    # and the encoder's output on the real rows, whose elements vary by
+    # about 1: per example ||fused - dense|| <= SEQUENCE_REL_BOUND ||dense||.
+    logit_err = (fused_out["itm_logits"] - dense_out["itm_logits"]).abs().max().item()
+    logit_scale = dense_out["itm_logits"].abs().max().item()
+    logit_bound = 4 * 2.0 ** (math.floor(math.log2(logit_scale)) - 7)
+    real = (torch.arange(CLI_SEQ, device="cuda")[None] < inputs["lengths"][:, None])[..., None]
+    diff = ((fused_out["sequence_output"] - dense_out["sequence_output"]) * real).flatten(1)
+    seq_err = (diff.norm(dim=1)
+               / (dense_out["sequence_output"] * real).flatten(1).norm(dim=1)).max().item()
+
+    # The forward kernel alone at this path's attention shape and the first
+    # batch's lengths, without dropout, against its plain version.
+    err_o, err_lse = kernel_errors(attention_inputs(batches[0]["lengths"].tolist(), seed=5,
+                                                    seq_len=CLI_SEQ))
+    emit({"phase": "predict_cli", "pairs": num_pairs, "batches": len(batches),
+          "batch": CLI_BATCH, "seq_len": CLI_SEQ, "launches": counts["fwd"],
+          "cli_seconds": cli_s, "host_seconds": host_s, "device_seconds": device_s,
+          "pairs_per_s_cli": num_pairs / cli_s, "pairs_per_s_host": num_pairs / host_s,
+          "pairs_per_s_device": num_pairs / device_s,
+          "host_share": host_s / (host_s + device_s),
+          "native_library": {"available": native_available, "lookup_seconds": native_s},
+          "score_range": [float(scores.min()), float(scores.max())],
+          "max_abs_err_vs_dense_first_batch": err, "bound": bound,
+          "max_abs_err_itm_logits": logit_err, "logit_bound": logit_bound,
+          "logit_scale": logit_scale, "max_rel_err_sequence_output": seq_err,
+          "sequence_bound": SEQUENCE_REL_BOUND,
+          "kernel_shape": [CLI_BATCH, CLI_SEQ, HEADS, HEAD_DIM], "max_abs_err_o": err_o,
+          "o_bound": O_BOUND, "max_abs_err_lse": err_lse, "lse_bound": LSE_BOUND,
+          "recall": recall})
+    if not err <= bound:
+        raise AssertionError(f"fused and dense scores differ by {err} > {bound}")
+    if not logit_err <= logit_bound:
+        raise AssertionError(f"fused and dense ITM logits differ by {logit_err} > {logit_bound}")
+    if not seq_err <= SEQUENCE_REL_BOUND:
+        raise AssertionError(f"fused and dense encoder outputs differ by {seq_err} of the "
+                             f"dense norm > {SEQUENCE_REL_BOUND}")
+    if not (err_o <= O_BOUND and err_lse <= LSE_BOUND):
+        raise AssertionError(f"kernel disagrees with plain at {[CLI_BATCH, CLI_SEQ]}: "
+                             f"o {err_o} lse {err_lse}")
+    return counts["fwd"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1274,8 +1703,9 @@ def main() -> int:
     entry["max_abs_err"] = max(entry["max_abs_err"], phase_kernel_dropout())
     bwd_entries = phase_kernel_bwd()
     task, cfg, train_launches = phase_train()
-    # The forward runs on both main paths: retrieval (phase main) and
-    # pretraining (phase train); the backward on the second.
+    # The forward runs on three main paths: retrieval (phase main),
+    # pretraining (phase train) and the predict CLI (phase predict_cli,
+    # added below); the backward on the second.
     entry["launches"] = launches + train_launches["fwd"]
     bwd_entries[0]["launches"] = train_launches["bwd_dq"]
     bwd_entries[1]["launches"] = train_launches["bwd_dkv"]
@@ -1293,8 +1723,10 @@ def main() -> int:
     del task
     torch.cuda.empty_cache()
     phase_train_window_reference()
+    probe_entries = [*phase_probe_split(), *phase_probe_op_cost(), *phase_probe_hopper()]
+    entry["launches"] += phase_predict_cli()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    kernels = {"kernels": [entry, *bwd_entries, win_entry, *win_bwd_entries]}
+    kernels = {"kernels": [entry, *bwd_entries, win_entry, *win_bwd_entries, *probe_entries]}
     print(json.dumps(kernels), flush=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.jsonl").write_text("\n".join(_lines + [json.dumps(kernels)]) + "\n")

@@ -64,7 +64,9 @@ def _check_ported(args, cfg) -> None:
             f"--mode={args.mode} is not ported yet (validation, eval and continuous "
             f"finetuning need the record loaders and checkpoints)")
     if not isinstance(cfg.task, PretrainingTaskConfig):
-        raise NotImplementedError(f"task {type(cfg.task).__name__} is not ported yet")
+        raise NotImplementedError(
+            f"task {type(cfg.task).__name__}: finetuning is not ported yet (the "
+            f"classification and retrieval experiments run through cli.predict only)")
     if cfg.task.train_data.input_path != "dummy":
         raise NotImplementedError(
             f"train_data.input_path={cfg.task.train_data.input_path!r}: the record "

@@ -7,9 +7,15 @@ from mmt_tpu_torch.configs.base import (  # noqa: F401
     parse_params_override,
     to_dict,
 )
-from mmt_tpu_torch.configs.data import MmtDataConfig, MmtPretrainDataConfig  # noqa: F401
+from mmt_tpu_torch.configs.data import (  # noqa: F401
+    MmtClassificationDataConfig,
+    MmtDataConfig,
+    MmtPretrainDataConfig,
+    MmtRetrievalDataConfig,
+)
 from mmt_tpu_torch.configs.encoder import EncoderConfig, MmtEncoderConfig  # noqa: F401
 from mmt_tpu_torch.configs.experiments import (  # noqa: F401
+    ClassificationTaskConfig,
     ExperimentConfig,
     PretrainingTaskConfig,
     RuntimeConfig,

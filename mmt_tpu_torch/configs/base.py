@@ -2,13 +2,16 @@
 
 PyTorch-port copy of ``mmt_tpu/configs/base.py``: the same strict-key
 override semantics, so a yaml written for the JAX package loads here to
-the same field values.  ``yaml`` is imported only by the two functions
-that parse yaml, so the rest of the package imports without it.
+the same field values.  ``yaml`` is imported only where text is parsed,
+so the rest of the package imports without it; on a machine without
+pyyaml, text that is JSON (the subset of yaml that ``cli.train`` writes as
+``params.yaml``) still loads.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import typing
 from typing import Any, Dict, TypeVar
 
@@ -82,23 +85,49 @@ def _element_type(annotation):
     return None
 
 
-def from_yaml_file(cfg: T, path: str, strict: bool = True) -> T:
-    import yaml
+class _NotParsed(ValueError):
+    pass
 
+
+def _parse_text(text: str) -> Any:
+    """JSON or yaml text -> value.  JSON goes through ``json`` (yaml 1.1
+    reads JSON's ``1e-05`` as a string); anything else needs pyyaml."""
+    json_error = None
+    try:
+        return json.loads(text)
+    except ValueError as e:
+        json_error = e
+    try:
+        import yaml
+    except ImportError:
+        raise _NotParsed(
+            f"pyyaml is not installed and this is not JSON: {json_error}") from json_error
+    try:
+        return yaml.safe_load(text)
+    except yaml.YAMLError as e:
+        raise _NotParsed(str(e)) from e
+
+
+def from_yaml_file(cfg: T, path: str, strict: bool = True) -> T:
     with open(path) as f:
-        overrides = yaml.safe_load(f) or {}
+        overrides = _parse_text(f.read()) or {}
     return override(cfg, overrides, strict=strict)
+
+
+def _parse_scalar(text: str) -> Any:
+    try:
+        return _parse_text(text)
+    except _NotParsed:
+        return text.strip()
 
 
 def parse_params_override(cfg: T, params_override: str, strict: bool = True) -> T:
     """Applies a ``a.b.c=v,x.y=w`` or yaml/json string override."""
     if not params_override:
         return cfg
-    import yaml
-
     try:
-        data = yaml.safe_load(params_override)
-    except yaml.YAMLError:
+        data = _parse_text(params_override)
+    except _NotParsed:
         data = None
     if not isinstance(data, dict):
         data = {}
@@ -108,5 +137,5 @@ def parse_params_override(cfg: T, params_override: str, strict: bool = True) -> 
             parts = key.strip().split(".")
             for p in parts[:-1]:
                 sub = sub.setdefault(p, {})
-            sub[parts[-1]] = yaml.safe_load(value)
+            sub[parts[-1]] = _parse_scalar(value)
     return override(cfg, data, strict=strict)

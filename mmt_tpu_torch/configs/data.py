@@ -1,9 +1,10 @@
-"""Data configurations: the fields of ``mmt_tpu/configs/data.py`` that the
-pretraining slice uses (``MmtDataConfig``, ``MmtPretrainDataConfig``).
+"""Data configurations, with the fields and defaults of
+``mmt_tpu/configs/data.py`` so that the JAX package's yaml loads here to
+the same values.
 
-The port has no record loaders yet: only ``input_path: dummy`` runs (see
-``mmt_tpu_torch.data.dummy``); the loader fields are kept so that the JAX
-package's yaml loads here to the same values.
+Record loaders: retrieval (``mmt_tpu_torch.data.loaders``).  Pretraining
+runs on ``input_path: dummy`` only (``mmt_tpu_torch.data.dummy``); its
+loader and the classification loader are not ported yet.
 """
 
 from __future__ import annotations
@@ -79,3 +80,30 @@ class MmtPretrainDataConfig(MmtDataConfig):
     output_channel_bits: int = 3
     use_patch_mask_token_id: bool = False
     min_text_wordpieces: int = 6
+
+
+@dataclasses.dataclass
+class MmtClassificationDataConfig(MmtDataConfig):
+    """Classification data (same fields and defaults as the JAX package)."""
+
+    negative_positive_ratio: int = 1
+    pos_weight: float = 1.0
+
+
+@dataclasses.dataclass
+class MmtRetrievalDataConfig(MmtDataConfig):
+    """Retrieval data (same fields and defaults as the JAX package)."""
+
+    is_training: bool = False
+    drop_remainder: bool = False
+    include_image_text_index: bool = True
+    pos_weight: float = 1.0
+    # Either paired records (input_path) or an on-the-fly cross product of
+    # separate image x text record files.
+    image_input_path: str = ""
+    text_input_path: str = ""
+    num_image_examples: int = 0
+    num_text_examples: int = 0
+    # Cross-product RAM bound: decoded text features beyond this count
+    # are re-streamed from disk per image instead of cached.
+    max_cached_text_examples: int = 200_000

@@ -1,7 +1,8 @@
 """Experiment registry and trainer configs (fields of ``mmt_tpu/configs/experiments.py``).
 
-The port registers ``mmt/pretraining`` only; classification and
-retrieval finetuning come with the next slice.  ``RuntimeConfig`` keeps
+The three experiments of the JAX package load here to the same values;
+of ``mmt/classification`` and ``mmt/retrieval`` the port runs the
+inference side (``cli.predict``), not finetuning.  ``RuntimeConfig`` keeps
 the JAX package's mesh fields for yaml compatibility: the port trains on
 one card and ignores them.
 """
@@ -12,9 +13,13 @@ import dataclasses
 from typing import Callable, Dict, Optional
 
 from mmt_tpu_torch.configs.base import Config
-from mmt_tpu_torch.configs.data import MmtPretrainDataConfig
-from mmt_tpu_torch.configs.model import PretrainModelConfig
-from mmt_tpu_torch.configs.optimization import OptimizationConfig
+from mmt_tpu_torch.configs.data import (
+    MmtClassificationDataConfig,
+    MmtPretrainDataConfig,
+    MmtRetrievalDataConfig,
+)
+from mmt_tpu_torch.configs.model import ClassificationModelConfig, PretrainModelConfig
+from mmt_tpu_torch.configs.optimization import OptimizationConfig, PolynomialLrConfig
 
 
 @dataclasses.dataclass
@@ -75,6 +80,26 @@ class PretrainingTaskConfig(Config):
 
 
 @dataclasses.dataclass
+class ClassificationTaskConfig(Config):
+    model: ClassificationModelConfig = dataclasses.field(
+        default_factory=ClassificationModelConfig
+    )
+    init_checkpoint: str = ""
+    init_cls_pooler: bool = False
+    metric_type: str = "accuracy"  # or "auc"
+    label_field: str = "label_ids"
+    label_weights_field: str = "label_weights"
+    logits_field: str = "logits"
+    pos_weights_field: str = "pos_weights"
+    train_data: MmtClassificationDataConfig = dataclasses.field(
+        default_factory=MmtClassificationDataConfig
+    )
+    validation_data: MmtClassificationDataConfig = dataclasses.field(
+        default_factory=lambda: MmtClassificationDataConfig(is_training=False)
+    )
+
+
+@dataclasses.dataclass
 class ExperimentConfig(Config):
     task: Config = dataclasses.field(default_factory=PretrainingTaskConfig)
     trainer: TrainerConfig = dataclasses.field(default_factory=TrainerConfig)
@@ -82,8 +107,6 @@ class ExperimentConfig(Config):
 
 
 _EXPERIMENT_REGISTRY: Dict[str, Callable[[], ExperimentConfig]] = {}
-# Experiments of the JAX package that the port has not ported yet.
-NOT_PORTED = ("mmt/classification", "mmt/retrieval")
 
 
 def register_experiment(name: str, factory: Optional[Callable] = None):
@@ -95,10 +118,6 @@ def register_experiment(name: str, factory: Optional[Callable] = None):
 
 
 def get_experiment_config(name: str) -> ExperimentConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"experiment {name!r} is not ported yet (ClassificationTask and the "
-            f"classification/retrieval loaders come with a later slice)")
     if name not in _EXPERIMENT_REGISTRY:
         raise KeyError(
             f"Unknown experiment {name!r}; known: {sorted(_EXPERIMENT_REGISTRY)}"
@@ -110,4 +129,27 @@ def get_experiment_config(name: str) -> ExperimentConfig:
 def mmt_pretraining() -> ExperimentConfig:
     cfg = ExperimentConfig(task=PretrainingTaskConfig())
     cfg.trainer.optimizer_config.polynomial.initial_learning_rate = 1e-4
+    return cfg
+
+
+@register_experiment("mmt/classification")
+def mmt_classification() -> ExperimentConfig:
+    cfg = ExperimentConfig(task=ClassificationTaskConfig())
+    cfg.trainer.optimizer_config.polynomial = PolynomialLrConfig(
+        initial_learning_rate=3e-5
+    )
+    return cfg
+
+
+@register_experiment("mmt/retrieval")
+def mmt_retrieval() -> ExperimentConfig:
+    cfg = ExperimentConfig(
+        task=ClassificationTaskConfig(
+            train_data=MmtRetrievalDataConfig(is_training=True),
+            validation_data=MmtRetrievalDataConfig(is_training=False),
+        )
+    )
+    cfg.trainer.optimizer_config.polynomial = PolynomialLrConfig(
+        initial_learning_rate=3e-5
+    )
     return cfg

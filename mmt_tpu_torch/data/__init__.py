@@ -1,1 +1,9 @@
-"""Input pipelines of the port (the dummy pretraining stream so far)."""
+"""Input pipelines of the port: TFRecord IO, example assembly, the retrieval
+loader, and the dummy pretraining stream."""
+
+from mmt_tpu_torch.data.tfrecord import (  # noqa: F401
+    TFRecordReader,
+    TFRecordWriter,
+    build_example,
+    parse_example,
+)

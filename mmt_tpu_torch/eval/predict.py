@@ -1,9 +1,11 @@
 """Batched retrieval prediction -> results.csv + recall.json.
 
 Counterpart of ``mmt_tpu/eval/predict.py`` without pandas:
-``predict`` scores every valid example of every batch with the
-reference's logit conversion (sigmoid for one class, softmax[:, 1] for
-two, argmax otherwise) and yields RawResult rows; ``write_results``
+``make_inference_step`` turns a classification model into a function from
+a batch of arrays to scores, with the reference's logit conversion
+(sigmoid for one class, softmax[:, 1] for two, argmax otherwise);
+``predict`` runs it over every batch and yields a RawResult row for every
+valid example; ``write_results``
 clips the scores to [0, 1] and writes ``results.csv`` byte for byte as
 pandas' ``to_csv(index=False, float_format="%.8f")`` would, and
 ``recall.json`` with ``indent=4``.
@@ -16,7 +18,7 @@ import json
 import logging
 import math
 import os
-from typing import Iterable, Iterator, Mapping
+from typing import Callable, Iterable, Iterator, Mapping, Union
 
 import numpy as np
 import torch
@@ -30,7 +32,7 @@ RawResult = collections.namedtuple(
     "RawResult", ["image_index", "text_index", "gt_image_index", "output"]
 )
 
-MODEL_INPUT_KEYS = ("word_ids", "segment_ids", "patch_embeddings", "lengths")
+MODEL_INPUT_KEYS = ("word_ids", "segment_ids", "patch_embeddings", "lengths", "images")
 
 
 def scores_from_logits(logits: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -42,42 +44,53 @@ def scores_from_logits(logits: torch.Tensor, num_classes: int) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).float()
 
 
-def predict(model, batches: Iterable[Mapping], device="cuda") -> Iterator[RawResult]:
-    """Yields RawResult rows for every valid example in every batch.
-
-    ``batches`` are dicts of arrays holding the model inputs plus
-    ``image_index``, ``text_index``, ``gt_image_index`` and optionally
-    ``valid``.  ``model`` is an ``MmtClassificationModel`` on ``device``;
-    its first head's logits are scored.
-    """
+def make_inference_step(model, device="cuda") -> Callable[[Mapping], torch.Tensor]:
+    """batch of arrays -> <float32>[B] scores on ``device``, from the first
+    head's logits of ``model`` (an ``MmtClassificationModel`` on ``device``)."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model is on {model.device}, expected {dev.type}")
     head = model.config.cls_heads[0]
     logits_key = f"{head.name}_logits"
-    count = 0
-    with torch.inference_mode():
-        for step, batch in enumerate(batches, start=1):
+
+    def step(batch: Mapping) -> torch.Tensor:
+        with torch.inference_mode():
             inputs = {k: torch.as_tensor(np.asarray(batch[k])).to(dev)
                       for k in MODEL_INPUT_KEYS if k in batch}
-            logits = model(**inputs)[logits_key]
-            scores = scores_from_logits(logits, head.num_classes).cpu().numpy()
-            valid = np.asarray(batch.get("valid", np.ones(len(scores), np.int32)))
-            img = np.asarray(batch["image_index"])
-            txt = np.asarray(batch["text_index"])
-            gt = np.asarray(batch["gt_image_index"])
-            for i in range(len(scores)):
-                if not valid[i]:
-                    continue
-                count += 1
-                yield RawResult(
-                    image_index=int(img[i]),
-                    text_index=int(txt[i]),
-                    gt_image_index=int(gt[i]),
-                    output=float(scores[i]),
-                )
-            if step % 5 == 0:
-                logger.info("Made predictions for %d examples.", count)
+            return scores_from_logits(model(**inputs)[logits_key], head.num_classes)
+
+    return step
+
+
+def predict(model: Union[torch.nn.Module, Callable], batches: Iterable[Mapping],
+            device="cuda") -> Iterator[RawResult]:
+    """Yields RawResult rows for every valid example in every batch.
+
+    ``batches`` are dicts of arrays holding the model inputs plus
+    ``image_index``, ``text_index``, ``gt_image_index`` and optionally
+    ``valid``.  ``model`` is an ``MmtClassificationModel`` on ``device``, or
+    the inference step made from one (``device`` is then the step's own).
+    """
+    infer = make_inference_step(model, device) if isinstance(model, torch.nn.Module) else model
+    count = 0
+    for step, batch in enumerate(batches, start=1):
+        scores = infer(batch).cpu().numpy()
+        valid = np.asarray(batch.get("valid", np.ones(len(scores), np.int32)))
+        img = np.asarray(batch["image_index"])
+        txt = np.asarray(batch["text_index"])
+        gt = np.asarray(batch["gt_image_index"])
+        for i in range(len(scores)):
+            if not valid[i]:
+                continue
+            count += 1
+            yield RawResult(
+                image_index=int(img[i]),
+                text_index=int(txt[i]),
+                gt_image_index=int(gt[i]),
+                output=float(scores[i]),
+            )
+        if step % 5 == 0:
+            logger.info("Made predictions for %d examples.", count)
     logger.info("Finished predictions for %d examples.", count)
 
 

@@ -24,3 +24,27 @@ def make_att_mask_from_length(seq_len: int, length: torch.Tensor) -> torch.Tenso
     pos = torch.arange(seq_len, dtype=torch.int32, device=length.device)
     real = pos[None, :] < length[..., None] if length.ndim else pos < length
     return make_segmented_att_mask(real)
+
+
+def make_segment_ids(seq_len: int, num_image_wordpieces, num_text_wordpieces) -> torch.Tensor:
+    """Segment ids: 1 for the image part, 2 for the text part, 0 for padding.
+
+    Keeps the reference's off-by-one: the boundary position ``pos ==
+    num_image_wordpieces`` (the first text token) gets segment id 0,
+    because the text segment is a strict ``position > img_wp``.
+
+    Args:
+      seq_len: padded length S.
+      num_image_wordpieces, num_text_wordpieces: <int> scalar or [B].
+
+    Returns:
+      <int32>[S] or <int32>[B, S].
+    """
+    img = torch.as_tensor(num_image_wordpieces)
+    txt = torch.as_tensor(num_text_wordpieces, device=img.device)
+    pos = torch.arange(seq_len, dtype=torch.int32, device=img.device)
+    if img.ndim:
+        pos, img, txt = pos[None, :], img[..., None], txt[..., None]
+    img_segment = torch.where(pos < img, 1, 0)
+    txt_segment = torch.where((pos > img) & (pos < img + txt), 2, 0)
+    return (img_segment + txt_segment).to(torch.int32)

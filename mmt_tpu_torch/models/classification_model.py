@@ -56,8 +56,10 @@ class MmtClassificationModel(nn.Module):
         patch_embeddings: Optional[torch.Tensor] = None,
         lengths: Optional[torch.Tensor] = None,
         rngs: Optional[DropoutRngs] = None,
+        images: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
-        outputs = self.encoder(word_ids, segment_ids, patch_embeddings, lengths, rngs)
+        outputs = self.encoder(word_ids, segment_ids, patch_embeddings, lengths, rngs,
+                               images=images)
         for name, head in self.cls_heads.items():
             outputs[f"{name}_logits"] = head(outputs["sequence_output"], rngs)
         return outputs

@@ -25,8 +25,10 @@ the JAX encoder) attend and are attended everywhere.  ``remat`` recomputes
 each layer's forward in the backward (see ``relative_attention``).
 Unlike the JAX encoder, there is no gate requiring the image block to fit
 one kernel tile: the Hopper kernel applies the 2D ids on every tile that
-meets it.  Not ported yet: the ``images`` input path, MPP ``patch_mask``
-and ``quantize="int8_dynamic"`` (these raise).
+meets it.  ``images`` (raw uint8 or [0, 1] float, already at the model's
+image size) takes the place of ``patch_embeddings``: /255, normalisation and
+patch extraction then run here, on the model's device.  Not ported yet:
+MPP's ``patch_mask`` and ``quantize="int8_dynamic"`` (it raises).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmt_tpu_torch.configs.encoder import MmtEncoderConfig
+from mmt_tpu_torch.features.patches import extract_patches, normalize_image
 from mmt_tpu_torch.models.common import DropoutRngs, dense, layer_norm
 from mmt_tpu_torch.models.embeddings import EmbeddingLookup
 from mmt_tpu_torch.models.relative_attention import RelativeTransformerLayers
@@ -94,6 +97,7 @@ class MmtEncoder(nn.Module):
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
 
         self.config = cfg
+        self.num_patch_per_row = num_patch_per_row
         self.dtype = _DTYPES[cfg.compute_dtype]
         emb_size = cfg.embedding_size or cfg.hidden_size
         self.word_embeddings = EmbeddingLookup(
@@ -134,11 +138,20 @@ class MmtEncoder(nn.Module):
         patch_embeddings: Optional[torch.Tensor] = None,
         lengths: Optional[torch.Tensor] = None,
         rngs: Optional[DropoutRngs] = None,
+        images: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         """Returns ``sequence_output`` [B, S, H] (float32) and, with the
         pooler on, ``pooled_output`` [B, H].  ``rngs`` feeds the dropout
-        in ``train()`` mode (torch's default generators when None)."""
+        in ``train()`` mode (torch's default generators when None).
+        ``images`` (<uint8|float>[B, size, size, 3]) is used when
+        ``patch_embeddings`` is None."""
         batch, seq_len = word_ids.shape
+        if patch_embeddings is None and images is not None:
+            im = images
+            if im.dtype != torch.float32:
+                im = im.to(torch.float32) / 255.0
+            patch_size = im.shape[1] // self.num_patch_per_row
+            patch_embeddings = extract_patches(normalize_image(im), patch_size)
         if segment_ids is None:
             segment_ids = torch.ones_like(word_ids)
         if lengths is None:

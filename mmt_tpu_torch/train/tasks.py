@@ -1,6 +1,7 @@
-"""The pretraining task: MLM + MPP (+ ITM).
+"""The tasks: MLM + MPP (+ ITM) pretraining, and ITM classification /
+retrieval scoring (its inference side).
 
-Torch counterpart of ``mmt_tpu/train/tasks.py:PretrainingTask``:
+Torch counterparts of ``mmt_tpu/train/tasks.py``.  ``PretrainingTask``:
 
 * ``compute_loss``: the model on a batch, weighted sparse CE for MLM and
   MPP (masked on ITM-negative examples when the model has an ``itm`` head
@@ -13,7 +14,11 @@ Torch counterpart of ``mmt_tpu/train/tasks.py:PretrainingTask``:
   metric pairs are summed;
 * ``make_eval_step``: the loss and metrics in ``eval()`` mode, no grad.
 
-``ClassificationTask`` is not ported yet.
+``ClassificationTask`` builds the classification model of a
+``ClassificationTaskConfig`` and gives ``make_inference_step`` (scores from
+the first head's logits: sigmoid / softmax[:, 1] / argmax by the number of
+classes).  Its finetune loss, train and eval steps are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -22,9 +27,14 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from mmt_tpu_torch.configs.experiments import PretrainingTaskConfig, TrainerConfig
+from mmt_tpu_torch.configs.experiments import (
+    ClassificationTaskConfig,
+    PretrainingTaskConfig,
+    TrainerConfig,
+)
 from mmt_tpu_torch.device import resolve_device
-from mmt_tpu_torch.models import DropoutRngs, MmtPretrainingModel
+from mmt_tpu_torch.eval.predict import make_inference_step
+from mmt_tpu_torch.models import DropoutRngs, MmtClassificationModel, MmtPretrainingModel
 from mmt_tpu_torch.train import losses as losses_lib
 from mmt_tpu_torch.train.metrics import weighted_accuracy
 from mmt_tpu_torch.train.train_state import TrainState
@@ -134,3 +144,38 @@ class PretrainingTask:
             return metrics
 
         return step
+
+
+class ClassificationTask:
+    """ITM classification finetune / retrieval scoring on ``device``
+    (default the card); the inference side only."""
+
+    def __init__(self, config: ClassificationTaskConfig, trainer: TrainerConfig,
+                 device="cuda", seed: int = 0):
+        self.config = config
+        self.trainer = trainer
+        self.device = resolve_device(device)
+        data_cfg = config.train_data
+        heads = config.model.cls_heads
+        if not heads:
+            raise ValueError("the classification task scores its first head: "
+                             "model.cls_heads is empty")
+        self.model = MmtClassificationModel(
+            config.model, num_patch_per_row=data_cfg.num_patch_per_row,
+            patch_dim=data_cfg.input_channels * data_cfg.patch_size**2,
+            device=self.device, seed=seed,
+        )
+        self.logits_key = f"{heads[0].name}_logits"
+        self.num_classes = heads[0].num_classes
+
+    def _finetune_not_ported(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ClassificationTask: the finetune loss, train step and eval step are not "
+            "ported yet; make_inference_step is")
+
+    compute_loss = make_train_step = make_eval_step = _finetune_not_ported
+
+    def make_inference_step(self):
+        """Returns batch of arrays -> <float32>[B] scores on the task's
+        device, with the reference's logit conversion."""
+        return make_inference_step(self.model, self.device)

@@ -64,10 +64,9 @@ def test_experiment_defaults_equal():
     from mmt_tpu.configs import get_experiment_config as jax_get_experiment_config
     from mmt_tpu_torch.configs import get_experiment_config
 
-    got = get_experiment_config("mmt/pretraining").as_dict()
-    assert got == jax_get_experiment_config("mmt/pretraining").as_dict()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_experiment_config("mmt/classification")
+    for name in ("mmt/pretraining", "mmt/classification", "mmt/retrieval"):
+        got = get_experiment_config(name).as_dict()
+        assert got == jax_get_experiment_config(name).as_dict(), name
     with pytest.raises(KeyError, match="Unknown experiment"):
         get_experiment_config("mmt/nope")
 
@@ -165,3 +164,85 @@ def test_cli_runs_the_window_yaml_on_dummy_input(tmp_path):
     lines = [json.loads(l) for l in (model_dir / "train_summaries.jsonl").read_text().splitlines()]
     assert [l["step"] for l in lines] == [1, 2]
     assert all(np.isfinite(l["total_loss"]) and np.isfinite(l["itm_loss"]) for l in lines)
+
+
+FINETUNE_YAMLS = sorted((Path(__file__).resolve().parent.parent / "configs" / "exp_yamls"
+                         / "finetune").rglob("*.yaml"))
+
+
+@pytest.mark.parametrize("path", FINETUNE_YAMLS, ids=lambda p: f"{p.parent.name}-{p.stem}")
+def test_finetune_yaml_loads_equal(path):
+    from mmt_tpu.configs import get_experiment_config as jax_get_experiment_config
+    from mmt_tpu_torch.configs import get_experiment_config
+
+    got = from_yaml_file(get_experiment_config("mmt/classification"), str(path))
+    want = jax_from_yaml_file(jax_get_experiment_config("mmt/classification"), str(path))
+    assert got.as_dict() == want.as_dict()
+    assert type(got.task.train_data).__name__ == "MmtClassificationDataConfig"
+
+
+@pytest.mark.parametrize("path", FINETUNE_YAMLS, ids=lambda p: f"{p.parent.name}-{p.stem}")
+def test_json_written_experiment_loads_equal_to_its_yaml(path, tmp_path):
+    """The loader's two parsers agree: an experiment loaded from its yaml,
+    written out as JSON text (where the learning rate reads ``1e-05``, which
+    yaml 1.1 would take for a string) and loaded again holds the same values
+    of the same types."""
+    import json
+
+    from mmt_tpu_torch.configs import get_experiment_config
+
+    want = from_yaml_file(get_experiment_config("mmt/classification"), str(path))
+    text = json.dumps(want.as_dict())
+    assert "e-0" in text  # an exponent without a dot, which the two parsers read differently
+    as_json = tmp_path / "experiment.json"
+    as_json.write_text(text)
+    got = from_yaml_file(get_experiment_config("mmt/classification"), str(as_json))
+    assert got.as_dict() == want.as_dict()
+    assert isinstance(got.trainer.optimizer_config.polynomial.initial_learning_rate, float)
+    assert isinstance(got.task.train_data.global_batch_size, int)
+    assert isinstance(got.task.train_data.pos_weight, float)
+
+
+def test_chip_smoke_predict_config_is_the_flickr30k_yaml(tmp_path):
+    """chip_smoke.py's Python copy of finetune/flickr30k/itm_2d_from_vit.yaml,
+    which it writes out as JSON text for the predict CLI; it differs only in
+    the yaml's placeholders (checkpoint, input pattern, vocab)."""
+    import json
+
+    import chip_smoke
+    from mmt_tpu_torch.configs import get_experiment_config, override
+
+    path = next(p for p in FINETUNE_YAMLS
+                if (p.parent.name, p.stem) == ("flickr30k", "itm_2d_from_vit"))
+    want = from_yaml_file(get_experiment_config("mmt/classification"), str(path)).as_dict()
+    experiment = chip_smoke.flickr_experiment("vocab.txt")
+    got = override(get_experiment_config("mmt/classification"), experiment).as_dict()
+    as_json = tmp_path / "experiment.json"
+    as_json.write_text(json.dumps(experiment))
+    assert from_yaml_file(get_experiment_config("mmt/classification"),
+                          str(as_json)).as_dict() == got
+    for section in (want, got):
+        section["task"]["init_checkpoint"] = None
+        for data in ("train_data", "validation_data"):
+            section["task"][data].update(input_path=None, vocab_filename=None)
+    assert got == want
+
+
+def test_chip_smoke_writes_flickr_style_records(tmp_path):
+    """The records, vocab and meta data that chip_smoke.py feeds the predict
+    CLI load through the retrieval loader into full batches."""
+    import chip_smoke
+    from mmt_tpu_torch.cli.predict import build_retrieval_data_config
+    from mmt_tpu_torch.configs import get_experiment_config, override
+    from mmt_tpu_torch.data.loaders import MmtRetrievalLoader
+
+    meta = chip_smoke.write_flickr_records(tmp_path)
+    cfg = override(get_experiment_config("mmt/classification"),
+                   chip_smoke.flickr_experiment(str(tmp_path / "vocab.txt")))
+    data_cfg = build_retrieval_data_config(cfg.task.train_data, meta, "test", 128)
+    batch = next(iter(MmtRetrievalLoader(data_cfg).load()))
+    assert batch["word_ids"].shape == (128, 256) and batch["valid"].all()
+    assert batch["patch_embeddings"].shape == (128, 196, 768)
+    assert batch["word_ids"].max() < 30522 and (batch["word_ids"] == 100).sum() == 0  # no [UNK]
+    assert batch["lengths"].min() >= 198 + 1 + 8 + 1 and batch["lengths"].max() <= 256
+    assert batch["image_index"].tolist() == [0] * 40 + [1] * 40 + [2] * 40 + [3] * 8

@@ -290,3 +290,39 @@ def gradient_scale(grads, name):
     if name.endswith("attention.key.bias"):
         name = name[: -len("key.bias")] + "query.bias"
     return max(grads[name].norm().item(), 1e-12)
+
+
+# ------------------------------------------------------------------ probes
+# The probe kernels (``mmt_tpu_torch.probes``) against their plain versions;
+# each module's docstring states its tolerance and why.
+
+
+@pytest.mark.parametrize("seq_len,lengths", [(1024, [1024, 700, 257]), (448, [448, 300])],
+                         ids=["s1024", "s448"])
+def test_split_probe_matches_one_pass_and_plain(cuda, seq_len, lengths):
+    from mmt_tpu_torch.probes import split_probe as sp
+
+    sp.split_pass.launches_far = sp.split_pass.launches_structured = 0
+    errors = sp.check(lengths, seed=5, seq_len=seq_len, heads=2)
+    for name in ("far_vs_plain", "structured_vs_plain", "combined_vs_one_pass",
+                 "combined_vs_plain"):
+        assert errors[name]["o"] <= sp.O_BOUND and errors[name]["lse"] <= sp.LSE_BOUND, name
+    assert (sp.split_pass.launches_far, sp.split_pass.launches_structured) == (1, 1)
+
+
+def test_op_cost_probe_variants_match_plain(cuda):
+    from mmt_tpu_torch.probes import op_cost_probe as oc
+
+    before = dict(oc.op_cost.launches)
+    errors = oc.check()
+    assert set(errors) == set(oc.VARIANTS)
+    assert max(errors.values()) <= oc.REL_BOUND
+    assert all(oc.op_cost.launches[name] == before[name] + 1 for name in oc.VARIANTS)
+
+
+def test_hopper_probes_ok(cuda):
+    from mmt_tpu_torch.probes import hopper_probe as hp
+
+    for name in hp.PROBES:
+        assert hp.run_probe(name) <= hp.PROBES[name][3], name
+    assert all(count >= 1 for count in hp.launches.values())

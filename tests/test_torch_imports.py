@@ -18,7 +18,7 @@ REPO = PACKAGE_DIR.parent
 # `mmt_tpu` followed by a dot or a word boundary that is not `_torch`.
 _JAX_PACKAGE = r"mmt_tpu(?!_torch)\b"
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|flax|pandas|" + _JAX_PACKAGE + r")\b", re.MULTILINE)
+    r"^\s*(?:import|from)\s+(?:jax|flax|orbax|pandas|" + _JAX_PACKAGE + r")\b", re.MULTILINE)
 _TOP_LEVEL_YAML = re.compile(r"^(?:import|from)\s+yaml\b", re.MULTILINE)
 
 
@@ -32,14 +32,18 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     for name in ("ops.fused_attention", "models.pretraining_model", "train.tasks",
                  "train.loop", "train.optimizer", "train.losses", "train.metrics",
                  "train.train_state", "data.dummy", "cli.train", "configs.experiments",
-                 "configs.data", "configs.optimization"):
+                 "configs.data", "configs.optimization", "probes.split_probe",
+                 "probes.op_cost_probe", "probes.hopper_probe", "probes.common",
+                 "data.tfrecord", "data.native", "data.assembly", "data.loaders",
+                 "text.wordpiece", "text.trimmer", "text.native", "features.patches",
+                 "cli.predict", "train.checkpoint"):
         assert f"mmt_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'pandas', 'yaml', 'mmt_tpu'))\n"
+        "('jax', 'flax', 'orbax', 'pandas', 'yaml', 'PIL', 'triton', 'mmt_tpu'))\n"
         "print(repr(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
