@@ -30,14 +30,15 @@ Phases, each printed as one JSON line:
    bounds of phase 3) and at the pretraining micro-batch (B=64, S=256),
    rate 0 bit-identical to the call without dropout at both, and the
    kernel's time at rate 0.1 against rate 0, at both shapes below.
-8. kernel_bwd: the two backward kernels against the plain backward at
+8. kernel_bwd: the backward kernel against the plain backward at
    the flagship attention shape (B=32, S=4096, lengths ~ U[2048, 4096])
    and at the pretraining micro-batch (B=64, S=256, lengths ~ U[204,
    256]), each with dropout 0 and 0.1: max abs and relative errors of
    dq, dk, dv (bound: GRAD_REL_BOUND x the plain value's max) and dRel
    (DREL_REL_BOUND x its max, and DREL_ROW_BOUND x each id's own norm),
-   each kernel's device time (profiler), the whole backward's time (CUDA
-   events), the plain backward's, the bound, and the backward of
+   the kernel's device time (profiler), the whole backward's time (CUDA
+   events: the kernel, its buffers' zeroing, the dq cast and the dRel
+   sum), the plain backward's, the bound, and the backward of
    ``scaled_dot_product_attention`` handed the materialised bias (its
    forward+backward time minus its forward time; a yardstick that
    computes no dRel and skips no padding, never called by the port).
@@ -51,7 +52,9 @@ Phases, each printed as one JSON line:
    forward / backward kernels must launch exactly 12 times per
    micro-batch each.
 10. train_profile: device time by kernel group over one micro-batch's
-   forward + backward, and the device's idle share.
+   forward + backward, the device's idle share, and the backward
+   kernel's device time per call inside the step beside its time alone
+   in phase 8.
 11. train_reference: the gradients of every parameter tensor on a 2-example
    micro-batch, kernels against the same model with dense attention
    (autograd through the plain version), with attention dropout 0.1 at
@@ -66,10 +69,12 @@ Phases, each printed as one JSON line:
    ``scaled_dot_product_attention`` handed the bias, length and window
    masks materialised as one additive mask, and against the bound from
    the allowed real pairs.
-13. kernel_bwd_window: both backward kernels' windowed variants at the
+13. kernel_bwd_window: the backward kernel's windowed variant at the
    same shape and rates against the plain backward (the bounds of phase
-   8), each pass's device time, the whole backward's, the plain
-   version's, SDPA's backward with the same mask, and the bounds.
+   8); at window >= S dk and dv bit-identical to the dense kernel, dq
+   within its bound (its fp32 adds come in a run-dependent order); the
+   kernel's device time, the whole backward's, the plain version's,
+   SDPA's backward with the same mask, and the bound.
 14. train_window: the 4k sliding-window pretraining experiment
    (configs/exp_yamls/pretrain/wit/mlm_itm_2d_long4k_window.yaml, built in
    Python: the WIT model at S=4096 with window 512 and the image part
@@ -78,7 +83,7 @@ Phases, each printed as one JSON line:
    synthetic batches (lengths ~ U[2048, 4096]) made on the card; every
    step's losses and accuracies must be finite; per micro-batch the
    windowed forward kernel must launch exactly 24 times (12 layers, each
-   recomputed once by remat) and each windowed backward kernel 12 times,
+   recomputed once by remat) and the windowed backward kernel 12 times,
    the dense kernels never.  Then one micro-batch with remat off and one
    with it on: remat must lower the peak memory.
 15. train_window_profile: device time by kernel group over one windowed
@@ -166,6 +171,8 @@ GRAD_REL_BOUND = 2e-2
 # of a rare id (an image corner, a part id) fails too; rows that are 0 in
 # the plain version (ids no pair has) must be 0.
 DREL_REL_BOUND, DREL_ROW_BOUND = 1e-4, 1e-3
+# The backward kernel's name in profiler traces (rel_attention_bwd.cu).
+BWD_KERNEL = "rel_attention_bwd_kernel"
 # Pretraining micro-batch (configs/exp_yamls/pretrain/wit/mlm_itm_2d.yaml).
 TRAIN_SEQ, TRAIN_MICRO, TRAIN_GLOBAL, TRAIN_STEPS = 256, 64, 4096, 3
 TRAIN_MIN_LEN = 204  # 2 + 196 image slots + at least 6 text tokens
@@ -448,11 +455,11 @@ def device_intervals(prof):
             if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
-def trace_summary(prof, wall_ms, groups):
-    """Device busy time (union of kernel intervals), idle share of
+def trace_summary(intervals, wall_ms, groups):
+    """Device busy time (union of ``device_intervals``), idle share of
     ``wall_ms``, device ms per group (``groups``: name -> substrings of the
     kernel name, lowercased; the rest is "other") and the top kernels."""
-    intervals = sorted(device_intervals(prof), key=lambda x: x[1])
+    intervals = sorted(intervals, key=lambda x: x[1])
     if not intervals:
         raise AssertionError("the profiler recorded no device activity")
     busy_us, covered_to, by_name = 0.0, -math.inf, {}
@@ -491,7 +498,8 @@ def phase_profile(model, batch) -> None:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     emit({"phase": "profile", **trace_summary(
-        prof, wall_ms, {"rel_attention_fwd": ("rel_attention_fwd",), "matmul": CUBLAS_TAGS})})
+        device_intervals(prof), wall_ms,
+        {"rel_attention_fwd": ("rel_attention_fwd",), "matmul": CUBLAS_TAGS})})
 
 
 def train_attention_inputs(seed, batch=TRAIN_MICRO):
@@ -534,27 +542,22 @@ def phase_kernel_dropout():
 
 
 def backward_flops(lengths, vocab=REL_VOCAB, pairs=None):
-    """(dq pass, dkv pass, whole backward) FLOPs at these lengths, over
-    ``pairs`` query-key pairs (default: every real pair, sum of L**2)."""
+    """FLOPs of the whole backward at these lengths, over ``pairs``
+    query-key pairs (default: every real pair, sum of L**2): q.k^T, do.v^T,
+    ds.k, p^T.do, ds^T.q per pair, q.R^T, dsv.R, dsv^T.q per row."""
     L = np.asarray(lengths, np.float64)
     pairs = (L**2).sum() if pairs is None else pairs
-    l2, l1 = pairs * HEAD_DIM * HEADS, L.sum() * vocab * HEAD_DIM * HEADS
-    return 6 * l2 + 6 * l1, 8 * l2 + 2 * l1, 10 * l2 + 6 * l1
+    return 10 * pairs * HEAD_DIM * HEADS + 6 * L.sum() * vocab * HEAD_DIM * HEADS
 
 
 def backward_bytes(lengths, seq_len):
-    """(dq pass, dkv pass, whole backward) bytes: each input read once (the
-    real rows of q, k, v, do, lse and delta, the table, the lengths), each
-    output written once (all rows of dq / dk / dv; dRel per example for the
-    dq pass, summed for the whole)."""
+    """Bytes of the whole backward: each input read once (the real rows of
+    q, k, v, do, lse and delta, the table, the lengths), each output
+    written once (all rows of dq / dk / dv in bf16, dRel summed)."""
     batch, real = len(lengths), float(np.sum(lengths))
     row = HEADS * HEAD_DIM * 2
     reads = 4 * real * row + 2 * real * HEADS * 4 + HEADS * 64 * HEAD_DIM * 2 + batch * 4
-    out_rows = batch * seq_len * row
-    dq = reads + out_rows + batch * HEADS * 64 * HEAD_DIM * 4
-    dkv = reads + 2 * out_rows
-    whole = reads + 3 * out_rows + REL_VOCAB * HEADS * HEAD_DIM * 4
-    return dq, dkv, whole
+    return reads + 3 * batch * seq_len * row + REL_VOCAB * HEADS * HEAD_DIM * 4
 
 
 def bound_ms(flops, nbytes):
@@ -613,7 +616,7 @@ def grad_errors(got, want, lengths):
     for name, g, w in zip(("dq", "dk", "dv", "drel"), got, want):
         g, w = g.float(), w.float()
         if not torch.isfinite(g).all():
-            raise AssertionError(f"non-finite {name} from the backward kernels")
+            raise AssertionError(f"non-finite {name} from the backward kernel")
         if name != "drel":
             for b, n in enumerate(lengths):
                 if not (torch.all(g[b, n:] == 0)):
@@ -634,7 +637,7 @@ def check_grad_errors(errs, where):
 
 
 def phase_kernel_bwd():
-    """The backward kernels against the plain backward at two shapes, with
+    """The backward kernel against the plain backward at two shapes, with
     and without dropout; times at both shapes."""
     from mmt_tpu_torch.ops import fused_attention as fa
 
@@ -666,47 +669,35 @@ def phase_kernel_bwd():
                 iters = 10 if shape_name == "flagship" else 50
                 call = lambda: fa.relative_attention_backward(*args, "cuda", rate, seed)  # noqa: E731
                 entry["ms"] = cuda_ms(call, iters)
-                entry["kernel_ms"] = profile_kernel_ms(
-                    call, ["rel_attention_bwd_dq_kernel", "rel_attention_bwd_dkv_kernel"])
+                entry["kernel_ms"] = profile_kernel_ms(call, [BWD_KERNEL])[BWD_KERNEL]
                 entry["plain_ms"] = cuda_ms(
                     lambda: fa.relative_attention_backward_plain(*args, rate, seed), 2)
                 if rate == 0.0 or shape_name == "train":
                     entry["library_ms"] = sdpa_backward_ms(q, k, v, table, geo, lengths,
                                                            5 if shape_name == "flagship" else 20)
-            dq_f, dkv_f, all_f = backward_flops(lens)
-            dq_b, dkv_b, all_b = backward_bytes(lens, q.shape[1])
-            entry["bound_ms"] = {"dq": bound_ms(dq_f, dq_b), "dkv": bound_ms(dkv_f, dkv_b),
-                                 "whole": bound_ms(all_f, all_b)}
-            entry["flops_whole"], entry["bytes_whole"] = all_f, all_b
+            flops, nbytes = backward_flops(lens), backward_bytes(lens, q.shape[1])
+            entry["bound_ms"], entry["bound_by"] = bound_ms(flops, nbytes)
+            entry["flops"], entry["bytes"] = flops, nbytes
             results[f"{shape_name}_rate_{rate}"] = entry
         del q, k, v, do, o, lse, delta, args
         torch.cuda.empty_cache()
     emit({"phase": "kernel_bwd", "bound_rel": GRAD_REL_BOUND, "drel_bound_rel": DREL_REL_BOUND,
           "drel_row_bound": DREL_ROW_BOUND, "results": results})
     train = results[f"train_rate_{DROPOUT}"]
-    entries = []
-    for short, kname, errs in (("dq", "rel_attention_bwd_dq_kernel", ("dq", "drel")),
-                                ("dkv", "rel_attention_bwd_dkv_kernel", ("dk", "dv"))):
-        bound, by = train["bound_ms"][short]
-        entries.append({
-            "name": f"rel_attention_bwd_{short}",
-            "route": "cuda",
-            "source": "mmt_tpu_torch/csrc/rel_attention_bwd.cu",
-            "replaces": ("mmt_tpu/ops/pallas_attention.py:2249 (_bwd_fused_kernel, K3) and "
-                         + ("mmt_tpu/ops/pallas_attention.py:2100 (_bwd_dq_kernel, K5)"
-                            if short == "dq" else
-                            "mmt_tpu/ops/pallas_attention.py:2182 (_bwd_dkv_kernel, K5)")),
-            "launches": None,
-            "max_abs_err": max(worst[e] for e in errs),
-            "ms": train["kernel_ms"][kname],
-            # The plain version and the library call compute the whole
-            # backward (both passes): their times are the whole backward's.
-            "plain_ms": train["plain_ms"],
-            "bound_ms": bound,
-            "bound_by": by,
-            "library_ms": train["library_ms"],
-        })
-    return entries
+    return {
+        "name": "rel_attention_bwd",
+        "route": "cuda",
+        "source": "mmt_tpu_torch/csrc/rel_attention_bwd.cu",
+        "replaces": "mmt_tpu/ops/pallas_attention.py:2249 (_bwd_fused_kernel, K3), "
+                    ":2100 (_bwd_dq_kernel, K5) and :2182 (_bwd_dkv_kernel, K5)",
+        "launches": None,
+        "max_abs_err": max(worst.values()),
+        "ms": train["kernel_ms"],
+        "plain_ms": train["plain_ms"],
+        "bound_ms": train["bound_ms"],
+        "bound_by": train["bound_by"],
+        "library_ms": train["library_ms"],
+    }
 
 
 def pretrain_experiment(attention_impl="pallas", hidden_dropout=DROPOUT,
@@ -794,8 +785,7 @@ def launch_counts():
 
     fwd, bwd = fa.relative_attention_forward, fa.relative_attention_backward
     return {"fwd": fwd.launches, "fwd_window": fwd.launches_window,
-            "bwd_dq": bwd.launches_dq, "bwd_dkv": bwd.launches_dkv,
-            "bwd_dq_window": bwd.launches_dq_window, "bwd_dkv_window": bwd.launches_dkv_window}
+            "bwd": bwd.launches, "bwd_window": bwd.launches_window}
 
 
 def reset_launch_counts() -> None:
@@ -803,7 +793,7 @@ def reset_launch_counts() -> None:
 
     fwd, bwd = fa.relative_attention_forward, fa.relative_attention_backward
     fwd.launches = fwd.launches_window = 0
-    bwd.launches_dq = bwd.launches_dkv = bwd.launches_dq_window = bwd.launches_dkv_window = 0
+    bwd.launches = bwd.launches_window = 0
 
 
 def phase_train():
@@ -839,7 +829,7 @@ def phase_train():
         summaries = [json.loads(l) for l in
                      Path(model_dir, "train_summaries.jsonl").read_text().splitlines()]
     counts = launch_counts()
-    launches = {k: counts[k] for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    launches = {k: counts[k] for k in ("fwd", "bwd")}
     layers = cfg.task.model.encoder.mmt.num_hidden_layers
     expected = layers * micro_per_step * TRAIN_STEPS
     if set(launches.values()) != {expected} or any(counts[k] for k in counts if "window" in k):
@@ -861,8 +851,10 @@ def phase_train():
     return task, cfg, launches
 
 
-def phase_train_profile(task, cfg):
-    """Device time by kernel group over one micro-batch forward+backward."""
+def phase_train_profile(task, cfg, bwd_alone_ms):
+    """Device time by kernel group over one micro-batch forward+backward,
+    and the backward kernel's device ms per call there beside
+    ``bwd_alone_ms``, its time alone (phase kernel_bwd)."""
     from torch.profiler import ProfilerActivity, profile
 
     from mmt_tpu_torch.models import DropoutRngs
@@ -886,9 +878,16 @@ def phase_train_profile(task, cfg):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     task.model.zero_grad(set_to_none=True)
+    intervals = device_intervals(prof)
+    calls = [end - start for name, start, end in intervals if BWD_KERNEL in name]
+    layers = cfg.task.model.encoder.mmt.num_hidden_layers
+    if len(calls) != layers:
+        raise AssertionError(f"{len(calls)} backward kernel calls in the trace, expected {layers}")
     emit({"phase": "train_profile", "micro_batch": TRAIN_MICRO, **trace_summary(
-        prof, wall_ms, {"rel_attention_fwd": ("rel_attention_fwd",),
-                        "rel_attention_bwd": ("rel_attention_bwd",), "cublas": CUBLAS_TAGS})})
+        intervals, wall_ms, {"rel_attention_fwd": ("rel_attention_fwd",),
+                             "rel_attention_bwd": ("rel_attention_bwd",), "cublas": CUBLAS_TAGS}),
+        "bwd_kernel_ms_per_call_in_step": sum(calls) / len(calls) / 1e3,
+        "bwd_kernel_ms_alone": bwd_alone_ms})
 
 
 def phase_train_reference():
@@ -942,22 +941,16 @@ def window_attention_inputs(seed):
     return attention_inputs(lengths.tolist(), seed + 1, WINDOW_SEQ, window=WINDOW)
 
 
-def live_tile_share(lengths, window, num_global):
+def live_tile_share(lengths, geo):
     """Share of the 64 x 64 tiles below each length that hold an allowed
     pair (the tiles the windowed kernels visit)."""
-    tile = 64
+    from mmt_tpu_torch.ops.fused_attention import TILE, live_tiles
+
     live = total = 0
     for length in lengths:
-        n = -(-length // tile)
-        head = min(-(-num_global // tile), n)
+        n = -(-length // TILE)
         total += n * n
-        for r0 in range(0, n * tile, tile):
-            if r0 < num_global:
-                live += n
-                continue
-            lo = max(max(r0 - window, 0) // tile, head)
-            hi = min((r0 + tile - 1 + window) // tile + 1, n)
-            live += head + max(hi - lo, 0)
+        live += sum(len(live_tiles(r0, length, geo)) for r0 in range(0, n * TILE, TILE))
     return live / total
 
 
@@ -1026,7 +1019,7 @@ def phase_kernel_window():
     emit({"phase": "kernel_window", "shape": [WINDOW_MICRO, WINDOW_SEQ, HEADS, HEAD_DIM],
           "window": WINDOW, "num_global": WINDOW_NUM_GLOBAL, "lengths": lens,
           "allowed_real_pairs": pairs, "allowed_share": pairs / float((L**2).sum()),
-          "live_tile_share": live_tile_share(lens, WINDOW, WINDOW_NUM_GLOBAL),
+          "live_tile_share": live_tile_share(lens, geo),
           "max_abs_err_o": err_o, "o_bound": O_BOUND, "max_abs_err_lse": err_lse,
           "lse_bound": LSE_BOUND, "window_ge_seq_bit_identical": True, "ms_by_rate": times,
           "flops": flops, "bytes": nbytes, "achieved_tflops": flops / ms / 1e9,
@@ -1035,7 +1028,7 @@ def phase_kernel_window():
 
 
 def phase_kernel_bwd_window():
-    """The windowed backward kernels against the plain backward at the 4k
+    """The windowed backward kernel against the plain backward at the 4k
     pretraining micro-batch, with and without dropout; times."""
     import dataclasses
 
@@ -1048,11 +1041,8 @@ def phase_kernel_bwd_window():
     wide = dataclasses.replace(geo, window=WINDOW_SEQ)
     dense = dataclasses.replace(geo, window=0, num_global=0)
     pairs = fa.allowed_real_pairs(geo, lens)
-    dq_f, dkv_f, all_f = backward_flops(lens, pairs=pairs)
-    dq_b, dkv_b, all_b = backward_bytes(lens, WINDOW_SEQ)
-    bounds = {"dq": bound_ms(dq_f, dq_b), "dkv": bound_ms(dkv_f, dkv_b),
-              "whole": bound_ms(all_f, all_b)}
-    names = ["rel_attention_bwd_dq_kernel", "rel_attention_bwd_dkv_kernel"]
+    flops, nbytes = backward_flops(lens, pairs=pairs), backward_bytes(lens, WINDOW_SEQ)
+    bound, bound_by = bound_ms(flops, nbytes)
     results, worst = {}, {"dq": 0.0, "dk": 0.0, "dv": 0.0, "drel": 0.0}
     for rate in (0.0, DROPOUT):
         seed = 911 if rate else None
@@ -1067,14 +1057,14 @@ def phase_kernel_bwd_window():
         check_grad_errors(errs, f"window rate {rate}")
         for name, e in errs.items():
             worst[name] = max(worst[name], e["max_abs_err"])
-        # window >= S against the dense kernels: dk, dv bit-identical (and
-        # dq at rate 0); dRel's atomics add in a run-dependent order.
+        # window >= S against the dense kernel: dk, dv bit-identical; dq
+        # and dRel are summed by fp32 reductions in a run-dependent order.
         g_w = fa.relative_attention_backward(q, k, v, do, lse, delta, table, wide, lengths,
                                              "cuda", rate, seed)
         g_d = fa.relative_attention_backward(q, k, v, do, lse, delta, table, dense, lengths,
                                              "cuda", rate, seed)
         identical = [torch.equal(a, b) for a, b in zip(g_w[:3], g_d[:3])]
-        if not (identical[1] and identical[2] and (rate or identical[0])):
+        if not (identical[1] and identical[2]):
             raise AssertionError(f"window >= S backward differs from dense: {identical}")
         dq_rel = ((g_w[0].float() - g_d[0].float()).abs().max()
                   / g_d[0].float().abs().max()).item()
@@ -1086,7 +1076,7 @@ def phase_kernel_bwd_window():
             "errors": errs,
             "window_ge_seq_identical_dq_dk_dv": identical, "window_ge_seq_dq_rel_diff": dq_rel,
             "ms": cuda_ms(call, 10),
-            "kernel_ms": profile_kernel_ms(call, names),
+            "kernel_ms": profile_kernel_ms(call, [BWD_KERNEL])[BWD_KERNEL],
             "plain_ms": cuda_ms(lambda: fa.relative_attention_backward_plain(*args, rate, seed),
                                 2),
             "library_ms": sdpa_backward_ms(q, k, v, table, geo, lengths, 5),
@@ -1095,32 +1085,23 @@ def phase_kernel_bwd_window():
     emit({"phase": "kernel_bwd_window", "shape": [WINDOW_MICRO, WINDOW_SEQ, HEADS, HEAD_DIM],
           "window": WINDOW, "num_global": WINDOW_NUM_GLOBAL, "allowed_real_pairs": pairs,
           "bound_rel": GRAD_REL_BOUND, "drel_bound_rel": DREL_REL_BOUND,
-          "drel_row_bound": DREL_ROW_BOUND, "bound_ms": bounds, "flops_whole": all_f,
-          "bytes_whole": all_b, "results": results})
+          "drel_row_bound": DREL_ROW_BOUND, "bound_ms": bound, "bound_by": bound_by,
+          "flops": flops, "bytes": nbytes, "results": results})
     main_rate = results[f"rate_{DROPOUT}"]
-    entries = []
-    for short, kname, errs, tpu in (
-            ("dq", names[0], ("dq", "drel"),
-             "mmt_tpu/ops/pallas_attention.py:2373 (_bwd_dq_list_kernel, K6)"),
-            ("dkv", names[1], ("dk", "dv"),
-             "mmt_tpu/ops/pallas_attention.py:2454 (_bwd_dkv_list_kernel, K6)")):
-        entries.append({
-            "name": f"rel_attention_bwd_{short}_window",
-            "route": "cuda",
-            "source": "mmt_tpu_torch/csrc/rel_attention_bwd.cu",
-            "replaces": "mmt_tpu/ops/pallas_attention.py:2521 (_bwd_fused_list_kernel, K4) "
-                        "and " + tpu,
-            "launches": None,
-            "max_abs_err": max(worst[e] for e in errs),
-            "ms": main_rate["kernel_ms"][kname],
-            # The plain version and the library call compute the whole
-            # backward (both passes): their times are the whole backward's.
-            "plain_ms": main_rate["plain_ms"],
-            "bound_ms": bounds[short][0],
-            "bound_by": bounds[short][1],
-            "library_ms": main_rate["library_ms"],
-        })
-    return entries
+    return {
+        "name": "rel_attention_bwd_window",
+        "route": "cuda",
+        "source": "mmt_tpu_torch/csrc/rel_attention_bwd.cu",
+        "replaces": "mmt_tpu/ops/pallas_attention.py:2521 (_bwd_fused_list_kernel, K4), "
+                    ":2373 (_bwd_dq_list_kernel, K6) and :2454 (_bwd_dkv_list_kernel, K6)",
+        "launches": None,
+        "max_abs_err": max(worst.values()),
+        "ms": main_rate["kernel_ms"],
+        "plain_ms": main_rate["plain_ms"],
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": main_rate["library_ms"],
+    }
 
 
 def window_micro_batch(cfg, batch, gen):
@@ -1163,8 +1144,8 @@ def phase_train_window():
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     layers = cfg.task.model.encoder.mmt.num_hidden_layers
     micro_batches = micro_per_step * WINDOW_STEPS
-    expected = {"fwd": 0, "fwd_window": 2 * layers * micro_batches, "bwd_dq": 0, "bwd_dkv": 0,
-                "bwd_dq_window": layers * micro_batches, "bwd_dkv_window": layers * micro_batches}
+    expected = {"fwd": 0, "fwd_window": 2 * layers * micro_batches, "bwd": 0,
+                "bwd_window": layers * micro_batches}
     if counts != expected:
         raise AssertionError(f"launches {counts}, expected {expected}")
     if len(summaries) != WINDOW_STEPS or not all(
@@ -1201,7 +1182,7 @@ def phase_train_window():
           "first_step_ms": 1e3 / summaries[0]["steps_per_sec"], "peak_memory_gb": peak_gb,
           "micro_batch_peak_above_state_gb": {"remat_off": peaks[False], "remat_on": peaks[True]},
           "launches": counts, "launches_per_micro_batch": {
-              "fwd_window": 2 * layers, "bwd_dq_window": layers, "bwd_dkv_window": layers},
+              "fwd_window": 2 * layers, "bwd_window": layers},
           "summaries": summaries})
     return task, cfg, counts
 
@@ -1232,8 +1213,9 @@ def phase_train_window_profile(task, cfg):
         wall_ms = (time.perf_counter() - t0) * 1e3
     task.model.zero_grad(set_to_none=True)
     emit({"phase": "train_window_profile", "micro_batch": WINDOW_MICRO, **trace_summary(
-        prof, wall_ms, {"rel_attention_fwd": ("rel_attention_fwd",),
-                        "rel_attention_bwd": ("rel_attention_bwd",), "cublas": CUBLAS_TAGS})})
+        device_intervals(prof), wall_ms,
+        {"rel_attention_fwd": ("rel_attention_fwd",), "rel_attention_bwd": ("rel_attention_bwd",),
+         "cublas": CUBLAS_TAGS})})
 
 
 def phase_train_window_reference():
@@ -1701,24 +1683,22 @@ def main() -> int:
     del model, batch
     torch.cuda.empty_cache()
     entry["max_abs_err"] = max(entry["max_abs_err"], phase_kernel_dropout())
-    bwd_entries = phase_kernel_bwd()
+    bwd_entry = phase_kernel_bwd()
     task, cfg, train_launches = phase_train()
     # The forward runs on three main paths: retrieval (phase main),
     # pretraining (phase train) and the predict CLI (phase predict_cli,
     # added below); the backward on the second.
     entry["launches"] = launches + train_launches["fwd"]
-    bwd_entries[0]["launches"] = train_launches["bwd_dq"]
-    bwd_entries[1]["launches"] = train_launches["bwd_dkv"]
-    phase_train_profile(task, cfg)
+    bwd_entry["launches"] = train_launches["bwd"]
+    phase_train_profile(task, cfg, bwd_entry["ms"])
     del task
     torch.cuda.empty_cache()
     phase_train_reference()
     win_entry = phase_kernel_window()
-    win_bwd_entries = phase_kernel_bwd_window()
+    win_bwd_entry = phase_kernel_bwd_window()
     task, cfg, win_launches = phase_train_window()
     win_entry["launches"] = win_launches["fwd_window"]
-    win_bwd_entries[0]["launches"] = win_launches["bwd_dq_window"]
-    win_bwd_entries[1]["launches"] = win_launches["bwd_dkv_window"]
+    win_bwd_entry["launches"] = win_launches["bwd_window"]
     phase_train_window_profile(task, cfg)
     del task
     torch.cuda.empty_cache()
@@ -1726,7 +1706,7 @@ def main() -> int:
     probe_entries = [*phase_probe_split(), *phase_probe_op_cost(), *phase_probe_hopper()]
     entry["launches"] += phase_predict_cli()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    kernels = {"kernels": [entry, *bwd_entries, win_entry, *win_bwd_entries, *probe_entries]}
+    kernels = {"kernels": [entry, bwd_entry, win_entry, win_bwd_entry, *probe_entries]}
     print(json.dumps(kernels), flush=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.jsonl").write_text("\n".join(_lines + [json.dumps(kernels)]) + "\n")

@@ -1,28 +1,27 @@
-// Relative-bias flash attention backward for Hopper (sm_90a): two kernels,
-// one per pass, in the FlashAttention-2 style.
+// Relative-bias flash attention backward for Hopper (sm_90a): one kernel,
+// one pass over each (query, key) pair, in the FlashAttention-2/-3 style.
 //
 // Replaces the TPU backward kernels of mmt_tpu/ops/pallas_attention.py:
 //   K3 `_bwd_fused_kernel` (the default one-pass backward, body
-//   `_bwd_tile_core`, dRel via `_tile_dsv_multi`),
+//   `_bwd_tile_core`, dRel via `_tile_dsv_multi`, summed over the batch
+//   outside the kernel),
 //   K5 `_bwd_dq_kernel` + `_bwd_dkv_kernel` (the two-pass backward,
 //   MMT_ATTN_BWD=split), and their sliding-window forms over the static
 //   live-tile lists (`_backward_window_list`):
 //   K4 `_bwd_fused_list_kernel` (the default) and
 //   K6 `_bwd_dq_list_kernel` + `_bwd_dkv_list_kernel` (split).
-// K3 keeps dk/dv for the whole key length in VMEM scratch ([hb, nk, bk, D]
-// fp32, 4 MB at S=4096); a Hopper block has at most 227 KB of shared memory
-// and blocks run in no order, so the schedule here is K5's: pass 1 owns 64
-// query rows and sweeps the keys (dq, dRel), pass 2 owns 64 keys and sweeps
-// the queries (dk, dv).  Both compute the function K3 computes.  With the
-// window (a template argument, as the dropout is), pass 1 sweeps only the
-// block's live key tiles and pass 2 only the key block's live query tiles
-// (LiveTiles in rel_attention_common.cuh: for a global key block every
-// query tile below the length, else the global query tiles and the band),
-// which is K6's q- and k-sorted lists computed per block, and both add the
-// window term wherever they recompute s; K4 is K6 fused, so the same two
-// passes replace it.
+// K3 keeps dk/dv for the whole key length in VMEM scratch and walks the
+// grid in order; a Hopper block has at most 227 KB of shared memory and
+// blocks run in no order, so here a block owns 64 keys and sweeps their
+// live query tiles (LiveTiles in rel_attention_common.cuh, ascending: for
+// a dense or global key block every query tile below the length, else the
+// global query tiles and the band), keeping dk and dv in registers, and
+// adds each tile's dq into an fp32 buffer with vector reductions.  With
+// the window (a template argument, as the dropout is) the sweep is K6's
+// k-sorted list computed per block, and a disallowed pair gets the window
+// term on its logit, so one kernel replaces all four.
 //
-// What they compute, per (b, h), with s the forward's scaled, masked logits
+// What it computes, per (b, h), with s the forward's scaled, masked logits
 // (same bias, mask and dropout hash as rel_attention_fwd.cu), lse and
 // delta = rowsum(do * o) from the caller, K the dropout keep factor and
 // "real" = (i < L_b) and (j < L_b) (a pair the window disallows has p = 0
@@ -35,44 +34,73 @@
 //          caller sums over b, as at :2972)
 //   dk_j = scale * sum_i dS_ij q_i,   dv_j = sum_i (real ? p * K : 0) do_i
 // Only tiles with real queries and real keys run (the TPU kernels' exact
-// pad-tile skip), and with the window only live tiles; dq/dk/dv rows past
-// the length come out 0.
+// pad-tile skip), and with the window only live tiles; dk/dv rows past the
+// length come out 0, and dq rows past it receive no add (the caller zeroes
+// the buffer).
 //
-// Design: 4 warps per block, 16 rows per warp, mma.sync m16n8k16 bf16 ->
-// fp32 as in the forward.  Pass 1 (grid: 64-query tile, head, example):
-// q and do fragments stay in registers, qr = q . R_h^T is computed once into
-// shared memory for the bias gather, K (row-major and transposed) and V
-// tiles stream through shared memory; ds is formed on the accumulator
-// registers and rounded to bf16 for ds . K; dSV is accumulated in a
-// [64, 64] fp32 shared tile by shared-memory atomics, merging runs of equal
-// ids along a row first (far text tiles have one id per row); at the end
-// dq += dSV . R_h and dSV^T . q run in fp32 FMAs, and dRel goes to a
-// [B, H, 64, D] fp32 buffer by global atomics (one per (v, d) per query
-// tile; the order of those adds varies from run to run, so dRel is held to
-// a relative bound, not bit-for-bit).  Pass 2 (grid: 64-key tile, head,
-// example): k and v fragments (and R_h's, for qr^T = R_h . Q^T per query
-// tile) stay in registers, Q and dO tiles stream in row-major and
-// transposed form; p * K and dS are rounded to bf16 for the dv and dk
-// products.
+// Design (grid: 64-key block, head, example; one warpgroup of 128 threads,
+// two blocks per SM).  K, V and R_h are copied once into 128-byte-swizzled
+// shared memory (64-byte for D = 32) by cp.async; the query tiles (Q, dO,
+// lse, delta) stream through a two-stage cp.async ring, the next tile's
+// copy in flight while the current one computes.  Per query tile, all
+// products on wgmma m64nNk16 (bf16 in, fp32 accumulators), every operand
+// read through a shared-memory matrix descriptor in the major order it was
+// copied in, so no tile is ever transposed in shared memory:
+//   qr = Q . R_h^T, into shared memory for the per-pair bias gather (one
+//   small product per tile, not hoisted: Q is resident per tile only);
+//   S = Q . K^T and dP = dO . V^T (rows = queries);
+//   per element, once per pair: id, bias, masks, exp, dropout hash, P * K
+//   and dS.  P * K and dS go to shared memory in bf16; dS also stays in
+//   registers as the A operand of dS . K.  The id: a tile whose pairs all
+//   have one id (far text tiles, image x text, text x image: most tiles of
+//   a long sequence) takes it once and adds its dS row sums to one column
+//   of the histogram dSV; elsewhere image pairs look their 2D id up in a
+//   (2P - 1)^2 byte table built per block, text pairs take the clipped
+//   offset, and dS goes into dSV by native int32 shared atomics in fixed
+//   point after merging runs of equal ids along the row;
+//   dV += (P K)^T . dO and dK += dS^T . Q (A = the stored tiles read
+//   MN-major, B = dO and Q read MN-major);
+//   dq_tile = dS . K + dSV . R_h (dSV rounded to bf16), added to the fp32
+//   dq buffer by red.global.add.v4.f32;
+//   dRel += dSV^T . Q in two bf16 terms, hi = bf16(dSV) and lo = bf16(dSV -
+//   hi) (Q is exact in bf16, so the product keeps ~16 bits of dSV, where
+//   fp32 FMAs would keep ~1e-5 after their sums), in registers for the
+//   block's whole sweep and added once per block to a [B, H, 64, D] fp32
+//   buffer by vector reductions (4 key blocks per example at S = 256, so
+//   little contention).  The order of the dq and dRel adds varies from run
+//   to run, so both are held to bounds, not bit for bit; dk and dv are
+//   summed in registers in tile order, deterministically.
 //
 // Bound (H100 SXM: 989 TFLOP/s dense bf16, 3.35 TB/s): operations
-// 10 * sum_b L_b^2 * D * H (q.k^T and do.v^T in both passes counted once
-// each, ds.k, p^T.do, ds^T.q) + 6 * sum_b L_b * V * D * H (q.R^T, dsv.R,
-// dsv^T.q); bytes: q, k, v, do read once, dq, dk, dv written once, lse and
-// delta read once.  At B=32, S=4096, L ~ U[2048, 4096], H=12, D=64, the L^2
-// term is ~2.4 TFLOP -> ~2.4 ms, bytes ~0.2 ms: bound by operations.  At
-// the pretraining micro-batch (B=64, S=256, L ~ U[204, 256]) the operations
-// are ~26 GFLOP (~0.03 ms) and the bytes ~0.18 GB (~0.05 ms): bound by
-// bytes.  Windowed (w = 512, g = 198, B=8, S=4096, L ~ U[2048, 4096]),
-// sum_b L_b^2 becomes the allowed real pairs (~40%): ~0.24 TFLOP, ~0.25 ms,
-// still bound by operations.
+// 10 * sum_b L_b^2 * D * H (q.k^T, do.v^T, ds.k, p^T.do, ds^T.q) +
+// 6 * sum_b L_b * V * D * H (q.R^T, dsv.R, dsv^T.q); bytes: q, k, v, do,
+// lse and delta read once, dq, dk, dv written once.  At B=32, S=4096, L ~
+// U[2048, 4096], H=12, D=64, the L^2 term is ~2.4 TFLOP -> ~2.4 ms, bytes
+// ~0.2 ms: bound by operations.  At the pretraining micro-batch (B=64,
+// S=256, L ~ U[204, 256]) the operations are ~29 GFLOP (~0.03 ms) and the
+// bytes ~0.17 GB (~0.05 ms): bound by bytes.  Windowed (w = 512, g = 198,
+// B=8, S=4096), sum_b L_b^2 becomes the allowed real pairs (~40%).
 //
-// What the simple design leaves on the table: mma.sync instead of wgmma, no
-// TMA or cp.async pipeline, the logits and the bias gather recomputed in
-// both passes (K3 on the TPU pays them once), transposed tiles written
-// element by element into shared memory (bank conflicts), per-element id
-// and hash arithmetic, and, windowed, the pattern test on every element of
-// every live tile.
+// What the earlier design (a dq + dRel pass over key tiles and a dk/dv pass
+// over query tiles, on mma.sync) paid and this one removes: (1) at S = 256
+// a sweep is 4 tiles, so per-block costs dominated: the dq pass ended with
+// dq += dSV . R_h and dRel = dSV^T . Q in scalar fp32 FMAs from shared
+// memory and 3136 scalar global atomics per block; here both are tensor-core
+// products and dRel is written once per key block in 16-byte reductions.
+// (2) s, the id, the gather, the hash and exp were computed in both passes,
+// and the dk/dv pass recomputed qr^T behind an extra barrier; here once per
+// pair, with the id's divisions hoisted to one per key and one per query
+// row.  (3) K^T, Q^T and dO^T were written element by element into shared
+// memory; here every operand is read by descriptor.  (4) mma.sync fed from
+// padded tiles without an async copy pipeline; here wgmma from swizzled
+// tiles behind a cp.async ring.  Shared fp32 atomics are compare-and-swap
+// loops on this card (ATOMS.CAST.SPIN in the SASS), hence the fixed point.
+// What bounds it now: one warpgroup per block runs its phases in order
+// (copies, products, the per-pair pass, reductions), so the tensor cores
+// idle while the pair pass runs; overlapping them (warp-specialised
+// producer and consumer warpgroups) is the next step.
+
+#include <type_traits>
 
 #include "rel_attention_common.cuh"
 
@@ -80,8 +108,293 @@ namespace {
 
 using namespace mmt;
 
-constexpr int LDR = kVP + 1;  // fp32 row stride of the [64, 64] qr / dSV tiles
-constexpr int LDQ = kBQ + 1;  // fp32 row stride of the [64, 64] qr^T tile
+constexpr int kT = 64;     // rows of every tile: queries, keys or vocab ids
+constexpr int LDF = 65;    // fp32 row stride of the [64, 64] qr and dSV tiles
+constexpr int kMaxPatchPerRow = 32;  // the image id table holds (2P - 1)^2 bytes
+constexpr int kMaxImageIds = (2 * kMaxPatchPerRow - 1) * (2 * kMaxPatchPerRow - 1) + 1;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A [64, W] bf16 tile in shared memory, rows of 2 W bytes under the
+// matching swizzle (W = 64: 128-byte, 16-byte chunk c of row r at
+// c ^ (r & 7); W = 32: 64-byte, c ^ ((r >> 1) & 3)): the layouts that TMA
+// writes and wgmma reads.  Tiles start 1024-byte aligned.
+template <int W>
+struct Swz {
+  static_assert(W == 64 || W == 32, "tile width");
+  static constexpr int kRowBytes = 2 * W;
+  static constexpr int kChunks = W / 8;
+  static constexpr int kBytes = kT * kRowBytes;
+  static constexpr uint64_t kLayout = W == 64 ? 1 : 2;  // descriptor: 128B / 64B swizzle
+  __device__ static __forceinline__ int chunk(int r, int c) {
+    const int x = W == 64 ? (r & 7) : ((r >> 1) & 3);
+    return r * kRowBytes + ((c ^ x) << 4);
+  }
+  // Byte offset of element (r, col).
+  __device__ static __forceinline__ int elem(int r, int col) {
+    return chunk(r, col >> 3) + ((col & 7) << 1);
+  }
+  // Matrix descriptor at byte address `addr`: stride between 8-row groups
+  // = 8 rows; the leading offset is unused (every operand is one swizzle
+  // atom wide in its contiguous dimension).
+  __device__ static __forceinline__ uint64_t desc(uint32_t addr) {
+    return ((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+           (static_cast<uint64_t>((8 * kRowBytes) >> 4) << 32) | (kLayout << 62);
+  }
+  // Operand whose contiguous dimension is K (K-major): k-step kk of 16
+  // elements starts 32 bytes further along the row.
+  __device__ static __forceinline__ uint64_t k_major(uint32_t base, int kk) {
+    return desc(base + 32 * kk);
+  }
+  // Operand whose rows are K (MN-major): k-step kk starts 16 rows down.
+  __device__ static __forceinline__ uint64_t mn_major(uint32_t base, int kk) {
+    return desc(base + 16 * kRowBytes * kk);
+  }
+};
+
+// ------------------------------------------------------------- wgmma
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Generic-proxy writes to shared memory (stores, cp.async) made visible to
+// wgmma's async proxy; a barrier follows.
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x N fp32, N / 2 registers) += A (64 x 16) . B (16 x N).  ss: A and
+// B by descriptor, TA / TB = 1 for an MN-major operand; rs: A from
+// registers (the mma.sync m16n8k16 A layout, warp w holding rows 16 w..).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// ----------------------------------------------------------- cp.async
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [0, 64) of a [rows, D] bf16 matrix into a swizzled tile; rows >=
+// rows_valid are zero-filled.
+template <int D>
+__device__ __forceinline__ void copy_tile(uint32_t dst, const __nv_bfloat16* src,
+                                          int rows_valid, size_t row_stride) {
+  using T = Swz<D>;
+  for (int idx = threadIdx.x; idx < kT * T::kChunks; idx += kThreads) {
+    const int r = idx / T::kChunks, c = idx % T::kChunks;
+    const bool ok = r < rows_valid;
+    cp_async16(dst + T::chunk(r, c), ok ? src + r * row_stride + c * 8 : src, ok);
+  }
+}
+
+// ------------------------------------------------------------ outputs
+
+// Adds scale * acc (a 64 x N accumulator, rows row0 + [0, 64)) to an fp32
+// [rows, N] matrix with row stride `stride`, 16 bytes per reduction: lanes
+// t and t ^ 1 swap halves so that each holds 4 adjacent columns of one row.
+// Rows >= rows_limit are skipped.
+template <int N>
+__device__ __forceinline__ void red_rows(float* dst, size_t stride, int row0, int rows_limit,
+                                         const float (&acc)[N / 2], float scale) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool odd = t & 1;
+  const int r = row0 + (threadIdx.x >> 5) * 16 + g + (odd ? 8 : 0);
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    const float a0 = acc[4 * n], a1 = acc[4 * n + 1], a2 = acc[4 * n + 2], a3 = acc[4 * n + 3];
+    const float r0 = __shfl_xor_sync(0xFFFFFFFFu, odd ? a0 : a2, 1);
+    const float r1 = __shfl_xor_sync(0xFFFFFFFFu, odd ? a1 : a3, 1);
+    if (r >= rows_limit) continue;
+    const float4 v = odd ? make_float4(r0, r1, a2, a3) : make_float4(a0, a1, r0, r1);
+    float* p = dst + static_cast<size_t>(r) * stride + n * 8 + (t & 2) * 2;
+    asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+                 "f"(v.x * scale), "f"(v.y * scale), "f"(v.z * scale), "f"(v.w * scale)
+                 : "memory");
+  }
+}
+
+// Writes scale * acc as bf16 rows row0 + [0, 64) of a [S, H*D] head slice.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, size_t row_stride, int row0, int S,
+                                           const float (&acc)[D / 2], float scale) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row0 + (threadIdx.x >> 5) * 16 + g + hr * 8;
+    if (r >= S) continue;
+    __nv_bfloat16* row = dst + static_cast<size_t>(r) * row_stride + t * 2;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(row + n * 8) =
+          pack_bf16(acc[4 * n + 2 * hr] * scale, acc[4 * n + 2 * hr + 1] * scale);
+  }
+}
+
+// Zeroes rows [r0, r0 + 64) of a [S, H*D] bf16 tensor's head slice.
+template <int D>
+__device__ __forceinline__ void zero_rows(__nv_bfloat16* dst, int r0, int S, size_t row_stride) {
+  for (int idx = threadIdx.x; idx < kT * (D / 8); idx += kThreads) {
+    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    if (r0 + r < S)
+      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r0 + r) * row_stride + c) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// ------------------------------------------------------ per-pair values
+
+// The pieces of relative_id (rel_attention_common.cuh).  image_id: the 2D
+// id of an image pair from dy = jy - iy and dx = jx - ix (the mid-square id
+// (dy * d + dx) % d^2 is that number wrapped once: |dy * d + dx| < d^2);
+// band_id: the clipped 1D id of a text pair.
+__device__ __forceinline__ int image_id(int dy, int dx, int r) {
+  const int d = 2 * r + 1;
+  const bool above = dy < -r, below = dy > r, left = dx < -r, right = dx > r;
+  const bool mid_y = !above && !below, mid_x = !left && !right;
+  if (mid_y && mid_x) {
+    const int f = dy * d + dx;
+    return f < 0 ? f + d * d : f;
+  }
+  const int base = d * d;
+  if (above && mid_x) return base + 0;
+  if (above && right) return base + 1;
+  if (mid_y && right) return base + 2;
+  if (below && right) return base + 3;
+  if (below && mid_x) return base + 4;
+  if (below && left) return base + 5;
+  if (mid_y && left) return base + 6;
+  return base + 7;
+}
+
+__device__ __forceinline__ int band_id(int off, int text_max_distance) {
+  const int a = min(abs(off), text_max_distance);
+  return off >= 0 ? a : text_max_distance + a;
+}
+
+// The one id of every pair of the tile [q0, q0 + 64) x [k0, k0 + 64), or
+// -1 when ids vary: image queries x text keys, text queries x image keys,
+// and text x text tiles whose every offset j - i is beyond the clip
+// distance on one side (most tiles of a long sequence).
+__device__ __forceinline__ int uniform_tile_id(int q0, int k0, const Geometry& g) {
+  const int il = g.image_len, q1 = q0 + kT - 1, k1 = k0 + kT - 1;
+  if (q1 < il) return k0 >= il ? g.text_part_id : -1;
+  if (q0 < il) return -1;
+  if (k1 < il) return g.image_part_id;
+  if (k0 < il) return -1;
+  if (k0 - q1 >= g.text_max_distance) return g.text_max_distance;
+  if (q0 - k1 >= g.text_max_distance) return 2 * g.text_max_distance;
+  return -1;
+}
+
+// dropout_keep (rel_attention_common.cuh) from x = row ^ j * 0x85EBCA6B,
+// row = i * 0x9E3779B9 ^ (seed_b + head * 0x27D4EB2D) hoisted per query
+// row (xor is associative, so the hash is the same bit for bit).
+__device__ __forceinline__ uint32_t hash_row(uint32_t seed_b, uint32_t head, uint32_t i) {
+  return (i * 0x9E3779B9u) ^ (seed_b + head * 0x27D4EB2Du);
+}
+__device__ __forceinline__ float keep_of(const Dropout& dr, uint32_t row, uint32_t j) {
+  uint32_t x = row ^ (j * 0x85EBCA6Bu);
+  x ^= x >> 16;
+  x *= 0x45D9F3Bu;
+  x ^= x >> 15;
+  x *= 0x2C1B3C6Du;
+  x ^= x >> 16;
+  return (x & 0xFFFFFFu) >= dr.threshold ? dr.keep_scale : 0.f;
+}
+
+// ------------------------------------------------------------- kernel
 
 struct BwdArgs {
   const __nv_bfloat16* q;
@@ -92,52 +405,59 @@ struct BwdArgs {
   const float* delta;
   const __nv_bfloat16* rel;  // [H, 64, D], rows >= V zero; null without bias
   const int* lengths;
-  __nv_bfloat16* out0;  // dq (pass 1) or dk (pass 2)
-  __nv_bfloat16* out1;  // dv (pass 2)
-  float* drel;          // [B, H, 64, D] fp32, zeroed by the caller (pass 1)
+  float* dq;                 // [B, S, H, D] fp32, zeroed by the caller
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  float* drel;               // [B, H, 64, D] fp32, zeroed by the caller
   int S, H;
   Geometry geo;
   float scale;
   Dropout dr;
 };
 
+// Shared-memory plan (bytes from a 1024-aligned base).  TB = one [64, D]
+// bf16 tile; the qr tile (fp32, read by the per-pair pass) shares its bytes
+// with the dSV hi / lo tiles (written after it).
 template <int D>
-constexpr size_t dq_smem_bytes() {
-  return (3 * kBQ * (D + kPad) + D * (kBK + kPad)) * sizeof(__nv_bfloat16) +
-         2 * kBQ * LDR * sizeof(float);
-}
+struct Smem {
+  static constexpr int TB = Swz<D>::kBytes;
+  static constexpr int k = 0, v = TB, r = 2 * TB;
+  static constexpr int q0 = 3 * TB, q1 = 4 * TB, do0 = 5 * TB, do1 = 6 * TB;
+  static constexpr int p = 7 * TB, ds = p + Swz<64>::kBytes;
+  static constexpr int hi = ds + Swz<64>::kBytes, lo = hi + Swz<64>::kBytes;
+  static constexpr int qr = hi;  // [64][LDF] fp32
+  // [64][LDF] dSV: fp32 on a tile with one id, else int32 in units of the
+  // row's scale (dsv_unit).
+  static constexpr int dsv = hi + 17 * 1024;
+  static constexpr int stats = dsv + kT * LDF * 4;  // lse[2][64], delta[2][64]
+  static constexpr int kpos = stats + 4 * kT * 4;    // [64] int: jy * W + jx
+  static constexpr int dsv_unit = kpos + kT * 4;    // [64] fp32
+  static constexpr int ids = dsv_unit + kT * 4;      // [W][W] u8 image ids, W = 2P - 1
+  static constexpr int bytes = ids + kMaxImageIds;
+  static constexpr int alloc = bytes + 1024;  // slack to align the base
+  static_assert(kT * LDF * 4 <= 17 * 1024, "qr tile overruns the dSV tile");
+};
 
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return (2 * kBQ * (D + kPad) + 2 * D * (kBQ + kPad)) * sizeof(__nv_bfloat16) +
-         (kVP * LDQ + 2 * kBQ) * sizeof(float);
-}
-
-// Zeroes rows [r0, r0 + 64) of a [S, H*D] bf16 tensor's head slice.
-template <int D>
-__device__ __forceinline__ void zero_rows(__nv_bfloat16* dst, int r0, int S, size_t row_stride) {
-  for (int idx = threadIdx.x; idx < 64 * (D / 8); idx += kThreads) {
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    if (r0 + r < S)
-      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r0 + r) * row_stride + c) =
-          make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// Pass 1: dq and the per-example dRel.  Grid (query tiles, H, B).
 template <int D, bool kDropout, bool kWindow>
-__global__ void __launch_bounds__(kThreads) rel_attention_bwd_dq_kernel(BwdArgs a) {
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem);  // [64][LD]
-  __nv_bfloat16* s_k = s_q + kBQ * LD;   // [64][LD]: R_h, then K tiles, then R_h
-  __nv_bfloat16* s_v = s_k + kBK * LD;   // [64][LD]: dO, then V tiles
-  __nv_bfloat16* s_kt = s_v + kBK * LD;  // [D][kBK + kPad]: K^T tiles
-  float* s_qr = reinterpret_cast<float*>(s_kt + D * (kBK + kPad));  // [64][LDR]
-  float* s_dsv = s_qr + kBQ * LDR;                                   // [64][LDR]
+__global__ void __launch_bounds__(kThreads, 2) rel_attention_bwd_kernel(BwdArgs a) {
+  using SD = Swz<D>;
+  using S64 = Swz<64>;
+  using M = Smem<D>;
+  constexpr int NA = D / 2;  // accumulator registers of a 64 x D product
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  float* s_qr = reinterpret_cast<float*>(smem + M::qr);
+  float* s_dsv = reinterpret_cast<float*>(smem + M::dsv);
+  int* s_dsv_fixed = reinterpret_cast<int*>(smem + M::dsv);
+  float* s_dsv_unit = reinterpret_cast<float*>(smem + M::dsv_unit);
+  float* s_stats = reinterpret_cast<float*>(smem + M::stats);
+  int* s_kpos = reinterpret_cast<int*>(smem + M::kpos);
+  const uint8_t* s_ids = smem + M::ids;
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int S = a.S, H = a.H;
   const Geometry& geo = a.geo;
@@ -146,285 +466,294 @@ __global__ void __launch_bounds__(kThreads) rel_attention_bwd_dq_kernel(BwdArgs 
   const size_t head0 = static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * D;
   const size_t stat0 = (static_cast<size_t>(b) * H + h) * S;
 
-  if (q0 >= L) {  // no live tile: dq = 0 and no dRel contribution
-    zero_rows<D>(a.out0 + head0, q0, S, row_stride);
+  if (k0 >= L) {  // padded keys: dk = dv = 0, no dq or dRel contribution
+    zero_rows<D>(a.dk + head0, k0, S, row_stride);
+    zero_rows<D>(a.dv + head0, k0, S, row_stride);
     return;
   }
 
   const bool has_rel = a.rel != nullptr && geo.vocab > 0;
-  load_tile<D>(s_q, a.q + head0 + static_cast<size_t>(q0) * row_stride, S - q0, row_stride);
-  load_tile<D>(s_v, a.dout + head0 + static_cast<size_t>(q0) * row_stride, S - q0, row_stride);
-  if (has_rel) load_tile<D>(s_k, a.rel + static_cast<size_t>(h) * kVP * D, kVP, D);
-  for (int idx = threadIdx.x; idx < kBQ * LDR; idx += kThreads) s_dsv[idx] = 0.f;
-  __syncthreads();
+  const LiveTiles live = live_tiles<kWindow>(k0, L, geo);  // holds k0's own tile
+  const int n_tiles = live.count();
 
-  const int r_lo = warp * 16 + g;  // this lane's rows: r_lo and r_lo + 8
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  load_a_fragments<D>(qa, s_q, r_lo, t);
-  load_a_fragments<D>(da, s_v, r_lo, t);
-
-  float acc[8][4], dp[8][4];
-  if (has_rel) {  // qr = q_tile . R_h^T, read back only by this warp
-    matmul_abt<D>(acc, qa, s_k, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int c = n * 8 + t * 2;
-      s_qr[r_lo * LDR + c] = acc[n][0];
-      s_qr[r_lo * LDR + c + 1] = acc[n][1];
-      s_qr[(r_lo + 8) * LDR + c] = acc[n][2];
-      s_qr[(r_lo + 8) * LDR + c + 1] = acc[n][3];
-    }
-  }
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int i = q0 + r_lo + hr * 8;
-    const float l = i < S ? a.lse[stat0 + i] : 0.f;
-    lse_r[hr] = l < -1e38f ? 3e38f : l;
-    delta_r[hr] = i < S ? a.delta[stat0 + i] : 0.f;
-  }
-  const uint32_t seed_b = kDropout ? example_seed(a.dr, b) : 0u;
-
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-    dq_acc[nd][0] = dq_acc[nd][1] = dq_acc[nd][2] = dq_acc[nd][3] = 0.f;
-
-  const LiveTiles live = live_tiles<kWindow>(q0, L, geo);
-  for (int it = 0; it < live.count(); ++it) {
-    const int k0 = live.tile(it) * kBK;
-    const size_t off = head0 + static_cast<size_t>(k0) * row_stride;
-    __syncthreads();  // the previous tiles (or R_h, dO) are no longer read
-    load_tile<D>(s_k, a.k + off, S - k0, row_stride);
-    load_tile_transposed<D>(s_kt, a.k + off, S - k0, row_stride);
-    load_tile<D>(s_v, a.v + off, S - k0, row_stride);
-    __syncthreads();
-
-    matmul_abt<D>(acc, qa, s_k, g, t);  // q . k^T
-    matmul_abt<D>(dp, da, s_v, g, t);   // do . v^T
-
-    int run_id[2] = {-1, -1};  // pending dSV add per row: (id, sum)
-    float run_sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1;
-        const int rr = r_lo + hr * 8;
-        const int i = q0 + rr;
-        const int j = k0 + n * 8 + t * 2 + (e & 1);
-        float x = acc[n][e];
-        int id = kVP;
-        if (has_rel) {
-          id = relative_id(i, j, geo);
-          if (id < geo.vocab) x += s_qr[rr * LDR + id];
-        }
-        x *= a.scale;
-        if ((i < L) != (j < L)) x += kMaskBias;
-        if (kWindow && !window_allowed(i, j, geo)) x += kMaskBias;
-        const float p = __expf(x - lse_r[hr]);
-        float dpv = dp[n][e];
-        if constexpr (kDropout) dpv *= dropout_keep(a.dr, seed_b, h, i, j);
-        const float ds = (i < L && j < L) ? p * (dpv - delta_r[hr]) : 0.f;
-        acc[n][e] = ds;
-        if (has_rel) {  // j ascends along the row: merge runs of equal ids
-          if (id != run_id[hr]) {
-            if (run_id[hr] >= 0 && run_id[hr] < geo.vocab)
-              atomicAdd(&s_dsv[rr * LDR + run_id[hr]], run_sum[hr]);
-            run_id[hr] = id;
-            run_sum[hr] = ds;
-          } else {
-            run_sum[hr] += ds;
-          }
-        }
-      }
-    }
-    if (has_rel) {
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr)
-        if (run_id[hr] >= 0 && run_id[hr] < geo.vocab)
-          atomicAdd(&s_dsv[(r_lo + hr * 8) * LDR + run_id[hr]], run_sum[hr]);
-    }
-
-    matmul_pb<D>(dq_acc, acc, s_kt, g, t);  // dq += ds . K
-  }
-
-  if (has_rel) {
-    __syncthreads();  // every dSV add is done; s_k is free
-    load_tile<D>(s_k, a.rel + static_cast<size_t>(h) * kVP * D, kVP, D);
-    __syncthreads();
-    // dq += dSV . R_h, in fp32 over the vocabulary columns.
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const float* dsv_row = s_dsv + (r_lo + hr * 8) * LDR;
-      for (int vv = 0; vv < geo.vocab; ++vv) {
-        const float w = dsv_row[vv];
-        const __nv_bfloat16* r_row = s_k + vv * LD + t * 2;
-#pragma unroll
-        for (int nd = 0; nd < D / 8; ++nd) {
-          dq_acc[nd][2 * hr] += w * __bfloat162float(r_row[nd * 8]);
-          dq_acc[nd][2 * hr + 1] += w * __bfloat162float(r_row[nd * 8 + 1]);
-        }
-      }
-    }
-    // dRel_b[h, v, d] += scale * sum_r dSV[r, v] * q[r, d]
-    float* drel_bh = a.drel + (static_cast<size_t>(b) * H + h) * kVP * D;
-    for (int idx = threadIdx.x; idx < geo.vocab * D; idx += kThreads) {
-      const int vv = idx / D, d = idx % D;
-      float sum = 0.f;
-      for (int r = 0; r < kBQ; ++r) sum += s_dsv[r * LDR + vv] * __bfloat162float(s_q[r * LD + d]);
-      atomicAdd(drel_bh + vv * D + d, sum * a.scale);
-    }
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int i = q0 + r_lo + hr * 8;
-    if (i >= S) continue;
-    __nv_bfloat16* row = a.out0 + head0 + static_cast<size_t>(i) * row_stride;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<uint32_t*>(row + nd * 8 + t * 2) =
-          pack_bf16(dq_acc[nd][2 * hr] * a.scale, dq_acc[nd][2 * hr + 1] * a.scale);
-  }
-}
-
-// Pass 2: dk and dv.  Grid (key tiles, H, B).  The accumulators hold
-// transposed tiles: rows are this block's keys, columns the queries.
-template <int D, bool kDropout, bool kWindow>
-__global__ void __launch_bounds__(kThreads) rel_attention_bwd_dkv_kernel(BwdArgs a) {
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem);  // [64][LD]: K, then Q tiles
-  __nv_bfloat16* s_do = s_q + kBQ * LD;    // [64][LD]: V, then dO tiles
-  __nv_bfloat16* s_qt = s_do + kBQ * LD;   // [D][kBQ + kPad]: R_h, then Q^T tiles
-  __nv_bfloat16* s_dot = s_qt + D * (kBQ + kPad);  // [D][kBQ + kPad]: dO^T tiles
-  float* s_qrt = reinterpret_cast<float*>(s_dot + D * (kBQ + kPad));  // [kVP][LDQ]
-  float* s_lse = s_qrt + kVP * LDQ;  // [64]
-  float* s_delta = s_lse + kBQ;      // [64]
-
-  const int k0 = blockIdx.x * kBK, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int S = a.S, H = a.H;
-  const Geometry& geo = a.geo;
-  const int L = max(0, min(a.lengths[b], S));
-  const size_t row_stride = static_cast<size_t>(H) * D;
-  const size_t head0 = static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * D;
-  const size_t stat0 = (static_cast<size_t>(b) * H + h) * S;
-
-  if (k0 >= L) {  // padded keys: dk = dv = 0
-    zero_rows<D>(a.out0 + head0, k0, S, row_stride);
-    zero_rows<D>(a.out1 + head0, k0, S, row_stride);
-    return;
-  }
-
-  const bool has_rel = a.rel != nullptr && geo.vocab > 0;
-  load_tile<D>(s_q, a.k + head0 + static_cast<size_t>(k0) * row_stride, S - k0, row_stride);
-  load_tile<D>(s_do, a.v + head0 + static_cast<size_t>(k0) * row_stride, S - k0, row_stride);
-  // R_h as a [64][LD] tile over s_qt and s_dot (2 * D * (kBQ + kPad) >= 64 * LD).
-  if (has_rel) load_tile<D>(s_qt, a.rel + static_cast<size_t>(h) * kVP * D, kVP, D);
-  __syncthreads();
-
-  const int r_lo = warp * 16 + g;  // this lane's keys (or vocab rows): r_lo, r_lo + 8
-  uint32_t ka[D / 16][4], va[D / 16][4], ra[D / 16][4];
-  load_a_fragments<D>(ka, s_q, r_lo, t);
-  load_a_fragments<D>(va, s_do, r_lo, t);
-  if (has_rel) load_a_fragments<D>(ra, s_qt, r_lo, t);
-  const uint32_t seed_b = kDropout ? example_seed(a.dr, b) : 0u;
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    dk_acc[nd][0] = dk_acc[nd][1] = dk_acc[nd][2] = dk_acc[nd][3] = 0.f;
-    dv_acc[nd][0] = dv_acc[nd][1] = dv_acc[nd][2] = dv_acc[nd][3] = 0.f;
-  }
-
-  float acc[8][4], dp[8][4];
-  const LiveTiles live = live_tiles<kWindow>(k0, L, geo);
-  for (int it = 0; it < live.count(); ++it) {
-    const int q0 = live.tile(it) * kBQ;
+  // One query tile's stage: Q, dO, lse, delta.
+  auto load_stage = [&](int stage, int q0) {
     const size_t off = head0 + static_cast<size_t>(q0) * row_stride;
-    __syncthreads();  // the previous tiles (or K, V, R_h) are no longer read
-    load_tile<D>(s_q, a.q + off, S - q0, row_stride);
-    load_tile_transposed<D>(s_qt, a.q + off, S - q0, row_stride);
-    load_tile<D>(s_do, a.dout + off, S - q0, row_stride);
-    load_tile_transposed<D>(s_dot, a.dout + off, S - q0, row_stride);
-    for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-      const int i = q0 + r;
-      const float l = i < S ? a.lse[stat0 + i] : 0.f;
-      s_lse[r] = l < -1e38f ? 3e38f : l;
-      s_delta[r] = i < S ? a.delta[stat0 + i] : 0.f;
-    }
-    __syncthreads();
+    copy_tile<D>(base + (stage ? M::q1 : M::q0), a.q + off, S - q0, row_stride);
+    copy_tile<D>(base + (stage ? M::do1 : M::do0), a.dout + off, S - q0, row_stride);
+    const int r = tid & (kT - 1), i = q0 + r;
+    const float* src = (tid < kT ? a.lse : a.delta) + stat0;
+    cp_async4(base + M::stats + ((tid < kT ? 0 : 2) + stage) * kT * 4 + r * 4,
+              i < S ? src + i : src, i < S);
+  };
 
-    if (has_rel) {  // qr^T = R_h . Q^T: row v, column = query; read by every warp
-      matmul_abt<D>(acc, ra, s_q, g, t);
+  copy_tile<D>(base + M::k, a.k + head0 + static_cast<size_t>(k0) * row_stride, S - k0,
+               row_stride);
+  copy_tile<D>(base + M::v, a.v + head0 + static_cast<size_t>(k0) * row_stride, S - k0,
+               row_stride);
+  if (has_rel) copy_tile<D>(base + M::r, a.rel + static_cast<size_t>(h) * kT * D, kT, D);
+  load_stage(0, live.tile(0) * kT);
+  cp_async_commit();
+  for (int idx = tid; idx < kT * LDF; idx += kThreads) s_dsv[idx] = 0.f;
+  // Image pairs look their id up: table[(dy + P - 1) * W + dx + P - 1],
+  // the index split as key code jy * W + jx minus a per-row query code.
+  const int P = max(geo.patch_per_row, 1), W = 2 * P - 1;
+  if (tid < kT) {
+    const int j = k0 + tid, jy = j / P;
+    s_kpos[tid] = jy * W + (j - jy * P);
+  }
+  if (has_rel && geo.image_len > 0)
+    for (int idx = tid; idx < W * W; idx += kThreads)
+      smem[M::ids + idx] = static_cast<uint8_t>(
+          min(image_id(idx / W - (P - 1), idx % W - (P - 1), geo.core_layers), kVP));
+
+  const uint32_t seed_b = kDropout ? example_seed(a.dr, b) : 0u;
+  const int r_lo = warp * 16 + g;  // this lane's rows of a 64-row product: r_lo, r_lo + 8
+
+  float dk_acc[NA], dv_acc[NA], drel_acc[NA];
+  zero(dk_acc);
+  zero(dv_acc);
+  zero(drel_acc);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = live.tile(it) * kT, st = it & 1;
+    if (it + 1 < n_tiles) load_stage(st ^ 1, live.tile(it + 1) * kT);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's stage (and K, V, R_h) has landed
+    fence_async_proxy();
+    __syncthreads();
+    const uint32_t sq = base + (st ? M::q1 : M::q0), sdo = base + (st ? M::do1 : M::do0);
+
+    float acc[32], dp[32];
+    if (has_rel) {  // qr = Q . R_h^T; each warp reads back only its own rows
+      zero(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<0, 0>(acc, SD::k_major(sq, kk), SD::k_major(base + M::r, kk));
+      wg_commit();
+      wg_wait_all();
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         const int c = n * 8 + t * 2;
-        s_qrt[r_lo * LDQ + c] = acc[n][0];
-        s_qrt[r_lo * LDQ + c + 1] = acc[n][1];
-        s_qrt[(r_lo + 8) * LDQ + c] = acc[n][2];
-        s_qrt[(r_lo + 8) * LDQ + c + 1] = acc[n][3];
+        s_qr[r_lo * LDF + c] = acc[4 * n];
+        s_qr[r_lo * LDF + c + 1] = acc[4 * n + 1];
+        s_qr[(r_lo + 8) * LDF + c] = acc[4 * n + 2];
+        s_qr[(r_lo + 8) * LDF + c + 1] = acc[4 * n + 3];
       }
+    }
+    zero(acc);
+    zero(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<0, 0>(acc, SD::k_major(sq, kk), SD::k_major(base + M::k, kk));    // S = Q K^T
+      wgmma_ss<0, 0>(dp, SD::k_major(sdo, kk), SD::k_major(base + M::v, kk));    // dO V^T
+    }
+    wg_commit();
+    wg_wait_all();
+    __syncwarp();
+
+    float lse_r[2], delta_r[2];
+    int qcode[2];
+    uint32_t hrow[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int i = q0 + r_lo + hr * 8, iy = i / P;
+      const float l = s_stats[st * kT + r_lo + hr * 8];
+      lse_r[hr] = l < -1e38f ? 3e38f : l;
+      delta_r[hr] = s_stats[(2 + st) * kT + r_lo + hr * 8];
+      qcode[hr] = iy * W + (i - iy * P) - (P - 1) * (W + 1);
+      hrow[hr] = hash_row(seed_b, h, i);
+    }
+    const int tile_id = has_rel ? uniform_tile_id(q0, k0, geo) : kVP;
+
+    // Once per pair, with no branch between elements: logit, p, dropout,
+    // dS; P K and dS to shared memory (bf16, rows = queries), dS also as
+    // the A fragments of dS . K; then the id histogram dSV.  A tile with
+    // one id adds its bias per row and its dS row sums to one column of
+    // dSV.  The others take each pair's id (clamped to kVP = no bin) and add
+    // dS into dSV in fixed point: shared fp32 atomics are compare-and-swap
+    // loops on this card, int32 ones are native.  Each row's unit is a power
+    // of two, 2^-21 of a bound on its largest |dS| (64 adds stay below
+    // 2^27; each value rounds by at most 2^-21 of the row's largest |dS|,
+    // below the bf16 hi + lo split of the product); runs of equal ids along
+    // the row (j ascending) are merged first, and the integer sums are
+    // exact.
+    uint32_t ds_a[4][4], id_bytes[8];
+    auto pair_pass = [&](auto uniform_tag) {
+      constexpr bool kUniform = decltype(uniform_tag)::value;
+      float bias_r[2] = {0.f, 0.f};
+      if (kUniform && tile_id < geo.vocab) {
+        bias_r[0] = s_qr[r_lo * LDF + tile_id];
+        bias_r[1] = s_qr[(r_lo + 8) * LDF + tile_id];
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float pk[4];
+        uint32_t ids = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hr = e >> 1;
+          const int rr = r_lo + hr * 8;
+          const int i = q0 + rr;
+          const int c = n * 8 + t * 2 + (e & 1);
+          const int j = k0 + c;
+          float x = acc[4 * n + e];
+          if constexpr (kUniform) {
+            x += bias_r[hr];
+          } else {
+            const int il = geo.image_len;
+            const int id = min(
+                i < il ? (j < il ? s_ids[s_kpos[c] - qcode[hr]] : geo.text_part_id)
+                       : (j < il ? geo.image_part_id : band_id(j - i, geo.text_max_distance)),
+                kVP);
+            if (id < geo.vocab) x += s_qr[rr * LDF + id];
+            ids |= static_cast<uint32_t>(id) << (8 * e);
+          }
+          x *= a.scale;
+          if ((i < L) != (j < L)) x += kMaskBias;
+          if (kWindow && !window_allowed(i, j, geo)) x += kMaskBias;
+          const float p = __expf(x - lse_r[hr]);
+          float keep = 1.f;
+          if constexpr (kDropout) keep = keep_of(a.dr, hrow[hr], j);
+          const bool real = i < L && j < L;
+          // dp * keep rounded on its own (no FMA with delta), so that the
+          // dense and windowed instantiations give the same dS bit for bit.
+          const float ds = real ? p * (__fmul_rn(dp[4 * n + e], keep) - delta_r[hr]) : 0.f;
+          pk[e] = real ? p * keep : 0.f;
+          acc[4 * n + e] = ds;
+        }
+        id_bytes[n] = ids;
+        const int c = n * 8 + t * 2;
+        const uint32_t ds_lo = pack_bf16(acc[4 * n], acc[4 * n + 1]);
+        const uint32_t ds_hi = pack_bf16(acc[4 * n + 2], acc[4 * n + 3]);
+        ds_a[n >> 1][(n & 1) * 2] = ds_lo;
+        ds_a[n >> 1][(n & 1) * 2 + 1] = ds_hi;
+        *reinterpret_cast<uint32_t*>(smem + M::ds + S64::elem(r_lo, c)) = ds_lo;
+        *reinterpret_cast<uint32_t*>(smem + M::ds + S64::elem(r_lo + 8, c)) = ds_hi;
+        *reinterpret_cast<uint32_t*>(smem + M::p + S64::elem(r_lo, c)) = pack_bf16(pk[0], pk[1]);
+        *reinterpret_cast<uint32_t*>(smem + M::p + S64::elem(r_lo + 8, c)) =
+            pack_bf16(pk[2], pk[3]);
+      }
+      if constexpr (!kUniform) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float m = 0.f;
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            m = fmaxf(m, fmaxf(fabsf(acc[4 * n + 2 * hr]), fabsf(acc[4 * n + 2 * hr + 1])));
+          m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, 2));
+          int e;
+          frexpf(m, &e);  // m < 2^e
+          const float scale = ldexpf(1.f, 21 - e);
+          if (t == 0) s_dsv_unit[r_lo + hr * 8] = ldexpf(1.f, e - 21);
+          int* row = s_dsv_fixed + (r_lo + hr * 8) * LDF;
+          int run_id = kVP, run_sum = 0;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+#pragma unroll
+            for (int e2 = 2 * hr; e2 < 2 * hr + 2; ++e2) {
+              const int id = (id_bytes[n] >> (8 * e2)) & 0xFF;
+              if (id != run_id) {
+                if (run_id < geo.vocab) atomicAdd(row + run_id, run_sum);
+                run_id = id;
+                run_sum = 0;
+              }
+              run_sum += __float2int_rn(acc[4 * n + e2] * scale);
+            }
+          }
+          if (run_id < geo.vocab) atomicAdd(row + run_id, run_sum);
+        }
+      }
+      if constexpr (kUniform) {  // one column of dSV: the row sums, one lane adds each
+        if (tile_id < geo.vocab) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            float sum = 0.f;
+#pragma unroll
+            for (int n = 0; n < 8; ++n) sum += acc[4 * n + 2 * hr] + acc[4 * n + 2 * hr + 1];
+            sum += __shfl_xor_sync(0xFFFFFFFFu, sum, 1);
+            sum += __shfl_xor_sync(0xFFFFFFFFu, sum, 2);
+            if (t == 0) s_dsv[(r_lo + hr * 8) * LDF + tile_id] += sum;
+          }
+        }
+      }
+    };
+    if (tile_id >= 0)
+      pair_pass(std::true_type{});
+    else
+      pair_pass(std::false_type{});
+    fence_async_proxy();
+    __syncthreads();  // every row of P K, dS and dSV is in place; qr is read
+
+    // dV += (P K)^T . dO and dK += dS^T . Q: K = the 64 queries.
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < kT / 16; ++kc) {
+      wgmma_ss<1, 1>(dv_acc, S64::mn_major(base + M::p, kc), SD::mn_major(sdo, kc));
+      wgmma_ss<1, 1>(dk_acc, S64::mn_major(base + M::ds, kc), SD::mn_major(sq, kc));
+    }
+    wg_commit();
+
+    if (has_rel) {  // dSV -> bf16 hi + lo tiles (over the qr tile); zero it for the next tile
+      for (int idx = tid; idx < kT * (kT / 2); idx += kThreads) {
+        const int r = idx / (kT / 2), c = (idx % (kT / 2)) * 2;
+        float* src = s_dsv + r * LDF + c;
+        float x0 = src[0], x1 = src[1];
+        if (tile_id < 0) {
+          const float unit = s_dsv_unit[r];
+          x0 = static_cast<float>(__float_as_int(x0)) * unit;
+          x1 = static_cast<float>(__float_as_int(x1)) * unit;
+        }
+        src[0] = src[1] = 0.f;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        const uint32_t lo = pack_bf16(x0 - __low2float(hi), x1 - __high2float(hi));
+        *reinterpret_cast<__nv_bfloat162*>(smem + M::hi + S64::elem(r, c)) = hi;
+        *reinterpret_cast<uint32_t*>(smem + M::lo + S64::elem(r, c)) = lo;
+      }
+      fence_async_proxy();
       __syncthreads();
     }
 
-    matmul_abt<D>(acc, ka, s_q, g, t);  // s^T = k . q^T
-    matmul_abt<D>(dp, va, s_do, g, t);  // dp^T = v . do^T
-
+    // dq_tile = dS . K + dSV . R_h; dRel += dSV^T . Q (hi and lo terms).
+    float dq_acc[NA];
+    zero(dq_acc);
+    wg_fence();
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int kc = 0; kc < kT / 16; ++kc)
+      wgmma_rs<1>(dq_acc, ds_a[kc], SD::mn_major(base + M::k, kc));
+    if (has_rel) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = k0 + r_lo + (e >> 1) * 8;
-        const int c = n * 8 + t * 2 + (e & 1);
-        const int i = q0 + c;
-        float x = acc[n][e];
-        if (has_rel) {
-          const int id = relative_id(i, j, geo);
-          if (id < geo.vocab) x += s_qrt[id * LDQ + c];
-        }
-        x *= a.scale;
-        if ((i < L) != (j < L)) x += kMaskBias;
-        if (kWindow && !window_allowed(i, j, geo)) x += kMaskBias;
-        const float p = __expf(x - s_lse[c]);
-        float keep = 1.f;
-        if constexpr (kDropout) keep = dropout_keep(a.dr, seed_b, h, i, j);
-        const bool real = i < L && j < L;
-        acc[n][e] = real ? p * keep : 0.f;                        // dropped p, for dv
-        dp[n][e] = real ? p * (dp[n][e] * keep - s_delta[c]) : 0.f;  // dS
+      for (int kc = 0; kc < kT / 16; ++kc) {
+        wgmma_ss<0, 1>(dq_acc, S64::k_major(base + M::hi, kc), SD::mn_major(base + M::r, kc));
+        wgmma_ss<1, 1>(drel_acc, S64::mn_major(base + M::hi, kc), SD::mn_major(sq, kc));
+        wgmma_ss<1, 1>(drel_acc, S64::mn_major(base + M::lo, kc), SD::mn_major(sq, kc));
       }
     }
-
-    matmul_pb<D>(dv_acc, acc, s_dot, g, t);  // dv += (p K)^T . do
-    matmul_pb<D>(dk_acc, dp, s_qt, g, t);    // dk += dS^T . q
+    wg_commit();
+    wg_wait_all();  // and the dV / dK products
+    red_rows<D>(a.dq + head0, row_stride, q0, L, dq_acc, a.scale);
+    __syncthreads();  // this stage, P K, dS, hi / lo are free for the next tile
   }
 
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int j = k0 + r_lo + hr * 8;
-    if (j >= S) continue;
-    __nv_bfloat16* dk_row = a.out0 + head0 + static_cast<size_t>(j) * row_stride;
-    __nv_bfloat16* dv_row = a.out1 + head0 + static_cast<size_t>(j) * row_stride;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      *reinterpret_cast<uint32_t*>(dk_row + nd * 8 + t * 2) =
-          pack_bf16(dk_acc[nd][2 * hr] * a.scale, dk_acc[nd][2 * hr + 1] * a.scale);
-      *reinterpret_cast<uint32_t*>(dv_row + nd * 8 + t * 2) =
-          pack_bf16(dv_acc[nd][2 * hr], dv_acc[nd][2 * hr + 1]);
-    }
-  }
+  store_rows<D>(a.dk + head0, row_stride, k0, S, dk_acc, a.scale);
+  store_rows<D>(a.dv + head0, row_stride, k0, S, dv_acc, 1.f);
+  if (has_rel)  // rows v >= V are 0: dSV has no such column
+    red_rows<D>(a.drel + (static_cast<size_t>(b) * H + h) * kT * D, D, 0, geo.vocab, drel_acc,
+                a.scale);
 }
 
 template <int D, bool kDropout, bool kWindow>
-cudaError_t launch(bool dq_pass, dim3 grid, cudaStream_t s, const BwdArgs& a) {
-  auto kernel = dq_pass ? rel_attention_bwd_dq_kernel<D, kDropout, kWindow>
-                        : rel_attention_bwd_dkv_kernel<D, kDropout, kWindow>;
-  const size_t smem = dq_pass ? dq_smem_bytes<D>() : dkv_smem_bytes<D>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+cudaError_t launch(dim3 grid, cudaStream_t s, const BwdArgs& a) {
+  auto kernel = rel_attention_bwd_kernel<D, kDropout, kWindow>;
+  constexpr int smem = Smem<D>::alloc;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
@@ -438,16 +767,29 @@ LaunchFn pick(bool drop, bool window) {
   return window ? launch<D, false, true> : launch<D, false, false>;
 }
 
-int run(bool dq_pass, const void* q, const void* k, const void* v, const void* dout,
-        const void* lse, const void* delta, const void* rel, const void* lengths, void* out0,
-        void* out1, void* drel, int batch, int seq_len, int num_heads, int head_dim, int vocab,
-        int image_len, int patch_per_row, int core_layers, int text_max_distance,
-        int image_part_id, int text_part_id, int window, int num_global, float scale,
-        int dropout_threshold, float keep_scale, int seed, int batch_start, void* stream) {
+}  // namespace
+
+// q, k, v, do, dk, dv: bf16 [B, S, H, D] contiguous; dq: fp32 [B, S, H, D],
+// zeroed by the caller (rows past the length stay 0); lse, delta: fp32
+// [B, H, S]; rel: bf16 [H, 64, D] (rows >= V zero) or null; lengths: int32
+// [B]; drel: fp32 [B, H, 64, D], zeroed by the caller (null without rel).
+// Window and dropout arguments as in mmt_rel_attention_fwd.  Launches one
+// kernel on `stream`, allocates nothing and returns the CUDA error code.
+extern "C" int mmt_rel_attention_bwd(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse, const void* delta,
+                                     const void* rel, const void* lengths, void* dq, void* dk,
+                                     void* dv, void* drel, int batch, int seq_len,
+                                     int num_heads, int head_dim, int vocab, int image_len,
+                                     int patch_per_row, int core_layers, int text_max_distance,
+                                     int image_part_id, int text_part_id, int window,
+                                     int num_global, float scale, int dropout_threshold,
+                                     float keep_scale, int seed, int batch_start, void* stream) {
   if (vocab < 0 || vocab > kVP || dropout_threshold < 0 || dropout_threshold > (1 << 24) ||
       window < 0 || (window > 0 && num_global <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dq_pass && rel != nullptr && vocab > 0 && drel == nullptr)
+  if (rel != nullptr && vocab > 0 && drel == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (image_len > 0 && patch_per_row > kMaxPatchPerRow)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a;
   a.q = static_cast<const __nv_bfloat16*>(q);
@@ -458,8 +800,9 @@ int run(bool dq_pass, const void* q, const void* k, const void* v, const void* d
   a.delta = static_cast<const float*>(delta);
   a.rel = static_cast<const __nv_bfloat16*>(rel);
   a.lengths = static_cast<const int*>(lengths);
-  a.out0 = static_cast<__nv_bfloat16*>(out0);
-  a.out1 = static_cast<__nv_bfloat16*>(out1);
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<__nv_bfloat16*>(dk);
+  a.dv = static_cast<__nv_bfloat16*>(dv);
   a.drel = static_cast<float*>(drel);
   a.S = seq_len;
   a.H = num_heads;
@@ -470,8 +813,7 @@ int run(bool dq_pass, const void* q, const void* k, const void* v, const void* d
   a.scale = scale;
   a.dr = Dropout{static_cast<uint32_t>(dropout_threshold), keep_scale,
                  static_cast<uint32_t>(seed), static_cast<uint32_t>(batch_start)};
-  const dim3 grid((seq_len + kBQ - 1) / kBQ, num_heads, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((seq_len + kT - 1) / kT, num_heads, batch);
   const bool drop = dropout_threshold > 0;
   LaunchFn fn;
   if (head_dim == 64) {
@@ -481,46 +823,7 @@ int run(bool dq_pass, const void* q, const void* k, const void* v, const void* d
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(fn(dq_pass, grid, s, a));
-}
-
-}  // namespace
-
-// q, k, v, do, dq, dk, dv: bf16 [B, S, H, D] contiguous; lse, delta: fp32
-// [B, H, S]; rel: bf16 [H, 64, D] (rows >= V zero) or null; lengths: int32
-// [B]; drel: fp32 [B, H, 64, D], zeroed by the caller (null without rel).
-// Window and dropout arguments as in mmt_rel_attention_fwd.  Each launches one kernel
-// on `stream`, allocates nothing and returns the CUDA error code.
-extern "C" int mmt_rel_attention_bwd_dq(const void* q, const void* k, const void* v,
-                                        const void* dout, const void* lse, const void* delta,
-                                        const void* rel, const void* lengths, void* dq,
-                                        void* drel, int batch, int seq_len, int num_heads,
-                                        int head_dim, int vocab, int image_len,
-                                        int patch_per_row, int core_layers,
-                                        int text_max_distance, int image_part_id,
-                                        int text_part_id, int window, int num_global,
-                                        float scale, int dropout_threshold, float keep_scale,
-                                        int seed, int batch_start, void* stream) {
-  return run(true, q, k, v, dout, lse, delta, rel, lengths, dq, nullptr, drel, batch, seq_len,
-             num_heads, head_dim, vocab, image_len, patch_per_row, core_layers,
-             text_max_distance, image_part_id, text_part_id, window, num_global, scale,
-             dropout_threshold, keep_scale, seed, batch_start, stream);
-}
-
-extern "C" int mmt_rel_attention_bwd_dkv(const void* q, const void* k, const void* v,
-                                         const void* dout, const void* lse, const void* delta,
-                                         const void* rel, const void* lengths, void* dk,
-                                         void* dv, int batch, int seq_len, int num_heads,
-                                         int head_dim, int vocab, int image_len,
-                                         int patch_per_row, int core_layers,
-                                         int text_max_distance, int image_part_id,
-                                         int text_part_id, int window, int num_global,
-                                         float scale, int dropout_threshold, float keep_scale,
-                                         int seed, int batch_start, void* stream) {
-  return run(false, q, k, v, dout, lse, delta, rel, lengths, dk, dv, nullptr, batch, seq_len,
-             num_heads, head_dim, vocab, image_len, patch_per_row, core_layers,
-             text_max_distance, image_part_id, text_part_id, window, num_global, scale,
-             dropout_threshold, keep_scale, seed, batch_start, stream);
+  return static_cast<int>(fn(grid, static_cast<cudaStream_t>(stream), a));
 }
 
 extern "C" const char* mmt_cuda_error_string(int code) {

@@ -8,11 +8,14 @@ Counterpart of ``mmt_tpu/ops/pallas_attention.py``, forward and backward.
   windowed live-tile list) by one flash-attention pass that regenerates
   the relative ids from positions and applies the attention dropout in
   the kernel.
-* Backward kernels ``mmt_tpu_torch/csrc/rel_attention_bwd.cu`` replace K3
+* Backward kernel ``mmt_tpu_torch/csrc/rel_attention_bwd.cu`` replaces K3
   ``_bwd_fused_kernel`` and K5 ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``
   (and, windowed, K4 ``_bwd_fused_list_kernel`` and K6
-  ``_bwd_dq_list_kernel`` / ``_bwd_dkv_list_kernel``) by K5's two-pass
-  schedule: a dq + dRel pass and a dk/dv pass.
+  ``_bwd_dq_list_kernel`` / ``_bwd_dkv_list_kernel``) by one pass over
+  each (query, key) pair: a block owns 64 keys and sweeps their live query
+  tiles, keeps dk / dv in registers, adds each tile's dq into an fp32
+  buffer and each block's dRel into a per-example buffer.
+  ``relative_attention_backward_tiled`` is that schedule in plain PyTorch.
 
 The sliding-window + prefix-global pattern (``RelGeometry.window > 0``)
 allows a pair (i, j) iff ``i < num_global or j < num_global or |i - j| <=
@@ -31,12 +34,12 @@ Public pieces:
   the launchers: on CUDA tensors they launch the kernels or raise; on CPU
   tensors they return the plain versions.  Each launcher counts its
   kernel launches, dense and windowed apart:
-  ``relative_attention_forward.launches`` / ``.launches_window`` and, one
-  per backward kernel, ``relative_attention_backward.launches_dq`` /
-  ``.launches_dkv`` / ``.launches_dq_window`` / ``.launches_dkv_window``.
+  ``relative_attention_forward.launches`` / ``.launches_window`` and
+  ``relative_attention_backward.launches`` / ``.launches_window``.
 * ``relative_attention_plain`` / ``relative_attention_backward_plain``
   are the plain PyTorch versions: dense formulas over the materialised id
   map and pattern mask, chunked over the batch.
+* ``live_tiles`` is the 64-wide tile sweep of a block (csrc ``LiveTiles``).
 * ``dropout_keep`` / ``dropout_tile`` are a bit-exact copy of the JAX
   dropout hash.
 * ``allowed_real_pairs`` counts the pairs a batch's attention computes
@@ -73,6 +76,12 @@ from mmt_tpu_torch.ops.relative_attention_ref import relative_attention_scores
 NEG_INF = -10000.0
 # Relative-vocab columns the kernels keep per query row (csrc kVP).
 MAX_KERNEL_VOCAB = 64
+# Rows of the kernels' query and key tiles (csrc kBQ, kBK).
+TILE = 64
+# The backward kernel looks image ids up in a (2P - 1)^2 table
+# (rel_attention_bwd.cu kMaxPatchPerRow); the JAX kernels ask for an image
+# part within one tile (pallas_attention.py:_prepare), P <= 22 at 512.
+MAX_BACKWARD_PATCH_PER_ROW = 32
 KERNEL_HEAD_DIMS = (32, 64)
 # Logit elements per chunk of the plain versions (1 GiB of float32).
 _PLAIN_CHUNK_ELEMENTS = 1 << 28
@@ -173,6 +182,23 @@ def allowed_real_pairs(geometry: Optional[RelGeometry], lengths) -> int:
         lo, hi = np.maximum(i - w, g), np.minimum(i + w, n - 1)
         total += g * n + int(((n - g) * g + np.maximum(hi - lo + 1, 0).sum()))
     return total
+
+
+def live_tiles(r0: int, length: int, geometry: Optional[RelGeometry]) -> list:
+    """The 64-wide tiles on the other axis that a block of 64 rows from
+    ``r0`` visits, in ascending order (csrc ``LiveTiles``): every tile
+    below the length when dense or when the block meets the global prefix;
+    else the global tiles and the band ``[floor((r0 - w) / 64),
+    floor((r0 + 63 + w) / 64)]``, a tile in both visited once.  The pattern
+    is symmetric, so this is a query block's key tiles and a key block's
+    query tiles alike."""
+    n = -(-length // TILE)
+    if not _windowed(geometry) or r0 < geometry.num_global:
+        return list(range(n))
+    head = min(-(-geometry.num_global // TILE), n)
+    lo = max(max(r0 - geometry.window, 0) // TILE, head)
+    hi = min((r0 + TILE - 1 + geometry.window) // TILE + 1, n)
+    return list(range(head)) + list(range(lo, max(lo, hi)))
 
 
 # ------------------------------------------------------------ dropout hash
@@ -409,6 +435,92 @@ def relative_attention_backward_plain(
     return dq, dk, dv, drel.to(rel_table.dtype) if use_rel else None
 
 
+def relative_attention_backward_tiled(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    rel_table: Optional[torch.Tensor],
+    geometry: Optional[RelGeometry],
+    lengths: torch.Tensor,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The backward kernel's schedule in plain PyTorch (float32, small
+    shapes): the function of ``relative_attention_backward_plain``,
+    computed as ``csrc/rel_attention_bwd.cu`` decomposes it.
+
+    For each example and each 64-key block below its length, the block's
+    live query tiles (``live_tiles``) are swept in order; each (query tile,
+    key block) pair computes s, p, the dropout keep factor K and dS
+    once, adds ``(p K)^T . do`` to dv and ``dS^T . q`` to dk, adds its dq
+    contribution ``dS . k + dSV_tile . R_h`` to the query rows, and adds
+    ``dSV_tile^T . q_tile`` to dRel, with ``dSV_tile[i, v]`` the tile's
+    per-row id histogram of dS.  Returns (dq, dk, dv in q.dtype, drel
+    [V, H, D] in the table's dtype or None), zero past each length.
+    """
+    _check_pattern(geometry, rel_table)
+    _check_dropout(dropout_rate, dropout_seed)
+    batch, seq_len, num_heads, head_dim = q.shape
+    scale = 1.0 / math.sqrt(head_dim)
+    ids = _plain_ids(geometry, rel_table, seq_len, q.device)
+    window = _window_term(geometry, seq_len, q.device)
+    use_rel = ids is not None
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    if use_rel:
+        vocab = rel_table.shape[0]
+        r = rel_table.to(q.dtype).float()
+        safe_ids = torch.where(ids < vocab, ids.long(), vocab)
+        drel = torch.zeros(vocab, num_heads, head_dim, dtype=torch.float32, device=q.device)
+    heads = torch.arange(num_heads, dtype=torch.int64, device=q.device)
+    for b in range(batch):
+        length = int(lengths[b])
+        for k0 in range(0, length, TILE):
+            ks = slice(k0, min(k0 + TILE, seq_len))
+            j_pos = torch.arange(ks.start, ks.stop, device=q.device)
+            for tile in live_tiles(k0, length, geometry):
+                qs = slice(tile * TILE, min((tile + 1) * TILE, seq_len))
+                i_pos = torch.arange(qs.start, qs.stop, device=q.device)
+                s = torch.einsum("ihd,jhd->hij", qf[b, qs], kf[b, ks])
+                if use_rel:
+                    qr = torch.einsum("ihd,vhd->hiv", qf[b, qs], r)
+                    tile_ids = ids[qs, ks].long()
+                    in_vocab = tile_ids < vocab
+                    gathered = torch.gather(
+                        qr, 2, torch.where(in_vocab, tile_ids, 0).expand(num_heads, -1, -1))
+                    s = s + torch.where(in_vocab, gathered, 0.0)
+                s = s * scale
+                real_i, real_j = i_pos < length, j_pos < length
+                s = s + (real_i[:, None] != real_j[None, :]).float() * NEG_INF
+                if window is not None:
+                    s = s + window[qs, ks]
+                lse_t = lse[b, :, qs].float()
+                lse_t = torch.where(lse_t < -1e38, torch.full_like(lse_t, 3e38), lse_t)
+                p = torch.exp(s - lse_t[..., None])
+                keep = (dropout_keep(example_seed(dropout_seed, b), heads[:, None, None],
+                                     i_pos[:, None], j_pos[None, :], dropout_rate)
+                        if dropout_rate > 0.0 else torch.ones((), device=q.device))
+                real = real_i[:, None] & real_j[None, :]
+                dp = torch.einsum("ihd,jhd->hij", dof[b, qs], vf[b, ks]) * keep
+                ds = torch.where(real, p * (dp - delta[b, :, qs].float()[..., None]), 0.0)
+                pk = torch.where(real, p * keep, 0.0)
+                dv[b, ks] += torch.einsum("hij,ihd->jhd", pk, dof[b, qs])
+                dk[b, ks] += torch.einsum("hij,ihd->jhd", ds, qf[b, qs]) * scale
+                dq_tile = torch.einsum("hij,jhd->ihd", ds, kf[b, ks])
+                if use_rel:
+                    index = safe_ids[qs, ks].expand(num_heads, -1, -1)
+                    dsv = torch.zeros(num_heads, qs.stop - qs.start, vocab + 1,
+                                      device=q.device).scatter_add_(-1, index, ds)[..., :vocab]
+                    dq_tile = dq_tile + torch.einsum("hiv,vhd->ihd", dsv, r)
+                    drel += torch.einsum("hiv,ihd->vhd", dsv, qf[b, qs]) * scale
+                dq[b, qs] += dq_tile * scale
+    dq, dk, dv = (t.to(q.dtype) for t in (dq, dk, dv))
+    return dq, dk, dv, drel.to(rel_table.dtype) if use_rel else None
+
+
 # --------------------------------------------------------------- kernels
 
 
@@ -431,14 +543,14 @@ def _fwd_kernel():
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_kernels():
+def _bwd_kernel():
     lib = build.load_library("rel_attention_bwd")
-    for fn in (lib.mmt_rel_attention_bwd_dq, lib.mmt_rel_attention_bwd_dkv):
-        fn.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_float]
-            + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
+    fn = lib.mmt_rel_attention_bwd
+    fn.argtypes = (
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [ctypes.c_float]
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
     lib.mmt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mmt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -531,7 +643,7 @@ def _refuse_grad(*tensors) -> None:
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             "the kernel launchers are not differentiable; call relative_attention(), "
-            "whose backward runs the backward kernels")
+            "whose backward runs the backward kernel")
 
 
 def relative_attention_forward(
@@ -622,13 +734,14 @@ def relative_attention_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Fused relative attention backward -> (dq, dk, dv, drel).
 
-    On ``"cuda"`` launches the two Hopper kernels (dq + per-example dRel,
-    then dk/dv; bf16 q/k/v/do, fp32 lse/delta; their windowed variants when
-    ``geometry.window > 0``) or raises; on ``"cpu"``
-    returns ``relative_attention_backward_plain``.  dq/dk/dv come in
-    q.dtype; drel is [V, H, D] in the table's dtype (summed over the
-    batch here, as ``pallas_attention.py:2972`` does), or None without a
-    table.  Arguments as in ``relative_attention_backward_plain``;
+    On ``"cuda"`` launches the Hopper kernel (one pass over each (query,
+    key) pair; bf16 q/k/v/do, fp32 lse/delta; its windowed variant when
+    ``geometry.window > 0``) or raises; on ``"cpu"`` returns
+    ``relative_attention_backward_plain``.  dq/dk/dv come in q.dtype (the
+    kernel adds dq in an fp32 buffer, cast here); drel is [V, H, D] in the
+    table's dtype (summed over the batch here, as
+    ``pallas_attention.py:2972`` does), or None without a table.
+    Arguments as in ``relative_attention_backward_plain``;
     ``kernel_table`` as in ``relative_attention_forward``.
     """
     _check_pattern(geometry, rel_table)
@@ -643,6 +756,9 @@ def relative_attention_backward(
     batch, seq_len, num_heads, head_dim = q.shape
     use_rel, vocab, geo_args = _check_kernel_inputs(q, lengths, rel_table, geometry,
                                                     k=k, v=v, do=do)
+    if use_rel and geometry.image_len and geometry.num_patch_per_row > MAX_BACKWARD_PATCH_PER_ROW:
+        raise ValueError(f"the backward kernel takes num_patch_per_row <= "
+                         f"{MAX_BACKWARD_PATCH_PER_ROW}, got {geometry.num_patch_per_row}")
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (batch, num_heads, seq_len) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 [{batch}, {num_heads}, {seq_len}], "
@@ -651,48 +767,38 @@ def relative_attention_backward(
     lse, delta = lse.contiguous(), delta.contiguous()
     rel = _kernel_table(rel_table, kernel_table) if use_rel else None
     lengths32 = lengths.to(torch.int32).contiguous()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # Per-example dRel, summed by atomics over the example's query tiles.
+    # dq is summed over key blocks by reductions into fp32; rows past the
+    # length receive none and stay 0.  dRel per example, summed below.
+    dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     drel_b = (torch.zeros(batch, num_heads, MAX_KERNEL_VOCAB, head_dim,
                           dtype=torch.float32, device=q.device) if use_rel else None)
-    lib = _bwd_kernels()
-    common = (
+    lib = _bwd_kernel()
+    err = lib.mmt_rel_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), rel.data_ptr() if rel is not None else None, lengths32.data_ptr(),
+        dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        drel_b.data_ptr() if drel_b is not None else None,
         batch, seq_len, num_heads, head_dim, vocab, *geo_args,
         1.0 / math.sqrt(head_dim),
         *_dropout_args(dropout_rate, dropout_seed),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-              delta.data_ptr(), rel.data_ptr() if rel is not None else None,
-              lengths32.data_ptr())
-    err = lib.mmt_rel_attention_bwd_dq(
-        *inputs, dq.data_ptr(), drel_b.data_ptr() if drel_b is not None else None, *common)
     if err:
-        raise RuntimeError(f"rel_attention_bwd dq launch failed: CUDA error {err} "
-                           f"({_error_string(lib, err)})")
-    counter = relative_attention_backward
-    if _windowed(geometry):
-        counter.launches_dq_window += 1
-    else:
-        counter.launches_dq += 1
-    err = lib.mmt_rel_attention_bwd_dkv(*inputs, dk.data_ptr(), dv.data_ptr(), *common)
-    if err:
-        raise RuntimeError(f"rel_attention_bwd dkv launch failed: CUDA error {err} "
+        raise RuntimeError(f"rel_attention_bwd launch failed: CUDA error {err} "
                            f"({_error_string(lib, err)})")
     if _windowed(geometry):
-        counter.launches_dkv_window += 1
+        relative_attention_backward.launches_window += 1
     else:
-        counter.launches_dkv += 1
+        relative_attention_backward.launches += 1
     drel = None
     if use_rel:
         drel = drel_b.sum(0)[:, :vocab].permute(1, 0, 2).to(rel_table.dtype)
-    return dq, dk, dv, drel
+    return dq32.to(q.dtype), dk, dv, drel
 
 
-relative_attention_backward.launches_dq = 0
-relative_attention_backward.launches_dkv = 0
-relative_attention_backward.launches_dq_window = 0
-relative_attention_backward.launches_dkv_window = 0
+relative_attention_backward.launches = 0
+relative_attention_backward.launches_window = 0
 
 
 # ------------------------------------------------------ differentiable op
