@@ -13,16 +13,21 @@ Phases, each printed as one JSON line:
    version at the flagship attention shape (S=4096, H=12, D=64, V=49,
    P=14, r=1, text distance 12, bf16): max abs error on real rows at
    lengths [4096, 3001, 1000, 257], then at the main path's batch (32,
-   lengths ~ U[2048, 4096]) the kernel's time, the plain version's, the
-   time of ``scaled_dot_product_attention`` handed the materialised bias
-   (a yardstick the port never calls) and the bound.
+   lengths ~ U[2048, 4096]) the kernel's time (CUDA events around the
+   wrapper, and the kernel's profiler device time alone), the plain
+   version's, the time of ``scaled_dot_product_attention`` handed the
+   materialised bias (a yardstick the port never calls) and the bound;
+   the same at the pretraining micro-batch (B=64, S=256, lengths ~ U[204,
+   256], dropout 0.1), after its check against the plain version.
 4. main: the full-width retrieval model (BERT-base geometry, L12/H768/A12,
    I3072, vocab 30522, fused attention, bf16, random weights from a seed)
    scores 8 images x 8 texts = 64 pairs at S=4096, batch 32, through
    ``eval.predict.predict`` and ``write_results``; the kernel's launch
    count must be 12 per forward.
 5. profile: device time by kernel over one forward of that batch
-   (``torch.profiler``), and the device's idle share.
+   (``torch.profiler``), the device's idle share, and the forward
+   kernel's device time per call there beside its time alone (phase 3),
+   each with the 64 x 64 tiles its lengths give.
 6. reference: the same model with dense attention on two of the pairs;
    the ITM logits must agree within 4 bf16 spacings.
 7. kernel_dropout: the forward kernel with attention dropout 0.1 against
@@ -52,9 +57,9 @@ Phases, each printed as one JSON line:
    forward / backward kernels must launch exactly 12 times per
    micro-batch each.
 10. train_profile: device time by kernel group over one micro-batch's
-   forward + backward, the device's idle share, and the backward
-   kernel's device time per call inside the step beside its time alone
-   in phase 8.
+   forward + backward, the device's idle share, and the forward and
+   backward kernels' device time per call inside the step beside their
+   times alone in phases 3 and 8.
 11. train_reference: the gradients of every parameter tensor on a 2-example
    micro-batch, kernels against the same model with dense attention
    (autograd through the plain version), with attention dropout 0.1 at
@@ -97,7 +102,8 @@ Phases, each printed as one JSON line:
    (``probes.split_probe``): each pass and their logsumexp combine against
    the plain versions and the one-pass kernel at the check lengths (the o /
    lse bounds of phase 3), then the probe's entry point at the retrieval
-   shape: far pass, structured pass, one-pass kernel, the share of far
+   shape: far pass, structured pass, one-pass kernel (the production
+   forward kernel, ``csrc/rel_attention_fwd.cu``), the share of far
    tiles; each pass also against its bound and against
    ``scaled_dot_product_attention`` handed the bias and the class mask.
 18. probe_op_cost: every variant of the op-cost probe
@@ -171,7 +177,9 @@ GRAD_REL_BOUND = 2e-2
 # of a rare id (an image corner, a part id) fails too; rows that are 0 in
 # the plain version (ids no pair has) must be 0.
 DREL_REL_BOUND, DREL_ROW_BOUND = 1e-4, 1e-3
-# The backward kernel's name in profiler traces (rel_attention_bwd.cu).
+# The kernels' names in profiler traces (rel_attention_fwd.cu,
+# rel_attention_bwd.cu).
+FWD_KERNEL = "rel_attention_fwd_kernel"
 BWD_KERNEL = "rel_attention_bwd_kernel"
 # Pretraining micro-batch (configs/exp_yamls/pretrain/wit/mlm_itm_2d.yaml).
 TRAIN_SEQ, TRAIN_MICRO, TRAIN_GLOBAL, TRAIN_STEPS = 256, 64, 4096, 3
@@ -298,7 +306,32 @@ def sdpa_with_bias(q, k, v, table, geo, lengths):
     return lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
 
+def forward_work(lengths, seq_len, pairs=None):
+    """(FLOPs, bytes) of one forward at these lengths: q.k^T and p.v over
+    ``pairs`` query-key pairs (default: every real pair, sum of L**2) and
+    q.R^T per real row; the real rows of q, k and v read once, every row of
+    o and lse written once, the table and the lengths read."""
+    L = np.asarray(lengths, np.float64)
+    pairs = (L**2).sum() if pairs is None else pairs
+    flops = 4 * pairs * HEAD_DIM * HEADS + 2 * L.sum() * REL_VOCAB * HEAD_DIM * HEADS
+    row_bytes = HEADS * HEAD_DIM * 2
+    nbytes = (3 * L.sum() * row_bytes + len(L) * seq_len * row_bytes + len(L) * HEADS * seq_len * 4
+              + REL_VOCAB * HEADS * HEAD_DIM * 4 + len(L) * 4)
+    return flops, nbytes
+
+
+def dense_tiles(lengths) -> int:
+    """64 x 64 tiles the dense forward computes at these lengths."""
+    return int(sum((-(-int(n) // 64)) ** 2 for n in lengths))
+
+
 def phase_kernel():
+    """The forward kernel against its plain version at the check lengths
+    and the retrieval batch; its times there and at the pretraining
+    micro-batch (B=64, S=256, dropout 0.1), each beside the plain version,
+    SDPA handed the bias mask and the bound.  Returns the ``kernels`` entry
+    and, at both shapes, the kernel's profiler device ms alone with the
+    tiles its lengths give."""
     from mmt_tpu_torch.ops import fused_attention as fa
 
     err_o, err_lse = kernel_errors(attention_inputs(CHECK_LENGTHS, seed=1))
@@ -310,19 +343,35 @@ def phase_kernel():
     if not (err_o <= O_BOUND and err_lse <= LSE_BOUND):
         raise AssertionError(f"kernel disagrees with plain: o {err_o} lse {err_lse}")
 
-    ms = cuda_ms(lambda: fa.relative_attention_forward(*args), iters=10)
+    call = lambda: fa.relative_attention_forward(*args)  # noqa: E731
+    ms = cuda_ms(call, iters=10)
+    kernel_ms = profile_kernel_ms(call, [FWD_KERNEL])[FWD_KERNEL]
     plain_ms = cuda_ms(lambda: fa.relative_attention_plain(*args), iters=2)
     library = sdpa_with_bias(*args)
     library_ms = cuda_ms(library, iters=5)
-    del library
+    del library, args
+    torch.cuda.empty_cache()
 
-    L = np.asarray(main_lengths, np.float64)
-    flops = (4 * (L**2).sum() * HEAD_DIM * HEADS + 2 * L.sum() * REL_VOCAB * HEAD_DIM * HEADS)
-    row_bytes = HEADS * HEAD_DIM * 2
-    nbytes = (3 * L.sum() * row_bytes  # q, k, v rows the kernel reads
-              + BATCH * SEQ_LEN * row_bytes  # o written
-              + BATCH * HEADS * SEQ_LEN * 4  # lse written
-              + REL_VOCAB * HEADS * HEAD_DIM * 4 + BATCH * 4)
+    # The pretraining micro-batch: the shape of phase train's launches.
+    seed = 20261
+    targs = train_attention_inputs(seed=5)
+    t_err_o, t_err_lse = kernel_errors(targs, DROPOUT, seed)
+    if not (t_err_o <= O_BOUND and t_err_lse <= LSE_BOUND):
+        raise AssertionError(f"kernel disagrees with plain at S={TRAIN_SEQ}: o {t_err_o} "
+                             f"lse {t_err_lse}")
+    t_call = lambda: fa.relative_attention_forward(*targs, "cuda", DROPOUT, seed)  # noqa: E731
+    targs_lengths = targs[-1].tolist()
+    t_flops, t_bytes = forward_work(targs_lengths, TRAIN_SEQ)
+    train = {"rate": DROPOUT, "max_abs_err_o": t_err_o, "max_abs_err_lse": t_err_lse,
+             "ms": cuda_ms(t_call, 50),
+             "kernel_ms": profile_kernel_ms(t_call, [FWD_KERNEL], iters=20)[FWD_KERNEL],
+             "plain_ms": cuda_ms(lambda: fa.relative_attention_plain(*targs, DROPOUT, seed), 5),
+             "library_ms": cuda_ms(sdpa_with_bias(*targs), 20),
+             "flops": t_flops, "bytes": t_bytes}
+    train["bound_ms"], train["bound_by"] = bound_ms(t_flops, t_bytes)
+    del targs
+
+    flops, nbytes = forward_work(main_lengths, SEQ_LEN)
     flops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     entry = {
         "name": "rel_attention_fwd",
@@ -343,8 +392,12 @@ def phase_kernel():
           "max_abs_err_lse": err_lse, "lse_bound": LSE_BOUND,
           "flops": flops, "bytes": nbytes, "bound_flops_ms": flops_ms,
           "bound_bytes_ms": bytes_ms, "achieved_tflops": flops / ms / 1e9,
-          **{k: entry[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}})
-    return entry
+          "kernel_ms": kernel_ms,
+          **{k: entry[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+          "train_micro_batch": {"shape": [TRAIN_MICRO, TRAIN_SEQ, HEADS, HEAD_DIM], **train}})
+    alone = {"flagship": {"ms": kernel_ms, "tiles": dense_tiles(main_lengths)},
+             "train": {"ms": train["kernel_ms"], "tiles": dense_tiles(targs_lengths)}}
+    return entry, alone
 
 
 def flagship_config(attention_impl: str):
@@ -482,9 +535,20 @@ def trace_summary(intervals, wall_ms, groups):
 CUBLAS_TAGS = ("gemm", "xmma", "cutlass", "nvjet", "sm90")
 
 
-def phase_profile(model, batch) -> None:
-    """Device time by kernel for one forward of the main path's batch, and
-    the share of the forward's wall time in which the card ran nothing."""
+def kernel_calls_ms(intervals, name, expected):
+    """Device ms per call of the kernel ``name`` in a trace that must hold
+    ``expected`` calls of it."""
+    calls = [end - start for n, start, end in intervals if name in n]
+    if len(calls) != expected:
+        raise AssertionError(f"{len(calls)} calls of {name} in the trace, expected {expected}")
+    return sum(calls) / len(calls) / 1e3
+
+
+def phase_profile(model, batch, fwd_alone) -> None:
+    """Device time by kernel for one forward of the main path's batch, the
+    share of the forward's wall time in which the card ran nothing, and the
+    forward kernel's device ms per call there beside ``fwd_alone``, its
+    time alone (phase kernel), each with the tiles its lengths give."""
     from torch.profiler import ProfilerActivity, profile
 
     inputs = {k: torch.as_tensor(batch[k]).cuda()
@@ -497,9 +561,12 @@ def phase_profile(model, batch) -> None:
             model(**inputs)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+    intervals = device_intervals(prof)
+    per_call = kernel_calls_ms(intervals, FWD_KERNEL, model.config.encoder.mmt.num_hidden_layers)
     emit({"phase": "profile", **trace_summary(
-        device_intervals(prof), wall_ms,
-        {"rel_attention_fwd": ("rel_attention_fwd",), "matmul": CUBLAS_TAGS})})
+        intervals, wall_ms, {"rel_attention_fwd": ("rel_attention_fwd",), "matmul": CUBLAS_TAGS}),
+        "fwd_kernel_ms_per_call_in_step": per_call,
+        "fwd_tiles_in_step": dense_tiles(batch["lengths"]), "fwd_kernel_alone": fwd_alone})
 
 
 def train_attention_inputs(seed, batch=TRAIN_MICRO):
@@ -851,10 +918,11 @@ def phase_train():
     return task, cfg, launches
 
 
-def phase_train_profile(task, cfg, bwd_alone_ms):
+def phase_train_profile(task, cfg, fwd_alone, bwd_alone_ms):
     """Device time by kernel group over one micro-batch forward+backward,
-    and the backward kernel's device ms per call there beside
-    ``bwd_alone_ms``, its time alone (phase kernel_bwd)."""
+    and the forward and backward kernels' device ms per call there beside
+    ``fwd_alone`` (with the tiles its lengths give) and ``bwd_alone_ms``,
+    their times alone (phases kernel and kernel_bwd)."""
     from torch.profiler import ProfilerActivity, profile
 
     from mmt_tpu_torch.models import DropoutRngs
@@ -879,14 +947,14 @@ def phase_train_profile(task, cfg, bwd_alone_ms):
         wall_ms = (time.perf_counter() - t0) * 1e3
     task.model.zero_grad(set_to_none=True)
     intervals = device_intervals(prof)
-    calls = [end - start for name, start, end in intervals if BWD_KERNEL in name]
     layers = cfg.task.model.encoder.mmt.num_hidden_layers
-    if len(calls) != layers:
-        raise AssertionError(f"{len(calls)} backward kernel calls in the trace, expected {layers}")
     emit({"phase": "train_profile", "micro_batch": TRAIN_MICRO, **trace_summary(
         intervals, wall_ms, {"rel_attention_fwd": ("rel_attention_fwd",),
                              "rel_attention_bwd": ("rel_attention_bwd",), "cublas": CUBLAS_TAGS}),
-        "bwd_kernel_ms_per_call_in_step": sum(calls) / len(calls) / 1e3,
+        "fwd_kernel_ms_per_call_in_step": kernel_calls_ms(intervals, FWD_KERNEL, layers),
+        "fwd_tiles_in_step": dense_tiles(batch["lengths"].tolist()),
+        "fwd_kernel_alone": fwd_alone,
+        "bwd_kernel_ms_per_call_in_step": kernel_calls_ms(intervals, BWD_KERNEL, layers),
         "bwd_kernel_ms_alone": bwd_alone_ms})
 
 
@@ -996,11 +1064,7 @@ def phase_kernel_window():
 
     pairs = fa.allowed_real_pairs(geo, lens)
     L = np.asarray(lens, np.float64)
-    flops = 4 * pairs * HEAD_DIM * HEADS + 2 * L.sum() * REL_VOCAB * HEAD_DIM * HEADS
-    row_bytes = HEADS * HEAD_DIM * 2
-    nbytes = (3 * L.sum() * row_bytes + WINDOW_MICRO * WINDOW_SEQ * row_bytes
-              + WINDOW_MICRO * HEADS * WINDOW_SEQ * 4 + REL_VOCAB * HEADS * HEAD_DIM * 4
-              + WINDOW_MICRO * 4)
+    flops, nbytes = forward_work(lens, WINDOW_SEQ, pairs)
     bound, by = bound_ms(flops, nbytes)
     entry = {
         "name": "rel_attention_fwd_window",
@@ -1348,7 +1412,7 @@ def phase_probe_split():
     entries[1]["launches"] = sp.split_pass.launches_structured
     require_launched(entries, "probe_split")
     emit({"phase": "probe_split", "checks": checks, "entry_point_checks": result["checks"],
-          **times, "far_pairs": far_pairs, "structured_pairs": struct_pairs,
+          "one_pass_kernel": "mmt_tpu_torch/csrc/rel_attention_fwd.cu", **times, "far_pairs": far_pairs, "structured_pairs": struct_pairs,
           "plain_ms": {"far": plain_ms[True], "structured": plain_ms[False]},
           "library_ms": {"far": library_ms[True], "structured": library_ms[False]}})
     return entries
@@ -1675,10 +1739,10 @@ def main() -> int:
 
     name = phase_device()
     phase_build()
-    entry = phase_kernel()
+    entry, fwd_alone = phase_kernel()
     model = MmtClassificationModel(flagship_config("pallas"))
     launches, batch = phase_main(model)
-    phase_profile(model, batch)
+    phase_profile(model, batch, fwd_alone["flagship"])
     phase_reference(model, batch)
     del model, batch
     torch.cuda.empty_cache()
@@ -1690,7 +1754,7 @@ def main() -> int:
     # added below); the backward on the second.
     entry["launches"] = launches + train_launches["fwd"]
     bwd_entry["launches"] = train_launches["bwd"]
-    phase_train_profile(task, cfg, bwd_entry["ms"])
+    phase_train_profile(task, cfg, fwd_alone["train"], bwd_entry["ms"])
     del task
     torch.cuda.empty_cache()
     phase_train_reference()

@@ -1,8 +1,10 @@
 // Pieces shared by the relative-attention kernels (rel_attention_fwd.cu,
-// rel_attention_bwd.cu): the closed-form relative id, the sliding-window
-// pattern and its live tiles, the attention-dropout hash, and the mma.sync
-// tile helpers.  Header-only; every function is inlined into the kernel
-// that uses it.
+// rel_attention_bwd.cu) and the probe kernels (probe_split.cu,
+// probe_op_cost.cu): the geometry and dropout arguments, the sliding-window
+// pattern and its live tiles, and, for the probes, the closed-form relative
+// id, the per-element dropout hash and the mma.sync tile helpers (the
+// attention kernels take the per-tile forms in rel_attention_hopper.cuh).
+// Header-only; every function is inlined into the kernel that uses it.
 #pragma once
 
 #include <cuda_bf16.h>

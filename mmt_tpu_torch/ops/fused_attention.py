@@ -5,9 +5,11 @@ Counterpart of ``mmt_tpu/ops/pallas_attention.py``, forward and backward.
 * Forward kernel ``mmt_tpu_torch/csrc/rel_attention_fwd.cu`` replaces the
   TPU kernels K1 ``_fwd_kernel`` and K2 ``_fwd_list_kernel`` (with the
   split schedule's logsumexp combine and the image-corner build, and the
-  windowed live-tile list) by one flash-attention pass that regenerates
-  the relative ids from positions and applies the attention dropout in
-  the kernel.
+  windowed live-tile list) by one flash-attention pass on ``wgmma``: a
+  warpgroup owns 64 queries and sweeps its live key tiles, the bias is
+  decided once per tile (one id for the whole tile, or per-pair ids), and
+  the attention dropout is applied in the kernel.
+  ``relative_attention_forward_tiled`` is that schedule in plain PyTorch.
 * Backward kernel ``mmt_tpu_torch/csrc/rel_attention_bwd.cu`` replaces K3
   ``_bwd_fused_kernel`` and K5 ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``
   (and, windowed, K4 ``_bwd_fused_list_kernel`` and K6
@@ -39,7 +41,9 @@ Public pieces:
 * ``relative_attention_plain`` / ``relative_attention_backward_plain``
   are the plain PyTorch versions: dense formulas over the materialised id
   map and pattern mask, chunked over the batch.
-* ``live_tiles`` is the 64-wide tile sweep of a block (csrc ``LiveTiles``).
+* ``live_tiles`` is the 64-wide tile sweep of a block (csrc ``LiveTiles``);
+  ``uniform_tile_id`` and ``image_id_table`` are the forward kernel's
+  per-tile id and its image id table.
 * ``dropout_keep`` / ``dropout_tile`` are a bit-exact copy of the JAX
   dropout hash.
 * ``allowed_real_pairs`` counts the pairs a batch's attention computes
@@ -76,12 +80,12 @@ from mmt_tpu_torch.ops.relative_attention_ref import relative_attention_scores
 NEG_INF = -10000.0
 # Relative-vocab columns the kernels keep per query row (csrc kVP).
 MAX_KERNEL_VOCAB = 64
-# Rows of the kernels' query and key tiles (csrc kBQ, kBK).
+# Rows of the kernels' query and key tiles (csrc kT).
 TILE = 64
-# The backward kernel looks image ids up in a (2P - 1)^2 table
-# (rel_attention_bwd.cu kMaxPatchPerRow); the JAX kernels ask for an image
-# part within one tile (pallas_attention.py:_prepare), P <= 22 at 512.
-MAX_BACKWARD_PATCH_PER_ROW = 32
+# The kernels look image ids up in a (2P - 1)^2 table (csrc
+# kMaxPatchPerRow); the JAX kernels ask for an image part within one tile
+# (pallas_attention.py:_prepare), P <= 22 at 512.
+MAX_PATCH_PER_ROW = 32
 KERNEL_HEAD_DIMS = (32, 64)
 # Logit elements per chunk of the plain versions (1 GiB of float32).
 _PLAIN_CHUNK_ELEMENTS = 1 << 28
@@ -435,6 +439,162 @@ def relative_attention_backward_plain(
     return dq, dk, dv, drel.to(rel_table.dtype) if use_rel else None
 
 
+def uniform_tile_id(q0: int, k0: int, geometry: RelGeometry) -> int:
+    """The one id of every pair of the 64 x 64 tile at (q0, k0), or -1
+    when ids vary (csrc ``uniform_tile_id``): image queries x text keys,
+    text queries x image keys, and text tiles whose every offset j - i is
+    beyond the clip distance on one side."""
+    il, q1, k1 = geometry.image_len, q0 + TILE - 1, k0 + TILE - 1
+    tmd = geometry.text_max_distance
+    if q1 < il:
+        return geometry.text_part_id if k0 >= il else -1
+    if q0 < il:
+        return -1
+    if k1 < il:
+        return geometry.image_part_id
+    if k0 < il:
+        return -1
+    if k0 - q1 >= tmd:
+        return tmd
+    if q0 - k1 >= tmd:
+        return 2 * tmd
+    return -1
+
+
+def image_id_table(geometry: RelGeometry) -> np.ndarray:
+    """<int64>[(2P - 1)**2] 2D ids by offset (csrc image id table): entry
+    ``(dy + P - 1) * W + dx + P - 1``, W = 2P - 1, holds the id of an image
+    pair with ``dy = jy - iy``, ``dx = jx - ix``."""
+    p, r = geometry.num_patch_per_row, geometry.num_core_layers
+    d = 2 * r + 1
+    dy, dx = np.meshgrid(np.arange(1 - p, p), np.arange(1 - p, p), indexing="ij")
+    above, below, left, right = dy < -r, dy > r, dx < -r, dx > r
+    mid_y, mid_x = ~above & ~below, ~left & ~right
+    ids = np.full(dy.shape, d * d + 7)  # top-left
+    for n, sel in enumerate([above & mid_x, above & right, mid_y & right, below & right,
+                             below & mid_x, below & left, mid_y & left]):
+        ids[sel] = d * d + n
+    ids[mid_y & mid_x] = ((dy * d + dx) % (d * d))[mid_y & mid_x]
+    return ids.reshape(-1)
+
+
+def _tile_pair_ids(geometry: RelGeometry, i_pos: torch.Tensor, j_pos: torch.Tensor,
+                   table: torch.Tensor) -> torch.Tensor:
+    """Per-pair ids of a tile whose ids vary, as the kernel takes them: image
+    pairs from the offset table by a key code minus a row code, image x text
+    from the part ids, text pairs the clipped offset."""
+    p, il, tmd = geometry.num_patch_per_row, geometry.image_len, geometry.text_max_distance
+    w = 2 * p - 1
+    i, j = i_pos[:, None], j_pos[None, :]
+    if il:
+        qcode = (i // p) * w + i % p - (p - 1) * (w + 1)
+        kcode = (j // p) * w + j % p
+        image = table[torch.clamp(kcode - qcode, 0, w * w - 1)]
+    else:
+        image = torch.zeros((), dtype=torch.int64)
+    off = j - i
+    band = torch.where(off >= 0, off.clamp(max=tmd), tmd + (-off).clamp(max=tmd))
+    return torch.where(i < il, torch.where(j < il, image, geometry.text_part_id),
+                       torch.where(j < il, geometry.image_part_id, band))
+
+
+def _window_cuts(q0: int, k0: int, seq_len: int, geometry: RelGeometry) -> bool:
+    """Whether the window term can change a pair of the tile below
+    ``seq_len`` (csrc ``window_cuts``): not when every row or every key is
+    global, nor when the tile lies wholly inside the band."""
+    g, w = geometry.num_global, geometry.window
+    if q0 + TILE <= g or k0 + TILE <= g:
+        return False
+    return min(k0 + TILE, seq_len) - 1 - q0 > w or min(q0 + TILE, seq_len) - 1 - k0 > w
+
+
+def relative_attention_forward_tiled(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rel_table: Optional[torch.Tensor],
+    geometry: Optional[RelGeometry],
+    lengths: torch.Tensor,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's schedule in plain PyTorch (float32, small
+    shapes): the function of ``relative_attention_plain``, computed as
+    ``csrc/rel_attention_fwd.cu`` decomposes it.
+
+    For each example and each 64-row query block below its length, qr =
+    q . R^T (times scale * log2(e)) once, then the block's live key tiles
+    (``live_tiles``) in order.  Per tile: s2 = q . k^T * scale * log2(e) plus
+    the bias, decided once per tile: one id for the whole tile
+    (``uniform_tile_id``) adds one column of qr per row, or nothing when the
+    id is out of vocabulary; else each pair's id (``_tile_pair_ids``).  The
+    length term (-10000 in base 2) only on tiles that hold the length, the
+    window term only on tiles the band edge cuts; then the online softmax
+    in base 2, the dropout keep factor after the row sum, p rounded to the
+    compute dtype before p . v.  Returns (o in q.dtype, lse [B, H, S]
+    float32 in natural log); query blocks past the length give o = 0 and
+    lse = -inf, as the kernel writes them.
+    """
+    _check_pattern(geometry, rel_table)
+    _check_dropout(dropout_rate, dropout_seed)
+    batch, seq_len, num_heads, head_dim = q.shape
+    c2 = math.log2(math.e) / math.sqrt(head_dim)
+    mask2 = NEG_INF * math.log2(math.e)
+    use_rel = rel_table is not None and geometry is not None
+    vocab = rel_table.shape[0] if use_rel else 0
+    geo = geometry if use_rel else RelGeometry(0)
+    r = rel_table.to(q.dtype).float() if use_rel else None
+    table = torch.from_numpy(image_id_table(geo)) if geo.image_len else None
+    windowed = _windowed(geometry)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    o = torch.zeros_like(qf)
+    lse = torch.full((batch, num_heads, seq_len), -math.inf, device=q.device)
+    heads = torch.arange(num_heads, dtype=torch.int64, device=q.device)
+    for b in range(batch):
+        length = int(lengths[b])
+        for q0 in range(0, length, TILE):
+            qs = slice(q0, min(q0 + TILE, seq_len))
+            i_pos = torch.arange(qs.start, qs.stop, device=q.device)
+            qr = torch.einsum("ihd,vhd->hiv", qf[b, qs], r) * c2 if use_rel else None
+            m = torch.full((num_heads, len(i_pos)), -math.inf, device=q.device)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(num_heads, len(i_pos), head_dim, device=q.device)
+            for tile in live_tiles(q0, length, geometry):
+                k0 = tile * TILE
+                ks = slice(k0, min(k0 + TILE, seq_len))
+                j_pos = torch.arange(ks.start, ks.stop, device=q.device)
+                s = torch.einsum("ihd,jhd->hij", qf[b, qs], kf[b, ks]) * c2
+                tile_id = uniform_tile_id(q0, k0, geo) if use_rel else MAX_KERNEL_VOCAB
+                if tile_id >= 0:
+                    if tile_id < vocab:
+                        s = s + qr[:, :, tile_id:tile_id + 1]
+                else:
+                    ids = _tile_pair_ids(geo, i_pos, j_pos, table)
+                    in_vocab = ids < vocab
+                    gathered = torch.gather(
+                        qr, 2, torch.where(in_vocab, ids, 0).expand(num_heads, -1, -1))
+                    s = s + torch.where(in_vocab, gathered, 0.0)
+                if q0 + TILE > length or k0 + TILE > length:
+                    pad = (i_pos[:, None] < length) != (j_pos[None, :] < length)
+                    s = s + pad.float() * mask2
+                if windowed and _window_cuts(q0, k0, seq_len, geometry):
+                    allowed = window_allowed(geometry, i_pos[:, None], j_pos[None, :])
+                    s = s + torch.where(allowed, 0.0, mask2)
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                m = m_new
+                if dropout_rate > 0.0:
+                    p = p * dropout_keep(example_seed(dropout_seed, b), heads[:, None, None],
+                                         i_pos[:, None], j_pos[None, :], dropout_rate)
+                pv = torch.einsum("hij,jhd->hid", p.to(q.dtype).float(), vf[b, ks])
+                acc = acc * alpha[..., None] + pv
+            o[b, qs] = (acc / l[..., None]).permute(1, 0, 2)
+            lse[b, :, qs] = (m + torch.log2(l)) * math.log(2.0)
+    return o.to(q.dtype), lse
+
+
 def relative_attention_backward_tiled(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -528,18 +688,25 @@ def _error_string(lib, err: int) -> str:
     return lib.mmt_cuda_error_string(err).decode()
 
 
-@functools.lru_cache(maxsize=None)
-def _fwd_kernel():
-    lib = build.load_library("rel_attention_fwd")
-    fn = lib.mmt_rel_attention_fwd
-    fn.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_float]
-        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
+# mmt_rel_attention_fwd's C arguments (csrc/rel_attention_fwd.cu).
+FWD_ARGTYPES = (
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_float]
+    + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+)
+
+
+def bind_fwd_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the forward library's C functions' types."""
+    lib.mmt_rel_attention_fwd.argtypes = FWD_ARGTYPES
+    lib.mmt_rel_attention_fwd.restype = ctypes.c_int
     lib.mmt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mmt_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_kernel():
+    return bind_fwd_library(build.load_library("rel_attention_fwd"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -598,6 +765,9 @@ def _check_kernel_inputs(q, lengths, rel_table, geometry, **same_shape):
         raise ValueError(
             f"rel_table must be [V <= {MAX_KERNEL_VOCAB}, {num_heads}, {head_dim}], "
             f"got {tuple(rel_table.shape)}")
+    if use_rel and geometry.image_len and geometry.num_patch_per_row > MAX_PATCH_PER_ROW:
+        raise ValueError(f"the kernels take num_patch_per_row <= {MAX_PATCH_PER_ROW}, "
+                         f"got {geometry.num_patch_per_row}")
     geo = geometry if use_rel else RelGeometry(0)
     window = geo.window if _windowed(geo) else 0
     return use_rel, vocab, (geo.image_len, geo.num_patch_per_row, geo.num_core_layers,
@@ -756,9 +926,6 @@ def relative_attention_backward(
     batch, seq_len, num_heads, head_dim = q.shape
     use_rel, vocab, geo_args = _check_kernel_inputs(q, lengths, rel_table, geometry,
                                                     k=k, v=v, do=do)
-    if use_rel and geometry.image_len and geometry.num_patch_per_row > MAX_BACKWARD_PATCH_PER_ROW:
-        raise ValueError(f"the backward kernel takes num_patch_per_row <= "
-                         f"{MAX_BACKWARD_PATCH_PER_ROW}, got {geometry.num_patch_per_row}")
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (batch, num_heads, seq_len) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 [{batch}, {num_heads}, {seq_len}], "

@@ -91,6 +91,45 @@ def test_kernel_matches_plain(cuda, geo, S, H, D, V, lengths, rate):
         assert torch.all(lse[b, :, first_pad_tile:] == float("-inf"))
 
 
+def _assert_forward_close(o, lse, o_ref, lse_ref, lengths):
+    for b, n in enumerate(lengths):
+        assert (o[b, :n].float() - o_ref[b, :n].float()).abs().max().item() < O_BOUND
+        assert (lse[b, :, :n] - lse_ref[b, :, :n]).abs().max().item() < LSE_BOUND
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_kernel_every_tile_class(cuda, rate):
+    """One sequence of the flagship geometry at S=1024 holds every class of
+    tile the kernel tells apart: the 196-slot image corner over 4 x 4
+    tiles (with the tile that straddles its edge), one-id image x text and
+    text x image tiles, the text band around the diagonal and far text
+    tiles on both sides; the lengths cut a tile, fill it, and end inside
+    the image."""
+    lengths = [1024, 651, 150]
+    ids = fa.relative_att_ids(FLAGSHIP, 1024)
+    classes = {fa.uniform_tile_id(q0, k0, FLAGSHIP) for q0 in range(0, 1024, 64)
+               for k0 in range(0, 1024, 64)}
+    assert classes == {-1, FLAGSHIP.image_part_id, FLAGSHIP.text_part_id, 12, 24}, classes
+    assert ids[0, 1000] == FLAGSHIP.text_part_id and ids[1000, 0] == FLAGSHIP.image_part_id
+    q, k, v, table, lens = _inputs(cuda, len(lengths), 1024, 4, 64, 49, lengths, seed=21)
+    seed = 55 if rate else None
+    o, lse = fa.relative_attention_forward(q, k, v, table, FLAGSHIP, lens, "cuda", rate, seed)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.relative_attention_plain(q, k, v, table, FLAGSHIP, lens, rate, seed)
+    _assert_forward_close(o, lse, o_ref, lse_ref, lengths)
+
+
+def test_kernel_pretraining_micro_batch(cuda):
+    """The pretraining micro-batch's shape (B=64, S=256, H=12, lengths ~
+    U[204, 256]) with attention dropout 0.1: at most 4 key tiles a block."""
+    lengths = np.random.default_rng(3).integers(204, 257, 64).tolist()
+    q, k, v, table, lens = _inputs(cuda, 64, 256, 12, 64, 49, lengths, seed=22)
+    o, lse = fa.relative_attention_forward(q, k, v, table, FLAGSHIP, lens, "cuda", 0.1, 808)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.relative_attention_plain(q, k, v, table, FLAGSHIP, lens, 0.1, 808)
+    _assert_forward_close(o, lse, o_ref, lse_ref, lengths)
+
+
 def test_rate_zero_is_the_kernel_without_dropout(cuda):
     q, k, v, table, lens = _inputs(cuda, 2, 512, 4, 64, 49, [512, 301])
     o, lse = fa.relative_attention_forward(q, k, v, table, FLAGSHIP, lens)

@@ -33,7 +33,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "train.loop", "train.optimizer", "train.losses", "train.metrics",
                  "train.train_state", "data.dummy", "cli.train", "configs.experiments",
                  "configs.data", "configs.optimization", "probes.split_probe",
-                 "probes.op_cost_probe", "probes.hopper_probe", "probes.common",
+                 "probes.op_cost_probe", "probes.hopper_probe", "probes.common", "probes.fwd_ab",
                  "data.tfrecord", "data.native", "data.assembly", "data.loaders",
                  "text.wordpiece", "text.trimmer", "text.native", "features.patches",
                  "cli.predict", "train.checkpoint"):

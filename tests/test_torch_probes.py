@@ -12,6 +12,7 @@
 """
 
 import math
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +23,7 @@ from mmt_tpu.ops import pallas_attention as pa
 from mmt_tpu_torch.features.attention_mask import make_att_mask_from_length
 from mmt_tpu_torch.ops import fused_attention as fa
 from mmt_tpu_torch.ops import relative_attention_ref as ref
-from mmt_tpu_torch.probes import common, hopper_probe, op_cost_probe, split_probe
+from mmt_tpu_torch.probes import common, fwd_ab, hopper_probe, op_cost_probe, split_probe
 
 TILE = 64
 GEOMETRIES = {
@@ -174,9 +175,18 @@ def test_probe_wrappers_raise_on_cpu_tensors():
     assert split_probe.split_pass.launches_far == 0
     assert all(count == 0 for count in hopper_probe.launches.values())
     if not torch.cuda.is_available():
-        for module in (split_probe, op_cost_probe, hopper_probe):
+        for module in (split_probe, op_cost_probe, hopper_probe, fwd_ab):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 module.run()
+
+
+def test_fwd_ab_variant_specs():
+    """``SOURCE[:FLAGS]``: the tree's forward source or a path, nvcc flags
+    after the colon."""
+    source, flags = fwd_ab.parse_variant("current:-DA=1 -DB")
+    assert source == (fa.build.CSRC_DIR / "rel_attention_fwd.cu").resolve()
+    assert source.exists() and flags == ["-DA=1", "-DB"]
+    assert fwd_ab.parse_variant("old/fwd.cu") == (Path("old/fwd.cu").resolve(), [])
 
 
 @pytest.mark.parametrize("name", list(hopper_probe.PROBES))
