@@ -129,6 +129,36 @@ Phases, each printed as one JSON line:
    plain version at this path's shape (B=128, S=256, the first batch's
    lengths, no dropout; the o / lse bounds of phase 3); pairs/s of the whole call, of the host part (records ->
    batches) and of the device part (batches -> scores).
+21. finetune: Flickr30k ITM finetuning at full width through
+   ``mmt_tpu_torch.cli.train.main`` in train_and_eval: seeded paired records
+   (512 for training, 4 steps' worth at 128 records a step, and 128 for
+   validation; 224 x 224 PNG images, 5 captions of 8-24 words each), a
+   seeded full-width WIT pretraining checkpoint written by the port's
+   ``CheckpointManager`` as ``task.init_checkpoint``, and
+   ``flickr_experiment`` with only the schedule cut (4 steps; validation and
+   checkpoints every 2; one-step windows): global batch 512 in one step,
+   RandAugment, dropout 0.1, validation at batch 256 with cls_accuracy,
+   cls_loss and AUC-PR, best export on cls_accuracy.  The files the CLI
+   writes, every number finite, ``count_restored`` = the encoder tensors the
+   pretraining model has plus the itm head's, 12 forward and 12 backward
+   launches per step and 12 forward launches per eval batch.  Then the run's
+   directory copied and taken on to step 6 must resume at step 4 and end,
+   per parameter tensor, within RESUME_SPREAD_FACTOR x the spread between
+   two uninterrupted 6-step runs + RESUME_FLOOR of the first of them; and
+   ``cli.predict`` on the finetuned checkpoint.  Reports examples/s and ms
+   per step from the loop's one-step windows (the first step apart), the
+   classification loader alone (records -> batches), eval examples/s and
+   the peak memory.
+22. finetune_profile: one B=512 training step under the profiler (device
+   time by kernel group, idle share, the forward and backward kernels per
+   call), and the two kernels at B=512, S=256 with the records' lengths and
+   dropout 0.1: against their plain versions (the bounds of phases 3 and 8),
+   alone, against SDPA handed the bias mask, and against the bound.
+23. finetune_reference: the classification model's per-tensor gradients on
+   2 examples of the records (positives weighted 2, attention dropout 0.1
+   from the same seeds) with the kernels, with dense attention and with
+   dense attention in float32: the kernels' relative error against float32
+   may exceed dense attention's by at most TRAIN_GRAD_BOUND.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises, so the exit code is not 0 and no result is
@@ -139,6 +169,7 @@ the ``mmt_tpu_torch`` package.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -866,7 +897,6 @@ def reset_launch_counts() -> None:
 def phase_train():
     """Three optimizer steps of WIT pretraining at full width through
     ``run_training``."""
-    from mmt_tpu_torch.models import DropoutRngs
     from mmt_tpu_torch.train.loop import run_training
     from mmt_tpu_torch.train.optimizer import create_optimizer
     from mmt_tpu_torch.train.tasks import PretrainingTask
@@ -880,8 +910,6 @@ def phase_train():
     gen = torch.Generator("cuda").manual_seed(1)
     batches = (synthetic_pretrain_batch(cfg.task.train_data, vocab, TRAIN_GLOBAL, gen)
                for _ in iter(int, 1))
-    rngs = DropoutRngs(host=torch.Generator().manual_seed(2),
-                       device=torch.Generator("cuda").manual_seed(3))
     micro_per_step = TRAIN_GLOBAL // TRAIN_MICRO
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -890,7 +918,7 @@ def phase_train():
         t0 = time.perf_counter()
         run_training(train_step=task.make_train_step(cfg.trainer.micro_batch_size),
                      state=state, train_iter=batches, trainer=cfg.trainer,
-                     model_dir=model_dir, rngs=rngs)
+                     model_dir=model_dir, seed=2)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         summaries = [json.loads(l) for l in
@@ -958,6 +986,31 @@ def phase_train_profile(task, cfg, fwd_alone, bwd_alone_ms):
         "bwd_kernel_ms_alone": bwd_alone_ms})
 
 
+def gradient_errors(got, want):
+    """Per parameter tensor ||got - want|| / ||want||: (the largest, its
+    name, the number of tensors whose dense gradient is 0, every error)."""
+    worst, worst_name, n_zero, errors = 0.0, "", 0, {}
+    for name, g in got.items():
+        ref = want[name]
+        if g is None or ref is None:
+            raise AssertionError(f"no gradient for {name}")
+        # The key bias's exact gradient is 0 (softmax is invariant to adding
+        # q . b_k to every logit of a row): both sides give rounding noise,
+        # so it is measured against the same layer's query-bias gradient.
+        scale_name = (name[: -len("key.bias")] + "query.bias"
+                      if name.endswith("attention.key.bias") else name)
+        ref_norm = want[scale_name].norm().item()
+        if ref_norm == 0.0:
+            n_zero += 1
+            if g.norm().item() != 0.0:
+                raise AssertionError(f"{name}: dense gradient is 0, kernel gradient is not")
+            continue
+        errors[name] = (g - ref).norm().item() / ref_norm
+        if errors[name] > worst:
+            worst, worst_name = errors[name], name
+    return worst, worst_name, n_zero, errors
+
+
 def phase_train_reference():
     """Per-tensor gradients, kernels against dense attention, on a
     2-example micro-batch with attention dropout at the same seeds."""
@@ -974,26 +1027,7 @@ def phase_train_reference():
         loss.backward()
         grads[impl] = {n: p.grad for n, p in task.model.named_parameters()}
         del task
-    worst, worst_name, n_zero, errors = 0.0, "", 0, {}
-    for name, g in grads["pallas"].items():
-        ref = grads["xla"][name]
-        if g is None or ref is None:
-            raise AssertionError(f"no gradient for {name}")
-        # The key bias's exact gradient is 0 (softmax is invariant to adding
-        # q . b_k to every logit of a row): both sides give rounding noise,
-        # so it is measured against the same layer's query-bias gradient.
-        scale_name = (name[: -len("key.bias")] + "query.bias"
-                      if name.endswith("attention.key.bias") else name)
-        ref_norm = grads["xla"][scale_name].norm().item()
-        if ref_norm == 0.0:
-            n_zero += 1
-            if g.norm().item() != 0.0:
-                raise AssertionError(f"{name}: dense gradient is 0, kernel gradient is not")
-            continue
-        err = (g - ref).norm().item() / ref_norm
-        errors[name] = err
-        if err > worst:
-            worst, worst_name = err, name
+    worst, worst_name, n_zero, errors = gradient_errors(grads["pallas"], grads["xla"])
     top = sorted(errors.items(), key=lambda kv: -kv[1])[:5]
     emit({"phase": "train_reference", "tensors": len(grads["pallas"]), "zero_tensors": n_zero,
           "max_rel_frobenius_err": worst, "worst_tensor": worst_name, "bound": TRAIN_GRAD_BOUND,
@@ -1189,8 +1223,6 @@ def phase_train_window():
     state = TrainState.create(task.model, optimizer)
     gen = torch.Generator("cuda").manual_seed(21)
     batches = (window_micro_batch(cfg, WINDOW_GLOBAL, gen) for _ in iter(int, 1))
-    rngs = DropoutRngs(host=torch.Generator().manual_seed(22),
-                       device=torch.Generator("cuda").manual_seed(23))
     micro_per_step = WINDOW_GLOBAL // WINDOW_MICRO
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -1199,7 +1231,7 @@ def phase_train_window():
         t0 = time.perf_counter()
         run_training(train_step=task.make_train_step(cfg.trainer.micro_batch_size),
                      state=state, train_iter=batches, trainer=cfg.trainer,
-                     model_dir=model_dir, rngs=rngs)
+                     model_dir=model_dir, seed=22)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         summaries = [json.loads(l) for l in
@@ -1301,22 +1333,7 @@ def phase_train_window_reference():
         grads[impl] = {n: p.grad for n, p in task.model.named_parameters()}
         del task, loss
         torch.cuda.empty_cache()
-    worst, worst_name, errors = 0.0, "", {}
-    for name, g in grads["pallas"].items():
-        ref = grads["xla"][name]
-        if g is None or ref is None:
-            raise AssertionError(f"no gradient for {name}")
-        # The key bias against the query bias's norm, as in train_reference.
-        scale_name = (name[: -len("key.bias")] + "query.bias"
-                      if name.endswith("attention.key.bias") else name)
-        ref_norm = grads["xla"][scale_name].norm().item()
-        if ref_norm == 0.0:
-            if g.norm().item() != 0.0:
-                raise AssertionError(f"{name}: dense gradient is 0, kernel gradient is not")
-            continue
-        errors[name] = (g - ref).norm().item() / ref_norm
-        if errors[name] > worst:
-            worst, worst_name = errors[name], name
+    worst, worst_name, _, errors = gradient_errors(grads["pallas"], grads["xla"])
     top = sorted(errors.items(), key=lambda kv: -kv[1])[:5]
     emit({"phase": "train_window_reference", "tensors": len(grads["pallas"]),
           "max_rel_frobenius_err": worst, "worst_tensor": worst_name, "bound": TRAIN_GRAD_BOUND,
@@ -1554,6 +1571,20 @@ def flickr_experiment(vocab_path: str, attention_impl="pallas") -> dict:
                     "best_checkpoint_metric_comp": "higher"}}
 
 
+CLI_WORD_LIST = [f"w{i:04d}" for i in range(CLI_WORDS)]
+
+
+def write_flickr_vocab(root: Path) -> str:
+    """The generated 30522-entry BERT-layout vocab as ``root/vocab.txt``."""
+    vocab = (["[PAD]", "[ATT]", "[REF]", "[PATCH]"] + [f"[unused{i}]" for i in range(3, 99)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"[unused{i}]" for i in range(99, 994)]
+             + CLI_WORD_LIST)
+    vocab += [f"##s{i}" for i in range(CLI_VOCAB_SIZE - len(vocab))]
+    assert vocab.index("[unused99]") == 104 and len(vocab) == CLI_VOCAB_SIZE
+    (root / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    return str(root / "vocab.txt")
+
+
 def write_flickr_records(root: Path, seed: int = 0) -> dict:
     """Seeded Flickr30k-style image records and text records, a BERT-layout
     vocab file and the ``input_meta_data`` JSON; returns their paths."""
@@ -1564,13 +1595,8 @@ def write_flickr_records(root: Path, seed: int = 0) -> dict:
     from mmt_tpu_torch.data.tfrecord import TFRecordWriter, build_example
 
     rng = np.random.default_rng(seed)
-    words = [f"w{i:04d}" for i in range(CLI_WORDS)]
-    vocab = (["[PAD]", "[ATT]", "[REF]", "[PATCH]"] + [f"[unused{i}]" for i in range(3, 99)]
-             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"[unused{i}]" for i in range(99, 994)]
-             + words)
-    vocab += [f"##s{i}" for i in range(CLI_VOCAB_SIZE - len(vocab))]
-    assert vocab.index("[unused99]") == 104 and len(vocab) == CLI_VOCAB_SIZE
-    (root / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    words = CLI_WORD_LIST
+    write_flickr_vocab(root)
     with TFRecordWriter(str(root / "images.tfrecord")) as w:
         for i in range(CLI_IMAGES):
             buf = io.BytesIO()
@@ -1723,6 +1749,441 @@ def phase_predict_cli() -> int:
     return counts["fwd"]
 
 
+
+# ---------------------------------------------------------------- finetune
+
+# Flickr30k ITM finetuning (configs/exp_yamls/finetune/flickr30k/
+# itm_2d_from_vit.yaml): global batch 512 in one step (128 records at
+# negative_positive_ratio 3), validation at batch 256.
+FT_GLOBAL, FT_EVAL_BATCH, FT_RATIO = 512, 256, 3
+FT_CAPTIONS_PER_IMAGE = 5
+FT_TRAIN_RECORDS, FT_VAL_RECORDS = 512, 128  # 4 steps' worth; 2 eval batches
+FT_STEPS, FT_RESUME_STEPS = 4, 6
+FT_POS_WEIGHT = 2.0  # finetune_reference's positives (the yaml's pos_weight is 1)
+# A resumed run on the card against the uninterrupted one, per parameter
+# tensor: ||B - C|| / ||C|| <= RESUME_SPREAD_FACTOR x the same error of a
+# second uninterrupted run D (the backward's run-to-run spread) +
+# RESUME_FLOOR.  The floor is ~2 fp32 spacings of relative error: below
+# what a resume that drew other dropout masks or batches gives (updates of
+# ~lr = 1e-7 per element, ~1e-6 of a tensor's norm).
+RESUME_SPREAD_FACTOR, RESUME_FLOOR = 4.0, 1e-7
+
+
+def write_paired_flickr_records(path: Path, n: int, seed: int) -> str:
+    """Seeded Flickr30k-style paired records: ``image_data`` (224 x 224 PNG,
+    one image per 5 captions, 28 x 28 random blocks scaled up 8x),
+    ``image_key`` and a caption of 8-24 words."""
+    import io
+
+    from PIL import Image
+
+    from mmt_tpu_torch.data.tfrecord import TFRecordWriter, build_example
+
+    rng = np.random.default_rng(seed)
+    with TFRecordWriter(str(path)) as w:
+        for i in range(n):
+            if i % FT_CAPTIONS_PER_IMAGE == 0:
+                blocks = rng.integers(0, 256, (28, 28, 3), dtype=np.uint8)
+                buf = io.BytesIO()
+                Image.fromarray(blocks.repeat(8, 0).repeat(8, 1)).save(buf, format="PNG")
+                image = buf.getvalue()
+            caption = " ".join(rng.choice(CLI_WORD_LIST, size=int(rng.integers(8, 25))))
+            w.write(build_example({"image_data": [image],
+                                   "image_key": [f"flickr{seed}_{i // FT_CAPTIONS_PER_IMAGE}"
+                                                 .encode()],
+                                   "caption": [caption.encode()]}))
+    return str(path)
+
+
+def finetune_experiment(root: Path, init_checkpoint: str, train_steps: int) -> Path:
+    """The Flickr30k yaml (``flickr_experiment``) with its placeholders
+    filled and only its schedule cut, written as JSON text."""
+    experiment = flickr_experiment(str(root / "vocab.txt"))
+    experiment["task"]["init_checkpoint"] = init_checkpoint
+    experiment["task"]["train_data"]["input_path"] = str(root / "train.tfrecord")
+    experiment["task"]["validation_data"]["input_path"] = str(root / "val.tfrecord")
+    experiment["trainer"].update({"train_steps": train_steps, "validation_interval": 2,
+                                  "checkpoint_interval": 2, "steps_per_loop": 1,
+                                  "summary_interval": 1})
+    path = root / f"finetune_{train_steps}.json"
+    path.write_text(json.dumps(experiment))
+    return path
+
+
+class _LogLines(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def run_train_cli(config: Path, model_dir: Path) -> list:
+    """``cli.train.main`` in train_and_eval; returns its log lines."""
+    from mmt_tpu_torch.cli import train as cli_train
+
+    handler = _LogLines()
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        state = cli_train.main(["--experiment=mmt/classification", "--mode=train_and_eval",
+                                f"--model_dir={model_dir}", f"--config_file={config}"])
+        torch.cuda.synchronize()
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    del state
+    torch.cuda.empty_cache()
+    return handler.lines
+
+
+def read_jsonl(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def link_copy(src: Path, dst: Path) -> None:
+    """A copy of a model directory whose checkpoint files are hard links
+    (never rewritten in place); the rest is copied."""
+    import os
+    import shutil
+
+    def copy(a, b):
+        return os.link(a, b) if a.endswith(".pt") else shutil.copy2(a, b)
+
+    shutil.copytree(src, dst, copy_function=copy)
+
+
+def finetune_params(model_dir: Path, step: int) -> dict:
+    from mmt_tpu_torch.train.checkpoint import CheckpointManager
+
+    return {k: v for k, v in CheckpointManager(str(model_dir)).restore(step).items()
+            if v.is_floating_point()}
+
+
+def phase_finetune(root: Path):
+    """Flickr30k ITM finetuning at full width through ``cli.train.main``
+    (train_and_eval, warm start from a pretraining checkpoint), its files,
+    numbers and launches; a resume held against uninterrupted runs; the
+    loader and eval rates; ``cli.predict`` on the finetuned checkpoint.
+    Returns the forward / backward launches of the run, a batch of the
+    records and the classification task holding the finetuned weights."""
+    import shutil
+
+    from mmt_tpu_torch.cli import predict as cli_predict
+    from mmt_tpu_torch.cli.train import build_experiment_config, make_eval_fn, parse_args
+    from mmt_tpu_torch.data.loaders import MmtClassificationLoader
+    from mmt_tpu_torch.train.checkpoint import CheckpointManager
+    from mmt_tpu_torch.train.tasks import ClassificationTask, PretrainingTask
+    from mmt_tpu_torch.train.train_state import TrainState
+
+    t_setup = time.perf_counter()
+    meta = write_flickr_records(root)  # the predict pool and the vocab
+    write_paired_flickr_records(root / "train.tfrecord", FT_TRAIN_RECORDS, seed=1)
+    write_paired_flickr_records(root / "val.tfrecord", FT_VAL_RECORDS, seed=2)
+    (root / "meta.json").write_text(json.dumps(meta))
+    pre_cfg = pretrain_experiment()
+    pretrain = PretrainingTask(pre_cfg.task, pre_cfg.trainer, device="cuda", seed=11)
+    CheckpointManager(str(root / "pretrain")).save(0, pretrain.model)
+    pretrain_names = set(pretrain.model.state_dict())
+    del pretrain
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t_setup
+
+    config = finetune_experiment(root, str(root / "pretrain"), FT_STEPS)
+    cfg = build_experiment_config(parse_args([
+        "--experiment=mmt/classification", "--model_dir=unused", f"--config_file={config}"]))
+    layers = cfg.task.model.encoder.mmt.num_hidden_layers
+
+    # Records -> batches alone (RandAugment on): the shuffle buffer's fill
+    # (4096 rows), then steady batches.
+    stream = MmtClassificationLoader(cfg.task.train_data).stream()
+    t0 = time.perf_counter()
+    batch = next(stream)
+    fill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(2):
+        next(stream)
+    loader_s = time.perf_counter() - t0
+    del stream
+
+    # The run: 4 steps, validation and checkpoints at 2 and 4.
+    run_a = root / "ft"
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    log = run_train_cli(config, run_a)
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = launch_counts()
+    for name in ("params.yaml", "train_summaries.jsonl", "validation_summaries.jsonl", "2", "4",
+                 "best_ckpt/best_info.json", "data_stream"):
+        if not (run_a / name).exists():
+            raise AssertionError(f"the finetune run wrote no {name}")
+    train_log = read_jsonl(run_a / "train_summaries.jsonl")
+    val_log = read_jsonl(run_a / "validation_summaries.jsonl")
+    best_info = json.loads((run_a / "best_ckpt" / "best_info.json").read_text())
+    if [r["step"] for r in train_log] != list(range(1, FT_STEPS + 1)) \
+            or [r["step"] for r in val_log] != [2, 4]:
+        raise AssertionError(f"summaries at steps {[r['step'] for r in train_log]}, "
+                             f"{[r['step'] for r in val_log]}")
+    if not all(k in r for r in val_log for k in ("cls_accuracy", "cls_loss", "auc")):
+        raise AssertionError(f"validation summaries lack a metric: {val_log}")
+    if not all(math.isfinite(v) for r in train_log + val_log for v in r.values()):
+        raise AssertionError(f"non-finite finetune numbers: {train_log} {val_log}")
+    # The warm start takes every encoder tensor the pretraining model has
+    # and the itm head; the rest (the absolute position table, which the
+    # WIT pretraining model has not) keeps its fresh initialisation.
+    finetuned = CheckpointManager(str(run_a)).restore(FT_STEPS)
+    restorable = [n for n in finetuned
+                  if n.startswith(("encoder.", "cls_heads.itm.")) and n in pretrain_names]
+    fresh = sorted(set(finetuned) - set(restorable))
+    restored = [int(line.split("count_restored=")[1].split()[0])
+                for line in log if "count_restored=" in line]
+    if restored != [len(restorable)]:
+        raise AssertionError(f"count_restored {restored}, expected [{len(restorable)}]")
+    eval_batches = 2 * math.ceil(FT_VAL_RECORDS / (FT_EVAL_BATCH // (FT_RATIO + 1)))
+    expected = {"fwd": layers * (FT_STEPS + eval_batches), "fwd_window": 0,
+                "bwd": layers * FT_STEPS, "bwd_window": 0}
+    if counts != expected:
+        raise AssertionError(f"finetune launches {counts}, expected {expected} "
+                             f"({layers} per step and per eval batch)")
+
+    # Eval alone, and the task the next phase profiles: the step-4 weights.
+    task = ClassificationTask(cfg.task, cfg.trainer, seed=4)
+    task.model.load_state_dict(finetuned)
+    del finetuned
+    eval_fn = make_eval_fn(task, cfg.task.validation_data, -1, task.device)
+    state = TrainState(step=FT_STEPS, model=task.model, optimizer=None)
+    eval_fn(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eval_metrics = eval_fn(state)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    if eval_metrics.keys() != val_log[-1].keys() - {"step"} or any(
+            abs(v - val_log[-1][k]) > 1e-4 for k, v in eval_metrics.items()):
+        raise AssertionError(f"eval again {eval_metrics} != the run's {val_log[-1]}")
+
+    # cli.predict on the finetuned checkpoint.
+    t0 = time.perf_counter()
+    (root / "predict.json").write_text(json.dumps(flickr_experiment(str(root / "vocab.txt"))))
+    cli_predict.main([
+        f"--config_file={root / 'predict.json'}", f"--input_meta_data_path={root / 'meta.json'}",
+        "--predict_split=test", f"--init_checkpoint={run_a}",
+        f"--test_output_dir={root / 'out'}", f"--predict_global_batch_size={CLI_BATCH}"])
+    predict_s = time.perf_counter() - t0
+    rows = (root / "out" / "results.csv").read_text().splitlines()
+    recall = json.loads((root / "out" / "recall.json").read_text())
+    scores = np.asarray([float(r.split(",")[3]) for r in rows[1:]])
+    if len(rows) != 1 + CLI_IMAGES * CLI_TEXTS or len(recall) != 8 \
+            or not np.all(np.isfinite(scores)):
+        raise AssertionError(f"predict on the finetuned checkpoint: {len(rows)} rows, "
+                             f"recall {recall}")
+
+    # Resume: a copy of the run, taken on to step 6, against two
+    # uninterrupted 6-step runs (their difference is the run-to-run spread).
+    resume_config = finetune_experiment(root, str(root / "pretrain"), FT_RESUME_STEPS)
+    run_b = root / "ft_resumed"
+    link_copy(run_a, run_b)
+    log_b = run_train_cli(resume_config, run_b)
+    steps_b = [r["step"] for r in read_jsonl(run_b / "train_summaries.jsonl")]
+    if f"resumed from checkpoint at step {FT_STEPS}" not in log_b \
+            or steps_b != list(range(1, FT_RESUME_STEPS + 1)):
+        raise AssertionError(f"the resumed run did not start at step {FT_STEPS}: {steps_b}")
+    resumed = finetune_params(run_b, FT_RESUME_STEPS)
+    shutil.rmtree(run_a)
+    shutil.rmtree(run_b)
+    whole = []
+    for name in ("ft_whole", "ft_whole_again"):
+        run_train_cli(resume_config, root / name)
+        whole.append(finetune_params(root / name, FT_RESUME_STEPS))
+        shutil.rmtree(root / name)
+    errors, spread, failing = {}, {}, []
+    for name, ref in whole[0].items():
+        norm = ref.norm().item()
+        errors[name] = (resumed[name] - ref).norm().item() / norm
+        spread[name] = (whole[1][name] - ref).norm().item() / norm
+        if not errors[name] <= RESUME_SPREAD_FACTOR * spread[name] + RESUME_FLOOR:
+            failing.append(name)
+    total = math.sqrt(sum(float((resumed[n] - r).double().square().sum()) for n, r in
+                          whole[0].items()))
+    total_spread = math.sqrt(sum(float((whole[1][n] - r).double().square().sum()) for n, r in
+                                 whole[0].items()))
+    ref_norm = math.sqrt(sum(float(r.double().square().sum()) for r in whole[0].values()))
+    del resumed, whole
+
+    later = [1.0 / r["steps_per_sec"] for r in train_log[1:]]
+    ms_step = float(np.mean(later)) * 1e3
+    eval_examples = FT_VAL_RECORDS * (FT_RATIO + 1)
+    emit({"phase": "finetune", "global_batch": FT_GLOBAL, "seq_len": CLI_SEQ, "steps": FT_STEPS,
+          "train_records": FT_TRAIN_RECORDS, "val_records": FT_VAL_RECORDS, "remat": False,
+          "setup_seconds": setup_s, "run_seconds": run_s,
+          "first_step_ms": 1e3 / train_log[0]["steps_per_sec"],
+          "ms_per_step_after_first": ms_step, "ms_per_step": [t * 1e3 for t in later],
+          "examples_per_s": FT_GLOBAL / (ms_step / 1e3),
+          "loader_fill_seconds": fill_s, "loader_examples_per_s": 2 * FT_GLOBAL / loader_s,
+          "eval_examples": eval_examples, "eval_seconds": eval_s,
+          "eval_examples_per_s": eval_examples / eval_s, "peak_memory_gb": peak_gb,
+          "launches": counts, "launches_per_step": layers, "eval_batches": eval_batches,
+          "count_restored": restored[0], "fresh_tensors": fresh, "best": best_info, "validation": val_log,
+          "train": train_log, "predict": {"rows": len(rows) - 1, "seconds": predict_s,
+                                          "recall": recall},
+          "resume": {"bound": f"{RESUME_SPREAD_FACTOR} x spread + {RESUME_FLOOR}",
+                     "max_rel_err": max(errors.values()),
+                     "worst_tensor": max(errors, key=errors.get),
+                     "max_spread": max(spread.values()),
+                     "tensors_with_spread": sum(v > 0 for v in spread.values()),
+                     "tensors_with_err": sum(v > 0 for v in errors.values()),
+                     "whole_model_rel_err": total / ref_norm,
+                     "whole_model_rel_spread": total_spread / ref_norm,
+                     "failing": failing[:5]}})
+    if failing:
+        raise AssertionError(f"resumed run outside its bound at {failing[:5]}")
+    return counts, batch, task
+
+
+def phase_finetune_profile(task, batch):
+    """One B=512 training step under the profiler (device time by kernel
+    group, idle share, the attention kernels per call); the two kernels at
+    that shape and the batch's lengths against their plain versions, alone
+    (CUDA events around the wrapper: a profiler session this late in the
+    script has dropped kernel records), against SDPA handed the bias mask
+    and against the bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmt_tpu_torch.models import DropoutRngs
+    from mmt_tpu_torch.ops import fused_attention as fa
+    from mmt_tpu_torch.train.optimizer import create_optimizer
+    from mmt_tpu_torch.train.tasks import batch_to_device
+    from mmt_tpu_torch.train.train_state import TrainState
+
+    layers = task.model.config.encoder.mmt.num_hidden_layers
+    optimizer = create_optimizer(task.trainer.optimizer_config, task.trainer.train_steps,
+                                 task.model)
+    state = TrainState.create(task.model, optimizer)
+    step = task.make_train_step()
+    on_card = batch_to_device(batch, "cuda")
+    state, _ = step(state, on_card, DropoutRngs.for_step(0, 0, "cuda"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, on_card, DropoutRngs.for_step(0, 1, "cuda"))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    intervals = device_intervals(prof)
+    fwd_in_step = kernel_calls_ms(intervals, FWD_KERNEL, layers)
+    bwd_in_step = kernel_calls_ms(intervals, BWD_KERNEL, layers)
+    summary = trace_summary(intervals, wall_ms, {
+        "rel_attention_fwd": ("rel_attention_fwd",), "rel_attention_bwd": ("rel_attention_bwd",),
+        "cublas": CUBLAS_TAGS})
+    del state, optimizer, on_card, metrics, prof
+    task.model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # The two kernels alone at this shape, with dropout 0.1 as in training.
+    lengths = batch["lengths"].tolist()
+    q, k, v, table, geo, lens = attention_inputs(lengths, seed=31, seq_len=CLI_SEQ)
+    seed = 20262
+    err_o, err_lse = kernel_errors((q, k, v, table, geo, lens), DROPOUT, seed)
+    fwd = lambda: fa.relative_attention_forward(q, k, v, table, geo, lens, "cuda",  # noqa: E731
+                                                DROPOUT, seed)
+    f_flops, f_bytes = forward_work(lengths, CLI_SEQ)
+    forward = {"ms": cuda_ms(fwd, 20),
+               "plain_ms": cuda_ms(lambda: fa.relative_attention_plain(
+                   q, k, v, table, geo, lens, DROPOUT, seed), 2),
+               "library_ms": cuda_ms(sdpa_with_bias(q, k, v, table, geo, lens), 10),
+               "flops": f_flops, "bytes": f_bytes, "max_abs_err_o": err_o,
+               "max_abs_err_lse": err_lse, "kernel_ms_per_call_in_step": fwd_in_step}
+    forward["bound_ms"], forward["bound_by"] = bound_ms(f_flops, f_bytes)
+    o, lse = fwd()
+    do = torch.from_numpy(np.random.default_rng(32).standard_normal(q.shape, np.float32)).cuda() \
+        .to(torch.bfloat16)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float()).contiguous()
+    args = (q, k, v, do, lse, delta, table, geo, lens)
+    got = fa.relative_attention_backward(*args, "cuda", DROPOUT, seed)
+    torch.cuda.synchronize()
+    errs = grad_errors(got, fa.relative_attention_backward_plain(*args, DROPOUT, seed), lengths)
+    del got
+    bwd = lambda: fa.relative_attention_backward(*args, "cuda", DROPOUT, seed)  # noqa: E731
+    b_flops, b_bytes = backward_flops(lengths), backward_bytes(lengths, CLI_SEQ)
+    backward = {"ms": cuda_ms(bwd, 10),
+                "plain_ms": cuda_ms(lambda: fa.relative_attention_backward_plain(
+                    *args, DROPOUT, seed), 2),
+                "library_ms": sdpa_backward_ms(q, k, v, table, geo, lens, 5),
+                "flops": b_flops, "bytes": b_bytes, "errors": errs,
+                "kernel_ms_per_call_in_step": bwd_in_step}
+    backward["bound_ms"], backward["bound_by"] = bound_ms(b_flops, b_bytes)
+    emit({"phase": "finetune_profile", "batch": len(lengths), "seq_len": CLI_SEQ, "rate": DROPOUT,
+          **summary, "lengths_mean": float(np.mean(lengths)), "tiles": dense_tiles(lengths),
+          "forward": forward, "backward": backward})
+    del q, k, v, do, o, lse, delta, args
+    torch.cuda.empty_cache()
+    if not (err_o <= O_BOUND and err_lse <= LSE_BOUND):
+        raise AssertionError(f"forward kernel disagrees with plain at B={len(lengths)}, "
+                             f"S={CLI_SEQ}: o {err_o} lse {err_lse}")
+    check_grad_errors(errs, f"backward at B={len(lengths)}, S={CLI_SEQ}")
+    return forward, backward
+
+
+def phase_finetune_reference(root: Path, batch):
+    """Per-tensor gradients of the classification model on 2 examples of the
+    records (one positive, positives weighted FT_POS_WEIGHT), attention
+    dropout 0.1 at the same seeds: the kernels (bf16), dense attention
+    (bf16) and dense attention in float32 compute.  Replacing dense
+    attention by the kernels may add at most TRAIN_GRAD_BOUND to a tensor's
+    relative error against the float32 gradient: with the loss on two ITM
+    logits alone, the bf16 paths are themselves ~0.3 from float32 on the
+    segment table (a sum over ~200 image tokens that nearly cancels), and
+    within ~0.05 of each other there."""
+    from mmt_tpu_torch.configs import get_experiment_config, override
+    from mmt_tpu_torch.models import DropoutRngs
+    from mmt_tpu_torch.train.tasks import ClassificationTask, batch_to_device
+
+    labels = np.asarray(batch["label_ids"])
+    rows = [int(np.argmax(labels == 1)), int(np.argmax(labels == 0))]
+    small = {k: np.asarray(v)[rows] for k, v in batch.items()}
+    small["pos_weights"] = np.where(small["label_ids"] > 0, FT_POS_WEIGHT, 1.0).astype(np.float32)
+    grads = {}
+    for name, impl, dtype in (("kernels", "pallas", "bfloat16"), ("dense", "xla", "bfloat16"),
+                              ("dense_fp32", "xla", "float32")):
+        experiment = flickr_experiment(str(root / "vocab.txt"), impl)
+        experiment["task"]["model"]["encoder"]["mmt"].update(
+            {"hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": DROPOUT,
+             "compute_dtype": dtype})
+        cfg = override(get_experiment_config("mmt/classification"), experiment)
+        task = ClassificationTask(cfg.task, cfg.trainer, seed=7)
+        loss, _ = task.compute_loss(batch_to_device(small, task.device),
+                                    DropoutRngs(host=torch.Generator().manual_seed(9)))
+        loss.backward()
+        grads[name] = {n: p.grad for n, p in task.model.named_parameters()}
+        del task, loss
+        torch.cuda.empty_cache()
+    worst, worst_name, n_zero, errors = gradient_errors(grads["kernels"], grads["dense"])
+    _, _, _, kernel_err = gradient_errors(grads["kernels"], grads["dense_fp32"])
+    _, _, _, dense_err = gradient_errors(grads["dense"], grads["dense_fp32"])
+    excess = {n: kernel_err[n] - dense_err[n] for n in kernel_err}
+    worst_excess = max(excess, key=excess.get)
+    top = sorted(errors.items(), key=lambda kv: -kv[1])[:5]
+    emit({"phase": "finetune_reference", "tensors": len(grads["kernels"]), "zero_tensors": n_zero,
+          "lengths": small["lengths"].tolist(), "labels": small["label_ids"].tolist(),
+          "pos_weight": FT_POS_WEIGHT, "attention_dropout": DROPOUT,
+          "max_rel_frobenius_err_vs_dense": worst, "worst_tensor": worst_name,
+          "largest_errors_vs_dense": top,
+          "max_excess_over_dense_vs_fp32": excess[worst_excess],
+          "worst_excess_tensor": worst_excess,
+          "at_worst_excess": {"kernels_vs_fp32": kernel_err[worst_excess],
+                              "dense_vs_fp32": dense_err[worst_excess]},
+          "max_dense_vs_fp32": max(dense_err.values()),
+          "max_kernels_vs_fp32": max(kernel_err.values()), "bound": TRAIN_GRAD_BOUND})
+    if not excess[worst_excess] <= TRAIN_GRAD_BOUND:
+        raise AssertionError(f"{worst_excess}: the kernels' gradient error against float32 "
+                             f"{kernel_err[worst_excess]} exceeds dense attention's "
+                             f"{dense_err[worst_excess]} by more than {TRAIN_GRAD_BOUND}")
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1749,9 +2210,10 @@ def main() -> int:
     entry["max_abs_err"] = max(entry["max_abs_err"], phase_kernel_dropout())
     bwd_entry = phase_kernel_bwd()
     task, cfg, train_launches = phase_train()
-    # The forward runs on three main paths: retrieval (phase main),
-    # pretraining (phase train) and the predict CLI (phase predict_cli,
-    # added below); the backward on the second.
+    # The forward runs on four main paths: retrieval (phase main),
+    # pretraining (phase train), the predict CLI (phase predict_cli) and
+    # finetuning (phase finetune), both added below; the backward on the
+    # second and the fourth.
     entry["launches"] = launches + train_launches["fwd"]
     bwd_entry["launches"] = train_launches["bwd"]
     phase_train_profile(task, cfg, fwd_alone["train"], bwd_entry["ms"])
@@ -1769,6 +2231,14 @@ def main() -> int:
     phase_train_window_reference()
     probe_entries = [*phase_probe_split(), *phase_probe_op_cost(), *phase_probe_hopper()]
     entry["launches"] += phase_predict_cli()
+    with tempfile.TemporaryDirectory() as tmp:
+        ft_launches, ft_batch, task = phase_finetune(Path(tmp))
+        entry["launches"] += ft_launches["fwd"]
+        bwd_entry["launches"] += ft_launches["bwd"]
+        phase_finetune_profile(task, ft_batch)
+        del task
+        torch.cuda.empty_cache()
+        phase_finetune_reference(Path(tmp), ft_batch)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     kernels = {"kernels": [entry, bwd_entry, win_entry, win_bwd_entry, *probe_entries]}
     print(json.dumps(kernels), flush=True)

@@ -2,9 +2,10 @@
 ``mmt_tpu/configs/data.py`` so that the JAX package's yaml loads here to
 the same values.
 
-Record loaders: retrieval (``mmt_tpu_torch.data.loaders``).  Pretraining
-runs on ``input_path: dummy`` only (``mmt_tpu_torch.data.dummy``); its
-loader and the classification loader are not ported yet.
+Record loaders: classification and retrieval
+(``mmt_tpu_torch.data.loaders``).  Pretraining runs on ``input_path:
+dummy`` only (``mmt_tpu_torch.data.dummy``); its record loader is not
+ported yet.
 """
 
 from __future__ import annotations

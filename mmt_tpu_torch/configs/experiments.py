@@ -1,10 +1,11 @@
 """Experiment registry and trainer configs (fields of ``mmt_tpu/configs/experiments.py``).
 
-The three experiments of the JAX package load here to the same values;
-of ``mmt/classification`` and ``mmt/retrieval`` the port runs the
-inference side (``cli.predict``), not finetuning.  ``RuntimeConfig`` keeps
-the JAX package's mesh fields for yaml compatibility: the port trains on
-one card and ignores them.
+The three experiments of the JAX package load here to the same values.
+The port trains ``mmt/pretraining`` (on dummy input) and
+``mmt/classification`` (ITM finetuning from records), and runs
+``mmt/retrieval`` through ``cli.predict``.  ``RuntimeConfig`` keeps the
+JAX package's mesh fields for yaml compatibility: the port trains on one
+card and refuses the multi-device runtimes.
 """
 
 from __future__ import annotations
@@ -37,11 +38,13 @@ class RuntimeConfig(Config):
 class TrainerConfig(Config):
     """Training-loop knobs (same fields and defaults as the JAX package).
 
-    The port's loop has no checkpoints yet: ``checkpoint_interval``,
-    ``max_to_keep``, ``best_checkpoint_*``, ``async_checkpointing`` and
-    ``save_on_preemption`` are kept for yaml compatibility and unused, as
-    are ``tensorboard_summaries`` (the loop writes jsonl summaries only)
-    and ``grad_accum_dtype`` values other than "float32".
+    Kept for yaml compatibility and unused by the port's loop:
+    ``async_checkpointing`` (saves are synchronous), ``save_on_preemption``
+    (no preemption watcher: a killed run resumes from its last
+    checkpoint) and ``tensorboard_summaries`` (jsonl summaries only);
+    ``grad_accum_dtype`` values other than "float32" raise.
+    ``micro_batch_size`` applies to pretraining only: the classification
+    step takes the whole batch, as JAX's does.
     """
 
     train_steps: int = 1000000

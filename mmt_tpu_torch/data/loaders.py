@@ -1,30 +1,44 @@
-"""Task dataloaders: the retrieval loader.
+"""Task dataloaders: classification (ITM finetuning) and retrieval.
 
-The port's own copy of the retrieval side of ``mmt_tpu/data/loaders.py``
-(``_glob_shard``, ``_segment_ids``, ``RecordCursor``, ``_BaseLoader``,
-``MmtRetrievalLoader``): host-side numpy pipelines (glob -> shard ->
-decode -> batch) yielding dicts of numpy arrays that the prediction loop
-moves to its device.
+The port's own copy of the classification and retrieval side of
+``mmt_tpu/data/loaders.py`` (``_glob_shard``, ``_segment_ids``,
+``RecordCursor``, ``_BaseLoader``, ``MmtClassificationLoader``,
+``MmtRetrievalLoader``, ``TrainStream``, ``ResumablePrefixed``):
+host-side numpy pipelines (glob -> shard -> decode -> match -> batch)
+yielding dicts of numpy arrays that the training or prediction loop moves
+to its device.
 
 * No [S, S] side inputs: batches carry ``lengths`` (+ host-cheap
   ``segment_ids``); the model derives masks and ids on the device.
+* Training batches come from a checkpointable ``TrainStream``
+  (``state()`` / ``restore()``), so that a resumed run consumes exactly
+  the batches the uninterrupted run would have.
+* Classification in eval yields the split's last, partial matched batch
+  when ``drop_remainder`` is false, as the reference's
+  ``classification_dataloader.py`` does (the JAX package drops it).
 * Retrieval's ``drop_remainder=False`` final partial batch is padded to
   the batch size with a ``valid`` mask (the host filters on it), so that
   every batch has one shape.
 
-Not ported yet: ``MmtPretrainLoader``, ``MmtClassificationLoader``,
-``TrainStream`` and RandAugment (``use_rand_aug`` raises in training).
+Not ported yet: ``MmtPretrainLoader`` (pretraining from records) and the
+multiprocess prefetch (``num_workers > 0``).
 """
 
 from __future__ import annotations
 
+import collections
+import copy
 import glob as globlib
 import itertools
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
-from mmt_tpu_torch.configs.data import MmtDataConfig, MmtRetrievalDataConfig
+from mmt_tpu_torch.configs.data import (
+    MmtClassificationDataConfig,
+    MmtDataConfig,
+    MmtRetrievalDataConfig,
+)
 from mmt_tpu_torch.data.assembly import AssembledExample, ExampleAssembler
 from mmt_tpu_torch.data.tfrecord import (
     TFRecordReader,
@@ -32,6 +46,7 @@ from mmt_tpu_torch.data.tfrecord import (
     parse_example,
     skim_open,
 )
+from mmt_tpu_torch.features.matching import make_matching_features
 from mmt_tpu_torch.text.native import NativeBertTokenizer
 from mmt_tpu_torch.text.wordpiece import BertTokenizer
 
@@ -66,6 +81,22 @@ def _glob_shard(
         # peers' collectives).  Signal record-level striding instead.
         return files, True
     return files[shard_index::num_shards], False
+
+
+def pad_1d(x: np.ndarray, length: int, value=0) -> np.ndarray:
+    """Right-pad (or cut) a 1D array to ``length`` (the port's copy of
+    ``mmt_tpu/features/masking.py:pad_1d``)."""
+    if x.shape[0] >= length:
+        return x[:length]
+    out = np.full((length,), value, dtype=x.dtype)
+    out[: x.shape[0]] = x
+    return out
+
+
+def _unbatch(batch: Dict[str, np.ndarray]) -> Iterator[Dict[str, np.ndarray]]:
+    n = len(next(iter(batch.values())))
+    for i in range(n):
+        yield {k: v[i] for k, v in batch.items()}
 
 
 def _segment_ids(max_seq_len: int, img_wp: int, txt_wp: int) -> np.ndarray:
@@ -228,12 +259,115 @@ class _BaseLoader:
                 ) else str(v)
 
         flip = bool(is_training and rng.random() > 0.5)
+        rand_aug_fn = None
         if is_training and cfg.use_rand_aug and image_bytes is not None:
-            raise NotImplementedError("use_rand_aug: RandAugment is not ported yet")
+            if not hasattr(self, "_rand_augment"):
+                from mmt_tpu_torch.data.rand_augment import RandAugment
+
+                self._rand_augment = RandAugment(num_layers=1)
+            rand_aug_fn = lambda im: self._rand_augment(im, rng)  # noqa: E731
         return self.assembler.assemble(
-            image_bytes, text_fields or None, flip=flip, rand_aug_fn=None,
+            image_bytes, text_fields or None, flip=flip, rand_aug_fn=rand_aug_fn,
             extras=extras, raw_u8=self.config.ship_raw_images,
         )
+
+
+class MmtClassificationLoader(_BaseLoader):
+    """ITM classification batches (parity: classification_dataloader.py)."""
+
+    def __init__(self, config: MmtClassificationDataConfig, tokenizer=None):
+        super().__init__(config, tokenizer)
+        self.cfg = config
+
+    def load(
+        self, shard_index: int = 0, num_shards: int = 1, batch_size: Optional[int] = None
+    ) -> Iterator[Dict[str, np.ndarray]]:
+        return iter(self.stream(shard_index, num_shards, batch_size))
+
+    def stream(
+        self, shard_index: int = 0, num_shards: int = 1, batch_size: Optional[int] = None
+    ) -> "TrainStream":
+        """The batch iterator as a checkpointable ``TrainStream``."""
+        cfg = self.cfg
+        batch_size = batch_size or cfg.global_batch_size
+        ratio = cfg.negative_positive_ratio
+        # Post-match shuffle before rebatching, mixing positives and
+        # negatives per batch (src/data/classification_dataloader.py:180).
+        return TrainStream(
+            self, shard_index, num_shards, batch_size=batch_size,
+            collect=max(1, batch_size // (ratio + 1)),
+            shuffle_size=cfg.shuffle_buffer_size,
+            shuffled=cfg.is_training,
+        )
+
+    def _collect_batch(self, records, rng, collect) -> Dict[str, np.ndarray]:
+        examples, keys = [], []
+        while len(examples) < collect:
+            try:
+                payload = next(records)
+            except StopIteration:
+                # The end of a split read once (eval): its last matched
+                # batch is partial, kept unless drop_remainder.
+                if not examples or self.cfg.drop_remainder:
+                    raise
+                break
+            ex = self._decode(payload, rng, self.cfg.is_training)
+            examples.append(self._features(ex))
+            keys.append(ex.extras.get("image_key", len(keys)))
+        return self._finalize(examples, keys)
+
+    def _features(self, ex: AssembledExample) -> Dict[str, np.ndarray]:
+        text_ids = pad_1d(
+            self.assembler.flat_text_ids(ex.text_token_words),
+            self.assembler.max_remaining_seq_len,
+        )
+        feats = {
+            "patch_token_ids": ex.patch_token_ids,
+            "num_image_wordpieces": np.int32(ex.num_image_wordpieces),
+            "text_token_ids": text_ids,
+            "num_text_wordpieces": np.int32(ex.num_text_wordpieces),
+        }
+        if "raw_image" in ex.extras:  # ship_raw_images
+            feats["images"] = ex.extras["raw_image"]
+        else:
+            feats["patch_embeddings"] = ex.patch_embeddings
+        return feats
+
+    def _finalize(self, examples, keys) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        batch = {k: np.stack([e[k] for e in examples]) for k in examples[0]}
+        batch = make_matching_features(
+            batch,
+            keys,
+            negative_positive_ratio=cfg.negative_positive_ratio,
+            min_shift=cfg.min_shift,
+        )
+        s = cfg.max_seq_len
+        b = batch["patch_token_ids"].shape[0]
+        word_ids = np.zeros((b, s), np.int32)
+        joint = np.concatenate(
+            [batch.pop("patch_token_ids"), batch.pop("text_token_ids")], axis=1
+        )[:, :s]
+        word_ids[:, : joint.shape[1]] = joint
+        img_wp = batch.pop("num_image_wordpieces")
+        txt_wp = batch.pop("num_text_wordpieces")
+        out = {
+            "word_ids": word_ids,
+            "segment_ids": np.stack(
+                [_segment_ids(s, int(i), int(t)) for i, t in zip(img_wp, txt_wp)]
+            ),
+            "lengths": (img_wp + txt_wp).astype(np.int32),
+            "label_ids": batch["itm_label_ids"],
+            "label_weights": batch["itm_label_weights"],
+            "pos_weights": np.where(
+                batch["itm_label_ids"] > 0, self.cfg.pos_weight, 1.0
+            ).astype(np.float32),
+        }
+        if "images" in batch:
+            out["images"] = batch["images"]
+        else:
+            out["patch_embeddings"] = batch["patch_embeddings"]
+        return out
 
 
 class MmtRetrievalLoader(_BaseLoader):
@@ -375,3 +509,190 @@ class MmtRetrievalLoader(_BaseLoader):
         else:
             out["patch_embeddings"] = patches
         return out
+
+
+class _Item:
+    """A row in flight between unbatching and rebatching, tagged with the
+    matched batch it came from (for provenance-based stream snapshots)."""
+
+    __slots__ = ("row", "bid", "idx")
+
+    def __init__(self, row, bid, idx):
+        self.row = row
+        self.bid = bid
+        self.idx = idx
+
+
+class TrainStream:
+    """Checkpointable training batch iterator.
+
+    Yields accumulate -> finalize -> unbatch -> shuffle buffer -> rebatch,
+    one shared rng in one draw order, and gives ``state()`` /
+    ``restore()`` so that a resumed run continues the input stream
+    exactly where it left off instead of replaying epoch 0.
+
+    Snapshots are provenance-based so they stay small (no example
+    payloads): every matched batch records the (epoch, pos, rng-state) it
+    was produced from; ``restore`` replays only the matched batches with
+    rows still alive in the shuffle buffer / pending queue, walking the
+    record files once in position order (skipped spans are header-hops,
+    ``RecordCursor.seek``, so only ~shuffle_buffer_size examples are
+    decoded again).
+    """
+
+    def __init__(self, loader, shard_index: int, num_shards: int, *,
+                 batch_size: int, collect: int, shuffle_size: int,
+                 shuffled: bool):
+        cfg = loader.cfg
+        self._loader = loader
+        self._cursor_args = (cfg.input_path, shard_index, num_shards,
+                             cfg.seed, cfg.is_training)
+        self._cursor = RecordCursor(*self._cursor_args)
+        self._rng = np.random.default_rng(cfg.seed + shard_index)
+        self._batch_size = batch_size
+        self._collect = collect
+        self._shuffle_size = shuffle_size
+        self._shuffled = shuffled
+        self._pending: collections.deque = collections.deque()
+        self._shufbuf: Optional[List[_Item]] = None
+        self._prov: Dict[int, tuple] = {}
+        self._refs: Dict[int, int] = {}
+        self._next_bid = 0
+
+    def __iter__(self):
+        return self
+
+    def _next_matched(self) -> Dict[str, np.ndarray]:
+        prov = (self._cursor.epoch, self._cursor.pos,
+                copy.deepcopy(self._rng.bit_generator.state))
+        batch = self._loader._collect_batch(self._cursor, self._rng,
+                                            self._collect)
+        if self._shuffled:
+            bid = self._next_bid
+            self._next_bid += 1
+            rows = list(_unbatch(batch))
+            self._prov[bid] = prov
+            self._refs[bid] = len(rows)
+            self._pending.extend(
+                _Item(row, bid, i) for i, row in enumerate(rows))
+        return batch
+
+    def _pull(self) -> _Item:
+        if not self._pending:
+            self._next_matched()
+        return self._pending.popleft()
+
+    def _shuffle_next(self) -> _Item:
+        if self._shuffle_size <= 0:
+            return self._pull()
+        if self._shufbuf is None:
+            self._shufbuf = [self._pull() for _ in range(self._shuffle_size)]
+        item = self._pull()
+        i = int(self._rng.integers(len(self._shufbuf)))
+        out = self._shufbuf[i]
+        self._shufbuf[i] = item
+        return out
+
+    def _release(self, item: _Item) -> None:
+        self._refs[item.bid] -= 1
+        if not self._refs[item.bid]:
+            del self._refs[item.bid]
+            del self._prov[item.bid]
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        if not self._shuffled:
+            # Direct emission (eval): one matched batch per output batch;
+            # the record cursor's StopIteration ends the stream.
+            return self._next_matched()
+        items = [self._shuffle_next() for _ in range(self._batch_size)]
+        batch = {k: np.stack([it.row[k] for it in items])
+                 for k in items[0].row}
+        for it in items:
+            self._release(it)
+        return batch
+
+    # ------------------------------------------------- snapshot/restore
+
+    def state(self) -> dict:
+        """Snapshot at a batch boundary; pickle-able, payload-free."""
+        st = {
+            "version": 1,
+            "shuffled": self._shuffled,
+            "cursor": self._cursor.state(),
+            "rng": copy.deepcopy(self._rng.bit_generator.state),
+        }
+        if self._shuffled:
+            st["prov"] = dict(self._prov)
+            st["shufbuf"] = (None if self._shufbuf is None else
+                             [(it.bid, it.idx) for it in self._shufbuf])
+            st["pending"] = [(it.bid, it.idx) for it in self._pending]
+            st["next_bid"] = self._next_bid
+        return st
+
+    def restore(self, st: dict) -> None:
+        if st.get("version") != 1:
+            raise ValueError(f"unknown stream-state version: {st.get('version')}")
+        if bool(st["shuffled"]) != self._shuffled:
+            raise ValueError("stream state does not match this loader config")
+        self._rng.bit_generator.state = copy.deepcopy(st["rng"])
+        if not self._shuffled:
+            self._cursor.seek(*st["cursor"])
+            return
+        # Replay the live matched batches in stream order: one forward
+        # walk, header-hopping the gaps between them.
+        rows_of: Dict[int, List[dict]] = {}
+        tmp_rng = np.random.default_rng()
+        for bid, (epoch, pos, rstate) in sorted(
+                st["prov"].items(), key=lambda kv: (kv[1][0], kv[1][1])):
+            self._cursor.seek(epoch, pos)
+            tmp_rng.bit_generator.state = copy.deepcopy(rstate)
+            batch = self._loader._collect_batch(self._cursor, tmp_rng,
+                                                self._collect)
+            rows_of[bid] = list(_unbatch(batch))
+
+        def make(ref):
+            bid, idx = ref
+            return _Item(rows_of[bid][idx], bid, idx)
+
+        self._shufbuf = (None if st["shufbuf"] is None else
+                         [make(r) for r in st["shufbuf"]])
+        self._pending = collections.deque(make(r) for r in st["pending"])
+        self._prov = dict(st["prov"])
+        refs = collections.Counter(it.bid for it in (self._shufbuf or []))
+        refs.update(it.bid for it in self._pending)
+        self._refs = dict(refs)
+        self._next_bid = st["next_bid"]
+        self._cursor.seek(*st["cursor"])
+
+
+class ResumablePrefixed:
+    """Lets a caller pre-pull the first batch from a resumable stream and
+    still hand the loop a correct state()/restore() surface: while the
+    pre-pulled batch is queued, ``state()`` reports the stream position
+    from *before* it was pulled, and ``restore()`` drops the stale
+    queue."""
+
+    def __init__(self, stream: TrainStream):
+        self._stream = stream
+        self._st0 = stream.state()
+        self._prefix: List[Dict[str, np.ndarray]] = []
+
+    def prime(self) -> Dict[str, np.ndarray]:
+        first = next(self._stream)
+        self._prefix = [first]
+        return first
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._prefix:
+            return self._prefix.pop(0)
+        return next(self._stream)
+
+    def state(self) -> dict:
+        return self._st0 if self._prefix else self._stream.state()
+
+    def restore(self, st: dict) -> None:
+        self._prefix = []
+        self._stream.restore(st)

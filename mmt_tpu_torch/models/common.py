@@ -53,6 +53,15 @@ class DropoutRngs:
     host: Optional[torch.Generator] = None
     device: Optional[torch.Generator] = None
 
+    @classmethod
+    def for_step(cls, seed: int, step: int, device) -> "DropoutRngs":
+        """The streams of training step ``step`` of a run seeded ``seed``,
+        made from the pair alone (JAX's ``fold_in(rng, step)``): a run
+        resumed at step k draws the masks the uninterrupted run drew."""
+        host, dev = np.random.SeedSequence([seed, step]).generate_state(2)
+        return cls(host=torch.Generator().manual_seed(int(host)),
+                   device=torch.Generator(device).manual_seed(int(dev)))
+
     def seed(self) -> int:
         """An int32 seed from the host stream."""
         return int(torch.randint(-(1 << 31), 1 << 31, (), generator=self.host))

@@ -12,7 +12,8 @@ transforms; the same arithmetic is written out here in float32:
   at the optimizer's own step count n (0 for the first update).
 
 The learning rate is computed on the host, in float32, so a step never
-waits for the card.
+waits for the card.  ``state_dict`` / ``load_state_dict`` carry the count
+and the moments, which a checkpoint saves beside the parameters.
 """
 
 from __future__ import annotations
@@ -85,6 +86,25 @@ class AdamW:
         self.count = 0
         self.mu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()}
         self.nu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()}
+
+    def state_dict(self) -> Dict:
+        """The update count and the float32 moments (the tensors
+        themselves, not copies), by parameter name."""
+        return {"count": self.count, "mu": dict(self.mu), "nu": dict(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Copies a ``state_dict`` of an AdamW over the same parameters in."""
+        for key in ("mu", "nu"):
+            if set(state[key]) != set(self.params):
+                raise ValueError(f"optimizer state {key!r} names other parameters: "
+                                 f"{sorted(set(state[key]) ^ set(self.params))[:5]}")
+            for name, t in getattr(self, key).items():
+                if state[key][name].shape != t.shape:
+                    raise ValueError(f"optimizer state {key}[{name!r}] has shape "
+                                     f"{tuple(state[key][name].shape)}, expected {tuple(t.shape)}")
+                t.copy_(state[key][name])
+        self.count = int(state["count"])
 
     def zero_grad(self) -> None:
         for p in self.params.values():

@@ -1,5 +1,5 @@
-"""The tasks: MLM + MPP (+ ITM) pretraining, and ITM classification /
-retrieval scoring (its inference side).
+"""The tasks: MLM + MPP (+ ITM) pretraining, and ITM classification
+(finetuning and retrieval scoring).
 
 Torch counterparts of ``mmt_tpu/train/tasks.py``.  ``PretrainingTask``:
 
@@ -15,10 +15,18 @@ Torch counterparts of ``mmt_tpu/train/tasks.py``.  ``PretrainingTask``:
 * ``make_eval_step``: the loss and metrics in ``eval()`` mode, no grad.
 
 ``ClassificationTask`` builds the classification model of a
-``ClassificationTaskConfig`` and gives ``make_inference_step`` (scores from
-the first head's logits: sigmoid / softmax[:, 1] / argmax by the number of
-classes).  Its finetune loss, train and eval steps are not ported yet and
-raise.
+``ClassificationTaskConfig``:
+
+* ``compute_loss``: the first head's logits against ``label_ids`` with
+  ``label_weights`` and ``pos_weights``: sigmoid BCE for one class,
+  sparse CE otherwise; ``cls_loss`` and ``cls_accuracy`` (the logit
+  thresholded at 0 for one class, the argmax otherwise) as pairs;
+* ``make_train_step``: one forward and backward over the whole batch and
+  one optimizer update (JAX's classification step has no micro-batches;
+  ``trainer.micro_batch_size`` is a pretraining knob);
+* ``make_eval_step``: the metric pairs and the probabilities (sigmoid /
+  softmax[:, 1] / argmax by the number of classes) for the host's AUC-PR;
+* ``make_inference_step``: the scores alone, for retrieval.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ from mmt_tpu_torch.configs.experiments import (
     TrainerConfig,
 )
 from mmt_tpu_torch.device import resolve_device
-from mmt_tpu_torch.eval.predict import make_inference_step
+from mmt_tpu_torch.eval.predict import make_inference_step, scores_from_logits
 from mmt_tpu_torch.models import DropoutRngs, MmtClassificationModel, MmtPretrainingModel
 from mmt_tpu_torch.train import losses as losses_lib
 from mmt_tpu_torch.train.metrics import weighted_accuracy
@@ -148,7 +156,7 @@ class PretrainingTask:
 
 class ClassificationTask:
     """ITM classification finetune / retrieval scoring on ``device``
-    (default the card); the inference side only."""
+    (default the card)."""
 
     def __init__(self, config: ClassificationTaskConfig, trainer: TrainerConfig,
                  device="cuda", seed: int = 0):
@@ -168,12 +176,58 @@ class ClassificationTask:
         self.logits_key = f"{heads[0].name}_logits"
         self.num_classes = heads[0].num_classes
 
-    def _finetune_not_ported(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ClassificationTask: the finetune loss, train step and eval step are not "
-            "ported yet; make_inference_step is")
+    def compute_loss(self, batch: Mapping[str, torch.Tensor],
+                     rngs: Optional[DropoutRngs] = None, deterministic: bool = False,
+                     ) -> Tuple[torch.Tensor, Tuple[Dict, Dict]]:
+        self.model.train(not deterministic)
+        outputs = self.model(**{k: batch[k] for k in MODEL_INPUT_KEYS if k in batch},
+                             rngs=rngs, images=batch.get("images"))
+        logits = outputs[self.logits_key]
+        labels = batch["label_ids"]
+        weights = batch["label_weights"]
+        pos_weights = batch.get("pos_weights")
+        if self.num_classes == 1:
+            loss = losses_lib.weighted_binary_crossentropy_loss(
+                logits, labels, weights, pos_weights)
+            correct = ((logits.reshape(-1) > 0).to(labels.dtype) == labels).float()
+        else:
+            loss = losses_lib.weighted_sparse_categorical_crossentropy_loss(
+                logits, labels, weights, pos_weights)
+            correct = (torch.argmax(logits, -1) == labels).float()
+        weights = weights.float()
+        metrics = {
+            "cls_loss": (loss, torch.ones((), device=loss.device)),
+            "cls_accuracy": (torch.sum(correct * weights), torch.sum(weights)),
+        }
+        return loss, (outputs, metrics)
 
-    compute_loss = make_train_step = make_eval_step = _finetune_not_ported
+    def make_train_step(self):
+        """Returns (state, batch, rngs) -> (state, metric pairs): the whole
+        batch in one forward and backward, then one optimizer update."""
+
+        def step(state: TrainState, batch, rngs: Optional[DropoutRngs] = None):
+            loss, (_, metrics) = self.compute_loss(batch, rngs, deterministic=False)
+            loss.backward()
+            state = state.apply_gradients()
+            metrics = {name: (total.detach(), count.detach())
+                       for name, (total, count) in metrics.items()}
+            metrics["total_loss"] = (loss.detach(), torch.ones((), device=self.device))
+            return state, metrics
+
+        return step
+
+    def make_eval_step(self):
+        """Returns batch -> (metric pairs, probabilities), in eval mode, no
+        grad; the probabilities are the inference step's scores."""
+
+        def step(batch):
+            with torch.no_grad():
+                loss, (outputs, metrics) = self.compute_loss(batch, None, deterministic=True)
+            metrics = dict(metrics)
+            metrics["total_loss"] = (loss, torch.ones((), device=loss.device))
+            return metrics, scores_from_logits(outputs[self.logits_key], self.num_classes)
+
+        return step
 
     def make_inference_step(self):
         """Returns batch of arrays -> <float32>[B] scores on the task's

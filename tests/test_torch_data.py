@@ -335,8 +335,12 @@ def test_loader_needs_a_vocab_and_no_rand_aug(tmp_path):
     vocab = _vocab_file(tmp_path)
     loader = MmtRetrievalLoader(MmtRetrievalDataConfig(**_data_kwargs(vocab, use_rand_aug=True)))
     payload = tfrecord.build_example({"image_data": [_png(np.random.default_rng(0))]})
-    with pytest.raises(NotImplementedError, match="RandAugment"):
-        loader._decode(payload, np.random.default_rng(0), True)
+    # RandAugment in training draws from the loader's rng, as JAX's does.
+    want = JaxRetrievalLoader(JaxRetrievalConfig(**_data_kwargs(vocab, use_rand_aug=True)))
+    for seed in range(4):
+        got = loader._decode(payload, np.random.default_rng(seed), True)
+        ref = want._decode(payload, np.random.default_rng(seed), True)
+        np.testing.assert_array_equal(got.patch_embeddings, ref.patch_embeddings)
     assert loader._decode(payload, np.random.default_rng(0), False).patch_embeddings.shape == \
         (4, 768)
 

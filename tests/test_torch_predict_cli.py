@@ -233,9 +233,19 @@ def test_classification_task_inference_side_only(workdir):
                          str(workdir / "torch.yaml"))
     task = ClassificationTask(cfg.task, TrainerConfig(), device="cpu")
     assert (task.logits_key, task.num_classes) == ("itm_logits", 2)
-    for method in (task.compute_loss, task.make_train_step, task.make_eval_step):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            method()
+    # The finetune eval step's probabilities are the inference step's scores.
+    rng = np.random.default_rng(0)
+    s = cfg.task.train_data.max_seq_len
+    batch = {"word_ids": rng.integers(0, len(VOCAB), (3, s)).astype(np.int32),
+             "segment_ids": np.ones((3, s), np.int32),
+             "patch_embeddings": rng.normal(size=(3, 4, 768)).astype(np.float32),
+             "lengths": np.asarray([s, 9, 14], np.int32),
+             "label_ids": np.asarray([1, 0, 1], np.int32),
+             "label_weights": np.ones(3, np.float32)}
+    from mmt_tpu_torch.train.tasks import batch_to_device
+
+    _, probs = task.make_eval_step()(batch_to_device(batch, "cpu"))
+    torch.testing.assert_close(probs, task.make_inference_step()(batch), rtol=0, atol=0)
     no_heads = parse_params_override(cfg, '{"task": {"model": {"cls_heads": []}}}')
     with pytest.raises(ValueError, match="cls_heads is empty"):
         ClassificationTask(no_heads.task, TrainerConfig(), device="cpu")

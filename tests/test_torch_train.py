@@ -348,8 +348,8 @@ def test_cli_tiny_dummy_run(tmp_path):
     with pytest.raises(NotImplementedError, match="mode"):
         main(["--experiment=mmt/pretraining", "--mode=eval", f"--model_dir={model_dir}",
               f"--config_file={config}", "--device=cpu"])
-    with pytest.raises(NotImplementedError, match="classification"):
-        main(["--experiment=mmt/classification", f"--model_dir={model_dir}", "--device=cpu"])
+    with pytest.raises(NotImplementedError, match="retrieval"):
+        main(["--experiment=mmt/retrieval", f"--model_dir={model_dir}", "--device=cpu"])
 
 
 def test_task_default_device_is_cuda():
