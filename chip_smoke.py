@@ -160,6 +160,44 @@ Phases, each printed as one JSON line:
    dense attention in float32: the kernels' relative error against float32
    may exceed dense attention's by at most TRAIN_GRAD_BOUND.
 
+24. pretrain_records: WIT pretraining from records through
+   ``mmt_tpu_torch.cli.train.main --experiment=mmt/pretraining`` in
+   train_and_eval: seeded WIT-style records (8 files of 512 for training,
+   512 for validation; smooth PNG images at 256 x 192, 192 x 256 and
+   300 x 200, 128 a file, resized to 224; ``canonical_doc_id``;
+   attribution and reference captions of 8-40 words from the generated
+   vocab) and ``wit_records_experiment``,
+   configs/exp_yamls/pretrain/wit/mlm_itm_2d.yaml with only its schedule
+   cut (global batch 4096 in micro-batches of 64, RandAugment, dropout 0.1;
+   validation at the last step on 2 batches of 256).  Run twice: the loader
+   in the training process (2 steps), and in N processes (``num_workers``,
+   N from the host's cores and available memory, ``choose_workers``; N + 1
+   steps, since the first N batches arrive together).  Per run: the time
+   to the first batch (the shuffle buffers' fill), the first step, ms per
+   steady step and examples/s, the loader's share of a steady step (the
+   loop's ``input_seconds``: records -> batches in the training process,
+   or the wait for the workers), the peak host memory in use and the card's
+   peak, the validation metrics, 12 forward launches per micro-batch and
+   per validation batch and 12 backward launches per micro-batch.  Then a
+   profile of the loader's per-record work (``loader_profile``) and
+   validation alone (records -> metrics).
+25. pretrain_records_profile: one optimizer step of a 4096-row batch of
+   the records (``profile_batch``) on the card under the profiler (device
+   time by kernel group, idle share, the kernels per call) and the host's
+   share of the runs' steady steps; the forward and backward kernels at a
+   micro-batch's lengths (B=64, rate 0.1) and the forward at a validation
+   batch's (B=256, rate 0) against their plain versions (the bounds of
+   phases 3 and 8), SDPA and the bound.
+26. pretrain_records_reference: a micro-batch of 64 rows of the records,
+   kernels against dense attention: the loss within LOSS_REL_BOUND, the
+   gradients by train_reference's rule, or, for a tensor outside it,
+   finetune_reference's float32 rule; then one MLM + MPP + ITM batch at MPP
+   0.5 from 224 x 224 records in host mode and in ``ship_raw_images`` mode
+   (the encoder zeroes the masked patches): the MLM, MPP and ITM logits of
+   the two modes against each other and against dense attention (ITM
+   within 4 bf16 spacings, MLM and MPP within SEQUENCE_REL_BOUND of their
+   norm).
+
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises, so the exit code is not 0 and no result is
 printed; so does a machine without a CUDA device or a directory without
@@ -566,11 +604,12 @@ def trace_summary(intervals, wall_ms, groups):
 CUBLAS_TAGS = ("gemm", "xmma", "cutlass", "nvjet", "sm90")
 
 
-def kernel_calls_ms(intervals, name, expected):
+def kernel_calls_ms(intervals, name, expected, min_share=1.0):
     """Device ms per call of the kernel ``name`` in a trace that must hold
-    ``expected`` calls of it."""
+    ``expected`` calls of it, or at least ``min_share`` of them where the
+    profiler may drop records."""
     calls = [end - start for n, start, end in intervals if name in n]
-    if len(calls) != expected:
+    if not expected * min_share <= len(calls) <= expected:
         raise AssertionError(f"{len(calls)} calls of {name} in the trace, expected {expected}")
     return sum(calls) / len(calls) / 1e3
 
@@ -1819,7 +1858,7 @@ class _LogLines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def run_train_cli(config: Path, model_dir: Path) -> list:
+def run_train_cli(config: Path, model_dir: Path, experiment="mmt/classification") -> list:
     """``cli.train.main`` in train_and_eval; returns its log lines."""
     from mmt_tpu_torch.cli import train as cli_train
 
@@ -1829,7 +1868,7 @@ def run_train_cli(config: Path, model_dir: Path) -> list:
     root.addHandler(handler)
     root.setLevel(logging.INFO)
     try:
-        state = cli_train.main(["--experiment=mmt/classification", "--mode=train_and_eval",
+        state = cli_train.main([f"--experiment={experiment}", "--mode=train_and_eval",
                                 f"--model_dir={model_dir}", f"--config_file={config}"])
         torch.cuda.synchronize()
     finally:
@@ -2056,7 +2095,6 @@ def phase_finetune_profile(task, batch):
     from torch.profiler import ProfilerActivity, profile
 
     from mmt_tpu_torch.models import DropoutRngs
-    from mmt_tpu_torch.ops import fused_attention as fa
     from mmt_tpu_torch.train.optimizer import create_optimizer
     from mmt_tpu_torch.train.tasks import batch_to_device
     from mmt_tpu_torch.train.train_state import TrainState
@@ -2084,49 +2122,69 @@ def phase_finetune_profile(task, batch):
     task.model.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
 
-    # The two kernels alone at this shape, with dropout 0.1 as in training.
+    forward, backward = kernels_at(batch["lengths"].tolist(), DROPOUT, seed=31)
+    forward["kernel_ms_per_call_in_step"] = fwd_in_step
+    backward["kernel_ms_per_call_in_step"] = bwd_in_step
     lengths = batch["lengths"].tolist()
-    q, k, v, table, geo, lens = attention_inputs(lengths, seed=31, seq_len=CLI_SEQ)
+    emit({"phase": "finetune_profile", "batch": len(lengths), "seq_len": CLI_SEQ, "rate": DROPOUT,
+          **summary, "lengths_mean": float(np.mean(lengths)), "tiles": dense_tiles(lengths),
+          "forward": forward, "backward": backward})
+    check_kernels_at(forward, backward, len(lengths))
+    return forward, backward
+
+
+def kernels_at(lengths, rate, seed, backward=True):
+    """The forward kernel (and the backward kernel) at B = len(lengths),
+    S = CLI_SEQ with these lengths and this dropout rate: max errors against
+    the plain versions, the time alone (CUDA events around the wrapper),
+    the plain version's, SDPA handed the bias mask, the bound."""
+    from mmt_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, table, geo, lens = attention_inputs(lengths, seed=seed, seq_len=CLI_SEQ)
     seed = 20262
-    err_o, err_lse = kernel_errors((q, k, v, table, geo, lens), DROPOUT, seed)
+    err_o, err_lse = kernel_errors((q, k, v, table, geo, lens), rate, seed)
     fwd = lambda: fa.relative_attention_forward(q, k, v, table, geo, lens, "cuda",  # noqa: E731
-                                                DROPOUT, seed)
+                                                rate, seed)
     f_flops, f_bytes = forward_work(lengths, CLI_SEQ)
     forward = {"ms": cuda_ms(fwd, 20),
                "plain_ms": cuda_ms(lambda: fa.relative_attention_plain(
-                   q, k, v, table, geo, lens, DROPOUT, seed), 2),
+                   q, k, v, table, geo, lens, rate, seed), 2),
                "library_ms": cuda_ms(sdpa_with_bias(q, k, v, table, geo, lens), 10),
                "flops": f_flops, "bytes": f_bytes, "max_abs_err_o": err_o,
-               "max_abs_err_lse": err_lse, "kernel_ms_per_call_in_step": fwd_in_step}
+               "max_abs_err_lse": err_lse}
     forward["bound_ms"], forward["bound_by"] = bound_ms(f_flops, f_bytes)
+    if not backward:
+        del q, k, v
+        torch.cuda.empty_cache()
+        return forward, None
     o, lse = fwd()
     do = torch.from_numpy(np.random.default_rng(32).standard_normal(q.shape, np.float32)).cuda() \
         .to(torch.bfloat16)
     delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float()).contiguous()
     args = (q, k, v, do, lse, delta, table, geo, lens)
-    got = fa.relative_attention_backward(*args, "cuda", DROPOUT, seed)
+    got = fa.relative_attention_backward(*args, "cuda", rate, seed)
     torch.cuda.synchronize()
-    errs = grad_errors(got, fa.relative_attention_backward_plain(*args, DROPOUT, seed), lengths)
+    errs = grad_errors(got, fa.relative_attention_backward_plain(*args, rate, seed), lengths)
     del got
-    bwd = lambda: fa.relative_attention_backward(*args, "cuda", DROPOUT, seed)  # noqa: E731
+    bwd = lambda: fa.relative_attention_backward(*args, "cuda", rate, seed)  # noqa: E731
     b_flops, b_bytes = backward_flops(lengths), backward_bytes(lengths, CLI_SEQ)
     backward = {"ms": cuda_ms(bwd, 10),
                 "plain_ms": cuda_ms(lambda: fa.relative_attention_backward_plain(
-                    *args, DROPOUT, seed), 2),
+                    *args, rate, seed), 2),
                 "library_ms": sdpa_backward_ms(q, k, v, table, geo, lens, 5),
-                "flops": b_flops, "bytes": b_bytes, "errors": errs,
-                "kernel_ms_per_call_in_step": bwd_in_step}
+                "flops": b_flops, "bytes": b_bytes, "errors": errs}
     backward["bound_ms"], backward["bound_by"] = bound_ms(b_flops, b_bytes)
-    emit({"phase": "finetune_profile", "batch": len(lengths), "seq_len": CLI_SEQ, "rate": DROPOUT,
-          **summary, "lengths_mean": float(np.mean(lengths)), "tiles": dense_tiles(lengths),
-          "forward": forward, "backward": backward})
     del q, k, v, do, o, lse, delta, args
     torch.cuda.empty_cache()
-    if not (err_o <= O_BOUND and err_lse <= LSE_BOUND):
-        raise AssertionError(f"forward kernel disagrees with plain at B={len(lengths)}, "
-                             f"S={CLI_SEQ}: o {err_o} lse {err_lse}")
-    check_grad_errors(errs, f"backward at B={len(lengths)}, S={CLI_SEQ}")
     return forward, backward
+
+
+def check_kernels_at(forward, backward, batch):
+    if not (forward["max_abs_err_o"] <= O_BOUND and forward["max_abs_err_lse"] <= LSE_BOUND):
+        raise AssertionError(f"forward kernel disagrees with plain at B={batch}, S={CLI_SEQ}: "
+                             f"o {forward['max_abs_err_o']} lse {forward['max_abs_err_lse']}")
+    if backward is not None:
+        check_grad_errors(backward["errors"], f"backward at B={batch}, S={CLI_SEQ}")
 
 
 def phase_finetune_reference(root: Path, batch):
@@ -2184,6 +2242,516 @@ def phase_finetune_reference(root: Path, batch):
                              f"{kernel_err[worst_excess]} exceeds dense attention's "
                              f"{dense_err[worst_excess]} by more than {TRAIN_GRAD_BOUND}")
 
+
+# ------------------------------------------------- WIT pretraining from records
+
+# configs/exp_yamls/pretrain/wit/mlm_itm_2d.yaml from records: global batch
+# 4096 (2048 records matched at ratio 1) in micro-batches of 64, validation
+# at the last step on PR_EVAL_STEPS batches of 256.  The schedule is cut to
+# the steps that measure something: with N loader processes the first N
+# batches arrive together after the shuffle buffers fill, so a run takes
+# N + 1 steps (one steady step after them), and 2 with the loader in the
+# training process.
+PR_TRAIN_FILES, PR_RECORDS_PER_FILE, PR_VAL_RECORDS = 8, 512, 512
+PR_EVAL_BATCH, PR_EVAL_STEPS = 256, 2
+PR_PROFILE_ROWS = 1024  # a no-shuffle batch of the records, tiled to 4096 rows
+PR_REF_RECORDS = 64  # 224 x 224 images (ship_raw_images takes no resize)
+PR_IMAGE_SIZES = ((192, 256), (256, 192), (200, 300))  # (height, width), resized to 224
+PR_IMAGES_PER_FILE = 128  # distinct PNGs per record file, cycled
+# The loss of a micro-batch, kernels against dense attention: a mean of
+# ~2000 cross-entropy terms over bf16 logits.
+LOSS_REL_BOUND = 1e-2
+# Batches of host memory one loader process may hold: its queue (4, the
+# default ``prefetch_per_worker``) and, in the process, the ~3 matched
+# batches its stream's shuffle buffer still views, the batch being stacked
+# and the one being copied out (``data/prefetch.py``).
+WORKER_BATCHES_HELD = 9
+# Share of the host's available memory the loader processes may take.
+WORKER_MEMORY_SHARE = 0.6
+# Share of a kernel's launches a one-step trace must record (the profiler
+# dropped 1 of 768 forward calls in a 64-micro-batch step).
+TRACE_MIN_SHARE = 0.99
+
+
+def records_steps(num_workers: int) -> int:
+    return num_workers + 1 if num_workers else 2
+
+
+def smooth_image(rng, height, width):
+    """A seeded smooth uint8 pattern: a linear gradient per channel
+    (wrapping at 256), which PNG compresses to ~2 KB."""
+    y, x = np.mgrid[0:height, 0:width]
+    slope = rng.integers(-3, 4, (3, 2))
+    offset = rng.integers(0, 256, 3)
+    return np.stack([(slope[c, 0] * x + slope[c, 1] * y + offset[c]) % 256 for c in range(3)],
+                    -1).astype(np.uint8)
+
+
+def write_wit_records(path: Path, n: int, seed: int, sizes=PR_IMAGE_SIZES) -> str:
+    """Seeded WIT-style records: a smooth PNG image (PR_IMAGES_PER_FILE
+    distinct ones cycled, their sizes cycling through ``sizes``),
+    ``canonical_doc_id`` (two records a page) and the attribution and
+    reference captions, 8-40 words each."""
+    import io
+
+    from PIL import Image
+
+    from mmt_tpu_torch.data.tfrecord import TFRecordWriter, build_example
+
+    rng = np.random.default_rng(seed)
+    images = []
+    for j in range(min(n, PR_IMAGES_PER_FILE)):
+        buf = io.BytesIO()
+        Image.fromarray(smooth_image(rng, *sizes[j % len(sizes)])).save(buf, format="PNG")
+        images.append(buf.getvalue())
+    words = np.asarray(CLI_WORD_LIST)
+    with TFRecordWriter(str(path)) as w:
+        for i in range(n):
+            att, ref = (" ".join(rng.choice(words, size=int(rng.integers(8, 41)))).encode()
+                        for _ in range(2))
+            w.write(build_example({"image_data": [images[i % len(images)]],
+                                   "canonical_doc_id": [f"wit{seed}_{i // 2}".encode()],
+                                   "caption_attribution_description": [att],
+                                   "caption_reference_description": [ref]}))
+    return str(path)
+
+
+def wit_records_experiment(root: Path, num_workers: int = 0, train_steps: int = 2,
+                           attention_impl="pallas") -> dict:
+    """configs/exp_yamls/pretrain/wit/mlm_itm_2d.yaml as nested overrides of
+    mmt/pretraining (written out as JSON text) with its placeholders filled
+    and only its schedule cut: ``train_steps`` steps, validation at the last
+    on PR_EVAL_STEPS batches, one-step windows; ``num_workers`` loader
+    processes when not 0."""
+    data = {"seed": 128, "cycle_length": 8, "deterministic": True,
+            "vocab_filename": str(root / "vocab.txt"), "max_seq_len": TRAIN_SEQ,
+            "image_data_field": "image_data", "image_key_field": "canonical_doc_id",
+            "text_special_token_field_dict": '{"caption_attribution_description": "[ATT]",'
+                                             ' "caption_reference_description":"[REF]"}',
+            "tasks": "mlm,itm", "mpp_fraction_to_mask": 0.0, "relative_att_num_core_layers": 1}
+    workers = {"num_workers": num_workers} if num_workers else {}
+    return {
+        "task": {
+            "model": {
+                "encoder": {"type": "mmt", "mmt": {
+                    "relative_att_num_core_layers": 1, "relative_pos_max_distance": 12,
+                    "relative_vocab_size": 49, "attention_impl": attention_impl,
+                    "compute_dtype": "bfloat16"}},
+                "cls_heads": [{"inner_dim": 768, "num_classes": 2, "name": "itm"}]},
+            "train_data": {**data, "input_path": str(root / "train-*.tfrecord"),
+                           "is_training": True, "global_batch_size": TRAIN_GLOBAL,
+                           "use_rand_aug": True, **workers},
+            "validation_data": {**data, "input_path": str(root / "val.tfrecord"),
+                                "is_training": False, "global_batch_size": PR_EVAL_BATCH}},
+        "trainer": {"checkpoint_interval": 1000, "max_to_keep": 32, "steps_per_loop": 1,
+                    "summary_interval": 1, "train_steps": train_steps,
+                    "validation_interval": train_steps, "validation_steps": PR_EVAL_STEPS,
+                    "micro_batch_size": TRAIN_MICRO,
+                    "optimizer_config": {
+                        "polynomial": {"initial_learning_rate": 0.0005, "decay_steps": 20000},
+                        "warmup": {"warmup_steps": 2000}}}}
+
+
+def host_memory_used() -> int:
+    """Bytes of the host's memory in use (MemTotal - MemAvailable): the
+    processes and the shared-memory blocks queued between them."""
+    with open("/proc/meminfo") as f:
+        info = {line.split(":")[0]: int(line.split()[1]) * 1024 for line in f}
+    return info["MemTotal"] - info["MemAvailable"]
+
+
+class HostMemory:
+    """Peak of ``host_memory_used`` while the block runs, sampled every
+    ``interval`` seconds from a thread, and its value at the start."""
+
+    def __init__(self, interval: float = 0.25):
+        import threading
+
+        self.interval, self.start_gb, self.peak_gb = interval, 0.0, 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def __enter__(self):
+        self.start_gb = self.peak_gb = host_memory_used() / 1e9
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+    def _run(self):
+        while not self._stop.wait(self.interval):
+            self.peak_gb = max(self.peak_gb, host_memory_used() / 1e9)
+
+
+def pretrain_batch_bytes(data_cfg) -> int:
+    """Host bytes of one training batch of the records experiment (its
+    patch vectors; the rest is < 1%)."""
+    return data_cfg.global_batch_size * data_cfg.num_patches * 3 * data_cfg.patch_size**2 * 4
+
+
+def choose_workers(batch_bytes: int):
+    """Loader processes for the worker run: as many as the host's cores
+    allow (two kept for the training process and the system) and as its
+    available memory allows at WORKER_BATCHES_HELD batches a process within
+    WORKER_MEMORY_SHARE of it; with the figures it came from."""
+    import os
+
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    cores = len(os.sched_getaffinity(0))
+    by_memory = int(WORKER_MEMORY_SHARE * avail // (WORKER_BATCHES_HELD * batch_bytes))
+    workers = max(1, min(cores - 2, by_memory))
+    return workers, {"cores": cores, "mem_available_gb": avail / 1e9, "by_memory": by_memory,
+                     "batch_gb": batch_bytes / 1e9, "batches_held_per_worker": WORKER_BATCHES_HELD}
+
+
+VALIDATION_KEYS = ("mlm_loss", "mpp_loss", "itm_loss", "mlm_accuracy", "mpp_accuracy",
+                   "itm_accuracy", "total_loss")
+
+
+def run_records_cli(root: Path, num_workers: int, layers: int) -> dict:
+    """One ``cli.train.main`` run of the records experiment; its numbers,
+    launches and peak memory, checked."""
+    import shutil
+
+    steps = records_steps(num_workers)
+    config = root / f"wit_records_w{num_workers}.json"
+    config.write_text(json.dumps(wit_records_experiment(root, num_workers, steps)))
+    model_dir = root / f"pt_w{num_workers}"
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with HostMemory() as host:
+        t0 = time.perf_counter()
+        log = run_train_cli(config, model_dir, "mmt/pretraining")
+        run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    micro = TRAIN_GLOBAL // TRAIN_MICRO
+    expected = {"fwd": layers * (micro * steps + PR_EVAL_STEPS), "fwd_window": 0,
+                "bwd": layers * micro * steps, "bwd_window": 0}
+    if counts != expected:
+        raise AssertionError(f"records run ({num_workers} workers): launches {counts}, "
+                             f"expected {expected}")
+    for name in ("params.yaml", "train_summaries.jsonl", "validation_summaries.jsonl",
+                 str(steps)):
+        if not (model_dir / name).exists():
+            raise AssertionError(f"the records run wrote no {name}")
+    if (model_dir / "data_stream").exists() != (num_workers == 0):
+        raise AssertionError("only the in-process stream has a snapshot to write")
+    train_log = read_jsonl(model_dir / "train_summaries.jsonl")
+    val_log = read_jsonl(model_dir / "validation_summaries.jsonl")
+    if [r["step"] for r in train_log] != list(range(1, steps + 1)) \
+            or [r["step"] for r in val_log] != [steps]:
+        raise AssertionError(f"summaries at {[r['step'] for r in train_log]}, "
+                             f"{[r['step'] for r in val_log]}")
+    if not all(k in val_log[0] for k in VALIDATION_KEYS) or "auc" in val_log[0]:
+        raise AssertionError(f"validation metrics {sorted(val_log[0])}")
+    if not all(math.isfinite(v) for r in train_log + val_log for v in r.values()):
+        raise AssertionError(f"non-finite numbers: {train_log} {val_log}")
+    first_batch = [float(line.split("first batch after ")[1].split()[0])
+                   for line in log if "first batch after " in line]
+    shutil.rmtree(model_dir)
+    # Steady steps: after the first num_workers (whose batches arrive
+    # together after the fill) or, in process, after the first.
+    steady = train_log[max(1, num_workers):]
+    ms_step = float(np.mean([1e3 / r["steps_per_sec"] for r in steady]))
+    input_s = float(np.mean([r["input_seconds"] for r in steady]))
+    return {"num_workers": num_workers, "steps": steps, "run_seconds": run_s,
+            "first_batch_seconds": first_batch[0],
+            "first_step_ms": 1e3 / train_log[0]["steps_per_sec"],
+            "ms_per_step": [1e3 / r["steps_per_sec"] for r in train_log[1:]],
+            "steady_steps": [r["step"] for r in steady], "ms_per_steady_step": ms_step,
+            "examples_per_s": TRAIN_GLOBAL / (ms_step / 1e3),
+            "input_seconds_per_steady_step": input_s,
+            "loader_examples_per_s": TRAIN_GLOBAL / input_s if input_s else None,
+            "host_used_gb_at_start": host.start_gb, "peak_host_used_gb": host.peak_gb,
+            "peak_card_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+            "validation": val_log[0], "train": train_log}
+
+
+def loader_profile(data_cfg, records: int = 64) -> dict:
+    """cProfile of the loader's per-record work (decode with RandAugment,
+    then MPP and MLM masking) over ``records`` training records in this
+    process: seconds, and the functions with the most time of their own."""
+    import cProfile
+    import pstats
+
+    from mmt_tpu_torch.data.loaders import MmtPretrainLoader
+
+    loader = MmtPretrainLoader(data_cfg)
+    cursor = loader._record_iter(data_cfg.input_path, 0, 1, data_cfg.seed, True)
+    rng = np.random.default_rng(0)
+    loader._mask_example(loader._decode(next(cursor), rng, True), rng)  # imports, tables
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for _ in range(records):
+        loader._mask_example(loader._decode(next(cursor), rng, True), rng)
+    prof.disable()
+    seconds = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    own = sorted(((f"{Path(fn).name}:{line}({name})", tt) for (fn, line, name), (_, _, tt, _, _)
+                  in stats.items()), key=lambda kv: -kv[1])[:8]
+    return {"records": records, "seconds": seconds, "ms_per_record": seconds / records * 1e3,
+            "top_own_seconds": [[name, tt] for name, tt in own]}
+
+
+def phase_pretrain_records(root: Path):
+    """WIT pretraining from records through ``cli.train.main`` at full width,
+    with the loader in the training process and in N processes, and
+    validation alone.  Returns the launches of both runs, the task holding
+    seeded weights, its config and the runs' numbers."""
+    from mmt_tpu_torch.cli.train import build_experiment_config, make_eval_fn, parse_args
+    from mmt_tpu_torch.train.tasks import PretrainingTask
+    from mmt_tpu_torch.train.train_state import TrainState
+
+    t0 = time.perf_counter()
+    write_flickr_vocab(root)
+    for i in range(PR_TRAIN_FILES):
+        write_wit_records(root / f"train-{i:05d}-of-{PR_TRAIN_FILES:05d}.tfrecord",
+                          PR_RECORDS_PER_FILE, seed=100 + i)
+    write_wit_records(root / "val.tfrecord", PR_VAL_RECORDS, seed=99)
+    setup_s = time.perf_counter() - t0
+    (root / "wit_records.json").write_text(json.dumps(wit_records_experiment(root)))
+    cfg = build_experiment_config(parse_args([
+        "--experiment=mmt/pretraining", "--model_dir=unused",
+        f"--config_file={root / 'wit_records.json'}"]))
+    layers = cfg.task.model.encoder.mmt.num_hidden_layers
+    workers, workers_from = choose_workers(pretrain_batch_bytes(cfg.task.train_data))
+
+    runs = [run_records_cli(root, n, layers) for n in (0, workers)]
+    decode_profile = loader_profile(cfg.task.train_data)
+
+    # Validation alone (records -> metrics, 2 batches of 256), on seeded
+    # weights: the runs' checkpoints are gone.
+    task = PretrainingTask(cfg.task, cfg.trainer, seed=3)
+    eval_fn = make_eval_fn(task, cfg.task.validation_data, PR_EVAL_STEPS, task.device)
+    state = TrainState(step=0, model=task.model, optimizer=None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eval_metrics = eval_fn(state)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    if sorted(eval_metrics) != sorted(VALIDATION_KEYS) or not all(
+            math.isfinite(v) for v in eval_metrics.values()):
+        raise AssertionError(f"validation alone: {eval_metrics}")
+    eval_examples = PR_EVAL_STEPS * PR_EVAL_BATCH
+    emit({"phase": "pretrain_records", "global_batch": TRAIN_GLOBAL, "micro_batch": TRAIN_MICRO,
+          "seq_len": TRAIN_SEQ, "train_records": PR_TRAIN_FILES * PR_RECORDS_PER_FILE,
+          "val_records": PR_VAL_RECORDS, "setup_seconds": setup_s,
+          "workers": workers, "workers_from": workers_from, "runs": runs,
+          "loader_profile": decode_profile, "eval_examples": eval_examples, "eval_seconds": eval_s,
+          "eval_examples_per_s": eval_examples / eval_s, "eval_metrics": eval_metrics})
+    launches = {k: sum(r["launches"][k] for r in runs) for k in ("fwd", "bwd")}
+    return launches, task, cfg, runs
+
+
+def micro_batch_rows(batch):
+    """TRAIN_MICRO rows of ``profile_batch``: half positives, half their
+    negatives."""
+    half = TRAIN_MICRO // 2
+    rows = np.r_[0:half, PR_PROFILE_ROWS // 2:PR_PROFILE_ROWS // 2 + half]
+    return {k: np.asarray(v)[rows] for k, v in batch.items()}
+
+
+def profile_batch(cfg):
+    """A training batch of 4096 rows for the device-side phases: a
+    no-shuffle batch of PR_PROFILE_ROWS rows of the training records
+    (positives, then their negatives), four times over."""
+    import dataclasses
+
+    from mmt_tpu_torch.data.loaders import MmtPretrainLoader
+
+    data_cfg = dataclasses.replace(cfg.task.train_data, is_training=False,
+                                   global_batch_size=PR_PROFILE_ROWS)
+    rows = next(MmtPretrainLoader(data_cfg).load())
+    reps = TRAIN_GLOBAL // PR_PROFILE_ROWS
+    return {k: np.concatenate([v] * reps) for k, v in rows.items()}
+
+
+def phase_pretrain_records_profile(task, cfg, batch, runs):
+    """One optimizer step (64 micro-batches of 64) of a records batch
+    (``profile_batch``) already on the card under the profiler: device time
+    by kernel group, idle share, the attention kernels per call, and the
+    host's share of the runs' steady steps.  Then the kernels at this
+    slice's shapes with the records' lengths: K1 and K3 at the first
+    micro-batch (B=64, rate 0.1), K1 at a validation batch (B=256, rate 0),
+    each against its plain version, SDPA and the bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmt_tpu_torch.data.loaders import MmtPretrainLoader
+    from mmt_tpu_torch.models import DropoutRngs
+    from mmt_tpu_torch.train.optimizer import create_optimizer
+    from mmt_tpu_torch.train.tasks import batch_to_device
+    from mmt_tpu_torch.train.train_state import TrainState
+
+    layers = cfg.task.model.encoder.mmt.num_hidden_layers
+    micro = TRAIN_GLOBAL // TRAIN_MICRO
+    optimizer = create_optimizer(cfg.trainer.optimizer_config, cfg.trainer.train_steps,
+                                 task.model)
+    state = TrainState.create(task.model, optimizer)
+    step = task.make_train_step(TRAIN_MICRO)
+    on_card = batch_to_device(batch, "cuda")
+    state, _ = step(state, on_card, DropoutRngs.for_step(0, 0, "cuda"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, on_card, DropoutRngs.for_step(0, 1, "cuda"))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    intervals = device_intervals(prof)
+    # A step's trace holds ~60000 kernels; the profiler may drop a few.
+    recorded = {name: sum(name in n for n, _, _ in intervals) for name in (FWD_KERNEL, BWD_KERNEL)}
+    fwd_in_step = kernel_calls_ms(intervals, FWD_KERNEL, layers * micro, TRACE_MIN_SHARE)
+    bwd_in_step = kernel_calls_ms(intervals, BWD_KERNEL, layers * micro, TRACE_MIN_SHARE)
+    summary = trace_summary(intervals, wall_ms, {
+        "rel_attention_fwd": ("rel_attention_fwd",), "rel_attention_bwd": ("rel_attention_bwd",),
+        "cublas": CUBLAS_TAGS})
+    del state, optimizer, on_card, metrics, prof
+    task.model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    host_share = {f"workers_{r['num_workers']}": 1 - summary["device_busy_ms"]
+                  / r["ms_per_steady_step"] for r in runs}
+
+    lengths = micro_batch_rows(batch)["lengths"].tolist()
+    forward, backward = kernels_at(lengths, DROPOUT, seed=41)
+    forward["kernel_ms_per_call_in_step"] = fwd_in_step
+    backward["kernel_ms_per_call_in_step"] = bwd_in_step
+    val_lengths = next(MmtPretrainLoader(cfg.task.validation_data).load())["lengths"].tolist()
+    val_forward, _ = kernels_at(val_lengths, 0.0, seed=43, backward=False)
+    emit({"phase": "pretrain_records_profile", "global_batch": TRAIN_GLOBAL,
+          "micro_batches": micro, **summary, "host_share_of_step": host_share,
+          "kernel_calls_recorded": recorded, "kernel_calls_launched": layers * micro,
+          "lengths_mean": float(np.mean(batch["lengths"])),
+          "micro_batch": {"lengths_mean": float(np.mean(lengths)), "tiles": dense_tiles(lengths),
+                          "rate": DROPOUT, "forward": forward, "backward": backward},
+          "validation_batch": {"batch": len(val_lengths),
+                               "lengths_mean": float(np.mean(val_lengths)),
+                               "tiles": dense_tiles(val_lengths), "rate": 0.0,
+                               "forward": val_forward}})
+    check_kernels_at(forward, backward, len(lengths))
+    check_kernels_at(val_forward, None, len(val_lengths))
+    return forward, backward, val_forward
+
+
+def logits_errors(got, want):
+    """ITM logits: max abs error against 4 bf16 spacings at the largest
+    logit (phase reference); MLM and MPP logits: relative Frobenius error
+    against SEQUENCE_REL_BOUND (the encoder output's bound).  Returns the
+    errors and the names outside their bounds."""
+    out, failing = {}, []
+    err = (got["itm_logits"] - want["itm_logits"]).abs().max().item()
+    bound = 4 * 2.0 ** (math.floor(math.log2(want["itm_logits"].abs().max().item())) - 7)
+    out["itm"] = {"max_abs_err": err, "bound": bound}
+    if not err <= bound:
+        failing.append("itm")
+    for head in ("mlm", "mpp"):
+        g, w = got[f"{head}_logits"].float(), want[f"{head}_logits"].float()
+        rel = ((g - w).norm() / w.norm()).item()
+        out[head] = {"rel_frobenius_err": rel, "bound": SEQUENCE_REL_BOUND}
+        if not rel <= SEQUENCE_REL_BOUND:
+            failing.append(head)
+    return out, failing
+
+
+def phase_pretrain_records_reference(root: Path, batch):
+    """(1) A micro-batch of 64 rows of the records (``micro_batch_rows``),
+    kernels against dense attention (hidden dropout 0, attention dropout 0.1 from the same
+    seeds): the loss within LOSS_REL_BOUND and every parameter tensor's
+    gradient within TRAIN_GRAD_BOUND (train_reference's rule), or, where a
+    tensor falls outside, the kernels' error against dense attention in
+    float32 at most TRAIN_GRAD_BOUND above dense bf16 attention's
+    (finetune_reference's rule).  (2) One batch of MLM + MPP + ITM at MPP
+    0.5, RandAugment off, from 224 x 224 records, in host mode and in
+    ``ship_raw_images`` mode: the MLM, MPP and ITM logits on the card of the
+    two modes against each other, and against dense attention."""
+    from mmt_tpu_torch.cli.train import build_experiment_config, parse_args
+    from mmt_tpu_torch.configs import override
+    from mmt_tpu_torch.data.loaders import MmtPretrainLoader
+    from mmt_tpu_torch.models import DropoutRngs
+    from mmt_tpu_torch.train.tasks import PretrainingTask, batch_to_device
+
+    def task_for(impl, dtype="bfloat16", hidden_dropout=0.0, attention_dropout=DROPOUT):
+        path = root / "wit_records.json"
+        cfg = build_experiment_config(parse_args(["--experiment=mmt/pretraining",
+                                                  "--model_dir=unused", f"--config_file={path}"]))
+        cfg = override(cfg, {"task": {"model": {"encoder": {"mmt": {
+            "attention_impl": impl, "compute_dtype": dtype, "hidden_dropout_prob": hidden_dropout,
+            "attention_probs_dropout_prob": attention_dropout}}}}})
+        return PretrainingTask(cfg.task, cfg.trainer, seed=7)
+
+    micro = micro_batch_rows(batch)
+    grads, losses = {}, {}
+    for name, impl, dtype in (("kernels", "pallas", "bfloat16"), ("dense", "xla", "bfloat16"),
+                              ("dense_fp32", "xla", "float32")):
+        task = task_for(impl, dtype)
+        loss, _ = task.compute_loss(batch_to_device(micro, task.device),
+                                    DropoutRngs(host=torch.Generator().manual_seed(9)))
+        loss.backward()
+        losses[name] = loss.item()
+        grads[name] = {n: p.grad for n, p in task.model.named_parameters()}
+        del task, loss
+        torch.cuda.empty_cache()
+    worst, worst_name, n_zero, errors = gradient_errors(grads["kernels"], grads["dense"])
+    _, _, _, kernel_err = gradient_errors(grads["kernels"], grads["dense_fp32"])
+    _, _, _, dense_err = gradient_errors(grads["dense"], grads["dense_fp32"])
+    del grads
+    outside = [n for n, e in errors.items() if e > TRAIN_GRAD_BOUND]
+    excess = {n: kernel_err[n] - dense_err[n] for n in outside}
+    loss_err = abs(losses["kernels"] - losses["dense"]) / abs(losses["dense"])
+    top = sorted(errors.items(), key=lambda kv: -kv[1])[:5]
+
+    # (2) MPP on 224 x 224 records, host mode against raw mode.
+    write_wit_records(root / "ref.tfrecord", PR_REF_RECORDS, seed=98, sizes=((224, 224),))
+    data = {**wit_records_experiment(root)["task"]["validation_data"],
+            "input_path": str(root / "ref.tfrecord"), "tasks": "mlm,mpp,itm",
+            "mpp_fraction_to_mask": 0.5, "use_rand_aug": False, "global_batch_size": PR_REF_RECORDS}
+    from mmt_tpu_torch.configs.data import MmtPretrainDataConfig
+
+    modes = {raw: next(MmtPretrainLoader(MmtPretrainDataConfig(
+        **{**data, "ship_raw_images": raw})).load()) for raw in (False, True)}
+    if not modes[True]["patch_mask"].any():
+        raise AssertionError("the MPP batch masks no patch")
+    logits = {}
+    for impl in ("pallas", "xla"):
+        task = task_for(impl, attention_dropout=0.0)
+        for raw, mpp_batch in modes.items():
+            with torch.inference_mode():
+                _, (outputs, _) = task.compute_loss(batch_to_device(mpp_batch, task.device),
+                                                    deterministic=True)
+            logits[(impl, raw)] = {k: outputs[k] for k in ("mlm_logits", "mpp_logits",
+                                                           "itm_logits")}
+        del task
+        torch.cuda.empty_cache()
+    raw_vs_host, fail_modes = logits_errors(logits[("pallas", True)], logits[("pallas", False)])
+    raw_vs_dense, fail_dense = logits_errors(logits[("pallas", True)], logits[("xla", True)])
+    emit({"phase": "pretrain_records_reference", "micro_batch": TRAIN_MICRO,
+          "lengths_mean": float(np.mean(micro["lengths"])), "attention_dropout": DROPOUT,
+          "loss": losses, "loss_rel_err": loss_err, "loss_bound": LOSS_REL_BOUND,
+          "tensors": len(errors) + n_zero, "zero_tensors": n_zero,
+          "max_rel_frobenius_err_vs_dense": worst, "worst_tensor": worst_name,
+          "largest_errors_vs_dense": top, "bound": TRAIN_GRAD_BOUND,
+          "outside_bound_vs_dense": outside,
+          "excess_over_dense_vs_fp32": excess,
+          "max_dense_vs_fp32": max(dense_err.values()),
+          "max_kernels_vs_fp32": max(kernel_err.values()),
+          "mpp_batch": {"examples": len(modes[True]["lengths"]),
+                        "masked_patches": int(modes[True]["patch_mask"].sum()),
+                        "raw_vs_host": raw_vs_host, "raw_vs_dense": raw_vs_dense}})
+    if not loss_err <= LOSS_REL_BOUND:
+        raise AssertionError(f"loss {losses['kernels']} against dense {losses['dense']}")
+    bad = [n for n, e in excess.items() if not e <= TRAIN_GRAD_BOUND]
+    if bad:
+        raise AssertionError(f"{bad}: gradients outside both rules")
+    if fail_modes or fail_dense:
+        raise AssertionError(f"MPP batch logits outside their bounds: raw vs host {fail_modes}, "
+                             f"raw vs dense {fail_dense}")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2210,10 +2778,11 @@ def main() -> int:
     entry["max_abs_err"] = max(entry["max_abs_err"], phase_kernel_dropout())
     bwd_entry = phase_kernel_bwd()
     task, cfg, train_launches = phase_train()
-    # The forward runs on four main paths: retrieval (phase main),
-    # pretraining (phase train), the predict CLI (phase predict_cli) and
-    # finetuning (phase finetune), both added below; the backward on the
-    # second and the fourth.
+    # The forward runs on five main paths: retrieval (phase main),
+    # pretraining (phase train), the predict CLI (phase predict_cli),
+    # finetuning (phase finetune) and pretraining from records (phase
+    # pretrain_records), the last three added below; the backward on the
+    # second, the fourth and the fifth.
     entry["launches"] = launches + train_launches["fwd"]
     bwd_entry["launches"] = train_launches["bwd"]
     phase_train_profile(task, cfg, fwd_alone["train"], bwd_entry["ms"])
@@ -2239,6 +2808,16 @@ def main() -> int:
         del task
         torch.cuda.empty_cache()
         phase_finetune_reference(Path(tmp), ft_batch)
+        root = Path(tmp, "wit")
+        root.mkdir()
+        pr_launches, task, pr_cfg, pr_runs = phase_pretrain_records(root)
+        entry["launches"] += pr_launches["fwd"]
+        bwd_entry["launches"] += pr_launches["bwd"]
+        pr_batch = profile_batch(pr_cfg)
+        phase_pretrain_records_profile(task, pr_cfg, pr_batch, pr_runs)
+        del task
+        torch.cuda.empty_cache()
+        phase_pretrain_records_reference(root, pr_batch)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     kernels = {"kernels": [entry, bwd_entry, win_entry, win_bwd_entry, *probe_entries]}
     print(json.dumps(kernels), flush=True)

@@ -14,24 +14,31 @@ and the best-checkpoint export.
 
 What runs:
 
-* ``--experiment=mmt/classification`` (ITM finetuning) with record inputs
-  through ``MmtClassificationLoader``, in the modes ``train``,
-  ``train_and_eval`` and ``eval`` (the latest checkpoint in
-  ``--model_dir`` if there is one, else the initial or warm-started
-  parameters);
-* ``--experiment=mmt/pretraining --mode=train`` with
-  ``task.train_data.input_path: dummy``;
+* ``--experiment=mmt/pretraining`` (MLM + MPP + ITM) with record inputs
+  through ``MmtPretrainLoader``, or ``task.train_data.input_path: dummy``
+  (no validation then), and ``--experiment=mmt/classification`` (ITM
+  finetuning) with record inputs through ``MmtClassificationLoader``, each
+  in the modes ``train``, ``train_and_eval`` and ``eval`` (the latest
+  checkpoint in ``--model_dir`` if there is one, else the initial or
+  warm-started parameters).  Validation reports the metric pairs' means,
+  and for classification ``auc``.
+* ``train_data.num_workers``: 0 runs the loader in this process as a
+  checkpointable ``TrainStream`` (a resumed run continues the input stream
+  where it stopped); N > 0 runs N loader processes
+  (``data.prefetch.multiprocess_batches``), whose stream has no
+  ``state()``, so a resumed run restarts it from its beginning, as the JAX
+  package's does.
 * ``task.init_checkpoint``: a checkpoint directory this package wrote.  A
   classification model takes the ``encoder.*`` tensors and the heads whose
   names match (``restore_encoder_and_heads``) and keeps the rest of its
   fresh initialisation; a pretraining model takes the whole checkpoint.
 
 Everything else raises NotImplementedError naming what is missing: TF and
-ViT checkpoints, ``continuous_train_and_eval``, pretraining from records
-(and its validation), ``num_workers > 0``, and pipeline, model-parallel
-or ZeRO runtimes.  ``--lenient_warm_start`` (it concerns TF checkpoints)
-and ``--pretrain_model_dir`` (for ``continuous_train_and_eval``) are
-accepted so that the JAX package's command lines parse.
+ViT checkpoints, ``continuous_train_and_eval``, and pipeline,
+model-parallel or ZeRO runtimes.  ``--lenient_warm_start`` (it concerns TF
+checkpoints) and ``--pretrain_model_dir`` (for
+``continuous_train_and_eval``) are accepted so that the JAX package's
+command lines parse.
 """
 
 from __future__ import annotations
@@ -85,27 +92,15 @@ def _check_ported(args, cfg) -> None:
         raise NotImplementedError(
             "--mode=continuous_train_and_eval: continuous finetuning "
             "(train/continuous.py) is not ported yet")
-    if isinstance(cfg.task, PretrainingTaskConfig):
-        if args.mode == "eval" or (args.mode == "train_and_eval" and _has_validation(cfg)):
-            raise NotImplementedError(
-                f"--mode={args.mode} for pretraining: validation needs the pretraining "
-                f"record loader (MmtPretrainLoader), not ported yet")
-        if cfg.task.train_data.input_path != "dummy":
-            raise NotImplementedError(
-                f"train_data.input_path={cfg.task.train_data.input_path!r}: the "
-                f"pretraining record loaders (MmtPretrainLoader, masking) are not "
-                f"ported yet; only 'dummy' runs")
-    elif not isinstance(cfg.task.train_data, MmtClassificationDataConfig):
+    pretraining = isinstance(cfg.task, PretrainingTaskConfig)
+    if not pretraining and not isinstance(cfg.task.train_data, MmtClassificationDataConfig):
         raise NotImplementedError(
             f"{args.experiment}: training on {type(cfg.task.train_data).__name__} is not "
             f"ported (the retrieval experiment runs through cli.predict)")
-    elif not cfg.task.train_data.input_path:
+    if not cfg.task.train_data.input_path:
         # An empty pattern matches no file, and a repeating stream would
         # then wait for a record forever.
         raise ValueError("task.train_data.input_path is empty: name the training records")
-    if cfg.task.train_data.num_workers > 0:
-        raise NotImplementedError("train_data.num_workers > 0: the multiprocess loader "
-                                  "(data/prefetch.py) is not ported yet")
     rt = cfg.runtime
     if rt.num_pipeline_stages > 1 or rt.num_model_parallel > 1 or rt.zero_sharded_optimizer:
         raise NotImplementedError("pipeline, model-parallel and ZeRO runtimes are not ported yet")
@@ -145,13 +140,15 @@ def warm_start(task, path: str) -> int:
 
 def make_eval_fn(task, val_cfg, validation_steps: int, device):
     """state -> validation metrics: the metric pairs summed over
-    ``validation_steps`` batches (-1: the whole split) and ``auc``, the
-    AUC-PR of the probabilities against the labels and their weights."""
-    from mmt_tpu_torch.data.loaders import MmtClassificationLoader
+    ``validation_steps`` batches (-1: the whole split) and, for
+    classification, ``auc``, the AUC-PR of the probabilities against the
+    labels and their weights."""
+    from mmt_tpu_torch.data.loaders import MmtClassificationLoader, MmtPretrainLoader
     from mmt_tpu_torch.eval.metrics_host import auc_pr
-    from mmt_tpu_torch.train.tasks import batch_to_device
+    from mmt_tpu_torch.train.tasks import PretrainingTask, batch_to_device
 
-    loader = MmtClassificationLoader(val_cfg)
+    pretraining = isinstance(task, PretrainingTask)
+    loader = (MmtPretrainLoader if pretraining else MmtClassificationLoader)(val_cfg)
     eval_step = task.make_eval_step()
 
     def eval_fn(state):
@@ -160,13 +157,15 @@ def make_eval_fn(task, val_cfg, validation_steps: int, device):
         for i, batch in enumerate(loader.load()):
             if validation_steps > 0 and i >= validation_steps:
                 break
-            metrics, batch_probs = eval_step(batch_to_device(batch, device))
+            metrics = eval_step(batch_to_device(batch, device))
+            if not pretraining:
+                metrics, batch_probs = metrics
+                probs.append(batch_probs.cpu().numpy())
+                labels.append(batch["label_ids"])
+                weights.append(batch["label_weights"])
             for name, (total, count) in metrics.items():
                 prev = sums.get(name, (0.0, 0.0))
                 sums[name] = (prev[0] + float(total), prev[1] + float(count))
-            probs.append(batch_probs.cpu().numpy())
-            labels.append(batch["label_ids"])
-            weights.append(batch["label_weights"])
         result = {n: (t / c if c else 0.0) for n, (t, c) in sums.items()}
         if probs:
             result["auc"] = auc_pr(np.concatenate(labels), np.concatenate(probs),
@@ -174,6 +173,30 @@ def make_eval_fn(task, val_cfg, validation_steps: int, device):
         return result
 
     return eval_fn
+
+
+def train_batches(loader_cls, data_cfg):
+    """The training batches: a checkpointable ``TrainStream`` behind
+    ``ResumablePrefixed`` with ``num_workers`` 0, else the worker
+    processes' round-robin stream (no ``state()``), its first batch pulled
+    either way; returns (iterator, the worker stream or None, to close)."""
+    import itertools
+    import time
+
+    from mmt_tpu_torch.data.loaders import ResumablePrefixed
+    from mmt_tpu_torch.data.prefetch import LoaderShard, multiprocess_batches
+
+    t0 = time.perf_counter()
+    if data_cfg.num_workers <= 0:
+        stream, workers = ResumablePrefixed(loader_cls(data_cfg).stream()), None
+        stream.prime()
+    else:
+        workers = multiprocess_batches(LoaderShard(loader_cls, data_cfg),
+                                       num_workers=data_cfg.num_workers)
+        stream = itertools.chain([next(workers)], workers)
+    logging.info("first batch after %.3f s (%d loader processes)",
+                 time.perf_counter() - t0, data_cfg.num_workers)
+    return stream, workers
 
 
 def main(argv=None):
@@ -187,13 +210,9 @@ def main(argv=None):
     from mmt_tpu_torch.configs.base import to_dict
     from mmt_tpu_torch.configs.experiments import PretrainingTaskConfig
     from mmt_tpu_torch.data.dummy import dummy_pretrain_batches
-    from mmt_tpu_torch.data.loaders import MmtClassificationLoader, ResumablePrefixed
+    from mmt_tpu_torch.data.loaders import MmtClassificationLoader, MmtPretrainLoader
     from mmt_tpu_torch.device import resolve_device
-    from mmt_tpu_torch.train.checkpoint import CheckpointManager
-    from mmt_tpu_torch.train.loop import run_training
-    from mmt_tpu_torch.train.optimizer import create_optimizer
-    from mmt_tpu_torch.train.tasks import ClassificationTask, PretrainingTask, batch_to_device
-    from mmt_tpu_torch.train.train_state import TrainState
+    from mmt_tpu_torch.train.tasks import ClassificationTask, PretrainingTask
 
     device = resolve_device(args.device)
     os.makedirs(args.model_dir, exist_ok=True)
@@ -202,18 +221,35 @@ def main(argv=None):
             json.dump(to_dict(cfg), f, indent=2, sort_keys=True)
 
     data_cfg = cfg.task.train_data
-    if isinstance(cfg.task, PretrainingTaskConfig):
-        task = PretrainingTask(cfg.task, cfg.trainer, device=device, seed=args.seed)
-        train_iter = dummy_pretrain_batches(data_cfg)
-        train_step = task.make_train_step(cfg.trainer.micro_batch_size,
-                                          cfg.trainer.grad_accum_dtype)
+    pretraining = isinstance(cfg.task, PretrainingTaskConfig)
+    # The first batch is pulled before the model is built, as the JAX
+    # package does; ResumablePrefixed keeps the stream's snapshot right.
+    if pretraining and data_cfg.input_path == "dummy":
+        train_iter, workers = dummy_pretrain_batches(data_cfg), None
     else:
-        # The first batch is pulled before the model is built, as the JAX
-        # package does; ResumablePrefixed keeps the stream's snapshot right.
-        train_iter = ResumablePrefixed(MmtClassificationLoader(data_cfg).stream())
-        train_iter.prime()
-        task = ClassificationTask(cfg.task, cfg.trainer, device=device, seed=args.seed)
-        train_step = task.make_train_step()
+        train_iter, workers = train_batches(
+            MmtPretrainLoader if pretraining else MmtClassificationLoader, data_cfg)
+    try:
+        if pretraining:
+            task = PretrainingTask(cfg.task, cfg.trainer, device=device, seed=args.seed)
+            train_step = task.make_train_step(cfg.trainer.micro_batch_size,
+                                              cfg.trainer.grad_accum_dtype)
+        else:
+            task = ClassificationTask(cfg.task, cfg.trainer, device=device, seed=args.seed)
+            train_step = task.make_train_step()
+        return _run(args, cfg, task, train_step, train_iter, device)
+    finally:
+        if workers is not None:
+            workers.close()  # stops the loader processes
+
+
+def _run(args, cfg, task, train_step, train_iter, device):
+    from mmt_tpu_torch.train.checkpoint import CheckpointManager
+    from mmt_tpu_torch.train.loop import run_training
+    from mmt_tpu_torch.train.optimizer import create_optimizer
+    from mmt_tpu_torch.train.tasks import batch_to_device
+    from mmt_tpu_torch.train.train_state import TrainState
+
     if cfg.task.init_checkpoint:
         warm_start(task, cfg.task.init_checkpoint)
 

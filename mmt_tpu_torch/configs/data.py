@@ -2,10 +2,10 @@
 ``mmt_tpu/configs/data.py`` so that the JAX package's yaml loads here to
 the same values.
 
-Record loaders: classification and retrieval
-(``mmt_tpu_torch.data.loaders``).  Pretraining runs on ``input_path:
-dummy`` only (``mmt_tpu_torch.data.dummy``); its record loader is not
-ported yet.
+Record loaders: pretraining, classification and retrieval
+(``mmt_tpu_torch.data.loaders``); pretraining also runs on ``input_path:
+dummy`` (``mmt_tpu_torch.data.dummy``).  ``num_workers > 0`` runs the
+training loader in that many processes (``mmt_tpu_torch.data.prefetch``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Input pipelines of the port: TFRecord IO, example assembly, the retrieval
-loader, and the dummy pretraining stream."""
+"""Input pipelines of the port: TFRecord IO, example assembly, the
+pretraining, classification and retrieval loaders, the multiprocess
+prefetch, and the dummy pretraining stream."""
 
 from mmt_tpu_torch.data.tfrecord import (  # noqa: F401
     TFRecordReader,

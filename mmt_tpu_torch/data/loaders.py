@@ -1,18 +1,24 @@
-"""Task dataloaders: classification (ITM finetuning) and retrieval.
+"""Task dataloaders: pretraining (MLM + MPP + ITM), classification (ITM
+finetuning) and retrieval.
 
-The port's own copy of the classification and retrieval side of
-``mmt_tpu/data/loaders.py`` (``_glob_shard``, ``_segment_ids``,
-``RecordCursor``, ``_BaseLoader``, ``MmtClassificationLoader``,
-``MmtRetrievalLoader``, ``TrainStream``, ``ResumablePrefixed``):
-host-side numpy pipelines (glob -> shard -> decode -> match -> batch)
-yielding dicts of numpy arrays that the training or prediction loop moves
-to its device.
+The port's own copy of ``mmt_tpu/data/loaders.py`` (``_glob_shard``,
+``_segment_ids``, ``RecordCursor``, ``_BaseLoader``, ``MmtPretrainLoader``,
+``MmtClassificationLoader``, ``MmtRetrievalLoader``, ``TrainStream``,
+``ResumablePrefixed``): host-side numpy pipelines (glob -> shard -> decode
+-> filter -> mask -> match -> batch) yielding dicts of numpy arrays that the
+training or prediction loop moves to its device.
 
 * No [S, S] side inputs: batches carry ``lengths`` (+ host-cheap
   ``segment_ids``); the model derives masks and ids on the device.
 * Training batches come from a checkpointable ``TrainStream``
   (``state()`` / ``restore()``), so that a resumed run consumes exactly
   the batches the uninterrupted run would have.
+* Pretraining draws from one numpy rng per stream in the JAX package's
+  order: the decode's flip and RandAugment, then MPP, then MLM, then the
+  post-match shuffle, so that the same records and seed give the same
+  batches in both packages.  With ``ship_raw_images`` its batches carry
+  the uint8 ``images`` and a ``patch_mask`` (the MPP zeroing runs in the
+  encoder) in place of ``patch_embeddings``.
 * Classification in eval yields the split's last, partial matched batch
   when ``drop_remainder`` is false, as the reference's
   ``classification_dataloader.py`` does (the JAX package drops it).
@@ -20,8 +26,7 @@ to its device.
   the batch size with a ``valid`` mask (the host filters on it), so that
   every batch has one shape.
 
-Not ported yet: ``MmtPretrainLoader`` (pretraining from records) and the
-multiprocess prefetch (``num_workers > 0``).
+Several worker processes: ``data.prefetch.multiprocess_batches``.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import numpy as np
 from mmt_tpu_torch.configs.data import (
     MmtClassificationDataConfig,
     MmtDataConfig,
+    MmtPretrainDataConfig,
     MmtRetrievalDataConfig,
 )
 from mmt_tpu_torch.data.assembly import AssembledExample, ExampleAssembler
@@ -46,7 +52,9 @@ from mmt_tpu_torch.data.tfrecord import (
     parse_example,
     skim_open,
 )
+from mmt_tpu_torch.features.masking import MaskingSpec, mask_items, pad_1d
 from mmt_tpu_torch.features.matching import make_matching_features
+from mmt_tpu_torch.features.patches import make_mpp_label_ids
 from mmt_tpu_torch.text.native import NativeBertTokenizer
 from mmt_tpu_torch.text.wordpiece import BertTokenizer
 
@@ -83,20 +91,19 @@ def _glob_shard(
     return files[shard_index::num_shards], False
 
 
-def pad_1d(x: np.ndarray, length: int, value=0) -> np.ndarray:
-    """Right-pad (or cut) a 1D array to ``length`` (the port's copy of
-    ``mmt_tpu/features/masking.py:pad_1d``)."""
-    if x.shape[0] >= length:
-        return x[:length]
-    out = np.full((length,), value, dtype=x.dtype)
-    out[: x.shape[0]] = x
-    return out
-
-
 def _unbatch(batch: Dict[str, np.ndarray]) -> Iterator[Dict[str, np.ndarray]]:
     n = len(next(iter(batch.values())))
     for i in range(n):
         yield {k: v[i] for k, v in batch.items()}
+
+
+# A row in the shuffle buffer is a view of its matched batch and keeps all
+# of it alive: with a buffer of 4096 rows, the last rows of a matched batch
+# leave it ~ln(4096) = 8 matched batches later (8 x 2.47 GB at the WIT
+# yaml's 4096).  Once only 1 / _COMPACT_SHARE of a matched batch's rows
+# wait, TrainStream copies them out and the batch is freed: ~3 matched
+# batches stay alive, for copies of ~6% of the rows.
+_COMPACT_SHARE = 16
 
 
 def _segment_ids(max_seq_len: int, img_wp: int, txt_wp: int) -> np.ndarray:
@@ -270,6 +277,161 @@ class _BaseLoader:
             image_bytes, text_fields or None, flip=flip, rand_aug_fn=rand_aug_fn,
             extras=extras, raw_u8=self.config.ship_raw_images,
         )
+
+
+class MmtPretrainLoader(_BaseLoader):
+    """MLM + MPP (+ ITM) pretraining batches (parity:
+    ``src/data/pretrain_dataloader.py:74-224``)."""
+
+    def __init__(self, config: MmtPretrainDataConfig, tokenizer=None):
+        super().__init__(config, tokenizer)
+        vocab = self.tokenizer.vocab
+        self.cfg = config
+        mask_token = (
+            vocab["[PATCH_MASK]"] if config.use_patch_mask_token_id else vocab["[MASK]"]
+        )
+        self.mpp_spec = MaskingSpec(
+            vocab_size=len(vocab),
+            mask_token_id=mask_token,
+            selection_rate=config.mpp_fraction_to_mask,
+            max_selections=config.mpp_max_selections_per_seq,
+        )
+        self.mlm_spec = MaskingSpec(
+            vocab_size=len(vocab),
+            mask_token_id=vocab["[MASK]"],
+            selection_rate=config.mlm_fraction_to_mask,
+            max_selections=min(config.mlm_max_selections_per_seq, config.max_seq_len),
+        )
+
+    def _selected_raw_patches(self, u8_image, shifted):
+        """<float32>[m, 3p^2] raw patches of the SELECTED positions only,
+        sliced straight out of the uint8 image (``ship_raw_images``: the full
+        unnormalized patch tensor is never made on the host; the /255
+        rounding is the assembler's)."""
+        p = self.cfg.patch_size
+        g = self.cfg.image_size // p
+        view = u8_image.reshape(g, p, g, p, 3).transpose(0, 2, 1, 3, 4)
+        sel = view[shifted // g, shifted % g]  # [m, p, p, 3] (copies m patches)
+        return np.true_divide(sel, 255, dtype=np.float32).reshape(len(shifted), -1)
+
+    def _mask_example(self, ex: AssembledExample, rng) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        n = cfg.num_patches
+        raw_mode = cfg.ship_raw_images and "raw_image" in ex.extras
+
+        # MPP over [CLS] [PATCH] p1..pN (only patches selectable), drawn
+        # before MLM from the same rng.
+        patch_items = np.asarray(ex.patch_token_ids, np.int32)  # 1 token/item
+        selectable = np.zeros((len(patch_items),), bool)
+        selectable[2:] = True
+        mpp = mask_items(patch_items, self.mpp_spec, rng, selectable)
+
+        if len(mpp.positions):
+            shifted = mpp.positions - 2
+            raw_patches = (
+                self._selected_raw_patches(ex.extras["raw_image"], shifted)
+                if raw_mode
+                else ex.unnormalized_patch_embeddings[shifted]
+            )
+            mpp_label_ids = make_mpp_label_ids(
+                raw_patches, cfg.patch_size, cfg.input_channels, cfg.max_pixel_val,
+                cfg.output_channel_bits)
+        else:
+            mpp_label_ids = np.zeros((0,), np.int32)
+        # Zero the features of patches whose token became the mask token:
+        # here on the host, or, with raw images, in the encoder from the
+        # shipped mask.
+        masked_slots = mpp.token_ids[2:] == self.mpp_spec.mask_token_id
+        if raw_mode:
+            patch_fields = {
+                "images": ex.extras["raw_image"],
+                "patch_mask": masked_slots.astype(np.float32),
+            }
+        else:
+            patch_embeddings = ex.patch_embeddings.copy()
+            patch_embeddings[masked_slots] = 0.0
+            patch_fields = {"patch_embeddings": patch_embeddings}
+
+        # MLM, whole words over the text.
+        mlm = mask_items(ex.text_token_words, self.mlm_spec, rng, ex.text_selectable)
+        mlm_positions = mlm.positions + 2 + n
+
+        m = cfg.mpp_max_selections_per_seq
+        l = min(cfg.mlm_max_selections_per_seq, cfg.max_seq_len)  # noqa: E741
+        text_ids = pad_1d(mlm.token_ids, self.assembler.max_remaining_seq_len)
+        return {
+            "patch_token_ids": mpp.token_ids,
+            **patch_fields,
+            "num_image_wordpieces": np.int32(ex.num_image_wordpieces),
+            "text_token_ids": text_ids,
+            "num_text_wordpieces": np.int32(ex.num_text_wordpieces),
+            "mpp_positions": pad_1d(mpp.positions, m),
+            "mpp_label_ids": pad_1d(mpp_label_ids, m),
+            "mpp_label_weights": pad_1d(mpp.label_weights, m),
+            "mlm_positions": pad_1d(mlm_positions, l),
+            "mlm_label_ids": pad_1d(mlm.label_ids, l),
+            "mlm_label_weights": pad_1d(mlm.label_weights, l),
+        }
+
+    def load(
+        self, shard_index: int = 0, num_shards: int = 1, batch_size: Optional[int] = None
+    ) -> Iterator[Dict[str, np.ndarray]]:
+        return iter(self.stream(shard_index, num_shards, batch_size))
+
+    def stream(
+        self, shard_index: int = 0, num_shards: int = 1, batch_size: Optional[int] = None
+    ) -> "TrainStream":
+        """The batch iterator as a checkpointable ``TrainStream``."""
+        cfg = self.cfg
+        batch_size = batch_size or cfg.global_batch_size
+        do_itm = "itm" in (cfg.tasks or "")
+        # ITM doubles the batch (ratio 1): collect half per matching call.
+        # Post-match shuffle: the matched examples pass through a shuffle
+        # buffer before rebatching, so every batch (and micro-batch) mixes
+        # positives and negatives (src/data/pretrain_dataloader.py:213-215).
+        return TrainStream(
+            self, shard_index, num_shards, batch_size=batch_size,
+            collect=batch_size // 2 if do_itm else batch_size,
+            shuffle_size=cfg.shuffle_buffer_size,
+            shuffled=do_itm and cfg.is_training,
+        )
+
+    def _collect_batch(self, records, rng, collect) -> Dict[str, np.ndarray]:
+        """Consumes records until one matched batch is assembled."""
+        cfg = self.cfg
+        do_itm = "itm" in (cfg.tasks or "")
+        examples, keys = [], []
+        while len(examples) < collect:
+            ex = self._decode(next(records), rng, cfg.is_training)
+            # Short-text filter (src/data/pretrain_dataloader.py:152-163).
+            if ex.num_text_wordpieces < cfg.min_text_wordpieces:
+                continue
+            examples.append(self._mask_example(ex, rng))
+            keys.append(ex.extras.get("image_key", len(keys)))
+        return self._finalize_batch(examples, keys, do_itm)
+
+    def _finalize_batch(self, examples, keys, do_itm) -> Dict[str, np.ndarray]:
+        batch = {k: np.stack([e[k] for e in examples]) for k in examples[0]}
+        if do_itm:
+            batch = make_matching_features(
+                batch, keys, negative_positive_ratio=1, min_shift=self.cfg.min_shift)
+        return self._to_model_batch(batch)
+
+    def _to_model_batch(self, batch) -> Dict[str, np.ndarray]:
+        s = self.cfg.max_seq_len
+        b = batch["patch_token_ids"].shape[0]
+        word_ids = np.zeros((b, s), np.int32)
+        joint = np.concatenate(
+            [batch.pop("patch_token_ids"), batch.pop("text_token_ids")], axis=1
+        )[:, :s]
+        word_ids[:, : joint.shape[1]] = joint
+        img_wp = batch.pop("num_image_wordpieces")
+        txt_wp = batch.pop("num_text_wordpieces")
+        batch["word_ids"] = word_ids
+        batch["segment_ids"] = np.stack(
+            [_segment_ids(s, int(i), int(t)) for i, t in zip(img_wp, txt_wp)])
+        batch["lengths"] = (img_wp + txt_wp).astype(np.int32)
+        return batch
 
 
 class MmtClassificationLoader(_BaseLoader):
@@ -557,6 +719,7 @@ class TrainStream:
         self._shufbuf: Optional[List[_Item]] = None
         self._prov: Dict[int, tuple] = {}
         self._refs: Dict[int, int] = {}
+        self._compact_at: Dict[int, int] = {}
         self._next_bid = 0
 
     def __iter__(self):
@@ -573,6 +736,7 @@ class TrainStream:
             rows = list(_unbatch(batch))
             self._prov[bid] = prov
             self._refs[bid] = len(rows)
+            self._compact_at[bid] = len(rows) // _COMPACT_SHARE
             self._pending.extend(
                 _Item(row, bid, i) for i, row in enumerate(rows))
         return batch
@@ -594,10 +758,22 @@ class TrainStream:
         return out
 
     def _release(self, item: _Item) -> None:
-        self._refs[item.bid] -= 1
-        if not self._refs[item.bid]:
-            del self._refs[item.bid]
-            del self._prov[item.bid]
+        bid = item.bid
+        self._refs[bid] -= 1
+        if not self._refs[bid]:
+            del self._refs[bid]
+            del self._prov[bid]
+            self._compact_at.pop(bid, None)
+        elif self._refs[bid] <= self._compact_at.get(bid, -1):
+            self._copy_rows(bid)
+
+    def _copy_rows(self, bid: int) -> None:
+        """Copies the waiting rows of matched batch ``bid`` out of it, so
+        that it is freed (same contents)."""
+        del self._compact_at[bid]
+        for it in itertools.chain(self._shufbuf or (), self._pending):
+            if it.bid == bid:
+                it.row = {k: v.copy() for k, v in it.row.items()}
 
     def __next__(self) -> Dict[str, np.ndarray]:
         if not self._shuffled:
@@ -661,6 +837,10 @@ class TrainStream:
         refs = collections.Counter(it.bid for it in (self._shufbuf or []))
         refs.update(it.bid for it in self._pending)
         self._refs = dict(refs)
+        self._compact_at = {bid: len(rows) // _COMPACT_SHARE for bid, rows in rows_of.items()}
+        for bid, left in self._refs.items():
+            if left <= self._compact_at[bid]:
+                self._copy_rows(bid)
         self._next_bid = st["next_bid"]
         self._cursor.seek(*st["cursor"])
 

@@ -27,8 +27,11 @@ Unlike the JAX encoder, there is no gate requiring the image block to fit
 one kernel tile: the Hopper kernel applies the 2D ids on every tile that
 meets it.  ``images`` (raw uint8 or [0, 1] float, already at the model's
 image size) takes the place of ``patch_embeddings``: /255, normalisation and
-patch extraction then run here, on the model's device.  Not ported yet:
-MPP's ``patch_mask`` and ``quantize="int8_dynamic"`` (it raises).
+patch extraction then run here, on the model's device, and ``patch_mask``
+(<float>[B, N], MPP's masked patches from a ``ship_raw_images`` batch)
+zeroes those patches' features before the projection, as the host
+pipeline zeroes them in ``patch_embeddings``.  Not ported yet:
+``quantize="int8_dynamic"`` (it raises).
 """
 
 from __future__ import annotations
@@ -139,12 +142,14 @@ class MmtEncoder(nn.Module):
         lengths: Optional[torch.Tensor] = None,
         rngs: Optional[DropoutRngs] = None,
         images: Optional[torch.Tensor] = None,
+        patch_mask: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         """Returns ``sequence_output`` [B, S, H] (float32) and, with the
         pooler on, ``pooled_output`` [B, H].  ``rngs`` feeds the dropout
         in ``train()`` mode (torch's default generators when None).
         ``images`` (<uint8|float>[B, size, size, 3]) is used when
-        ``patch_embeddings`` is None."""
+        ``patch_embeddings`` is None, and ``patch_mask`` (<float>[B, N], 1
+        where MPP masked a patch) zeroes masked patches of ``images``."""
         batch, seq_len = word_ids.shape
         if patch_embeddings is None and images is not None:
             im = images
@@ -152,6 +157,11 @@ class MmtEncoder(nn.Module):
                 im = im.to(torch.float32) / 255.0
             patch_size = im.shape[1] // self.num_patch_per_row
             patch_embeddings = extract_patches(normalize_image(im), patch_size)
+            if patch_mask is not None:
+                # The host pipeline's zeroing, in its order: after /255,
+                # normalisation and extraction, before the projection's cast.
+                patch_embeddings = patch_embeddings * (
+                    1.0 - patch_mask[..., None].to(patch_embeddings.dtype))
         if segment_ids is None:
             segment_ids = torch.ones_like(word_ids)
         if lengths is None:

@@ -3,7 +3,9 @@
 Torch counterpart of ``mmt_tpu/models/pretraining_model.py``: returns
 ``sequence_output``, ``mlm_logits`` (with ``mlm_positions``),
 ``mpp_logits`` (with ``mpp_positions``) and ``<head>_logits`` per
-classification head.  The MLM output projection uses the encoder's word
+classification head.  The image comes as ``patch_embeddings`` or as
+``images`` (raw, at the model's image size) with MPP's ``patch_mask``; see
+``MmtEncoder``.  The MLM output projection uses the encoder's word
 embedding table when ``bind_word_embedding_table`` is set (the default),
 else an untied ``mlm_embedding_table`` of the same shape.  Built on
 ``device`` (default ``"cuda"``, which raises without a GPU) with
@@ -72,8 +74,11 @@ class MmtPretrainingModel(nn.Module):
         mlm_positions: Optional[torch.Tensor] = None,
         mpp_positions: Optional[torch.Tensor] = None,
         rngs: Optional[DropoutRngs] = None,
+        images: Optional[torch.Tensor] = None,
+        patch_mask: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
-        outputs = self.encoder(word_ids, segment_ids, patch_embeddings, lengths, rngs)
+        outputs = self.encoder(word_ids, segment_ids, patch_embeddings, lengths, rngs,
+                               images=images, patch_mask=patch_mask)
         sequence = outputs["sequence_output"]
         table = (self.encoder.word_embeddings.embedding_table
                  if self.mlm_embedding_table is None else self.mlm_embedding_table)

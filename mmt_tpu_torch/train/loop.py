@@ -10,7 +10,9 @@ Runs ``train_step`` from ``state.step`` to ``trainer.train_steps``:
   ``<model_dir>/train_summaries.jsonl`` (one ``{"step": ..., <metric>:
   ...}`` object per line, as the JAX ``SummaryWriter`` writes it); the
   window's clock restarts after the step's checkpoint and validation, so
-  ``steps_per_sec`` times training steps only;
+  ``steps_per_sec`` times training steps only; ``input_seconds`` (not in
+  the JAX summaries) is the mean time a step of the window waited in
+  ``next(train_iter)`` for its host batch, the loader's share of the step;
 * at ``checkpoint_interval`` and at the last step the parameters and the
   optimizer state go to ``<model_dir>/<step>/`` (``CheckpointManager``,
   pruned to ``max_to_keep``), and the input stream's snapshot, where the
@@ -135,9 +137,15 @@ def run_training(
 
     device = next(state.model.parameters()).device
     window: Dict = {}
+    window_steps, input_s = 0, 0.0
     t_loop = time.perf_counter()
     for step_idx in range(state.step, trainer.train_steps):
-        batch = place_batch(next(train_iter))
+        t_input = time.perf_counter()
+        host_batch = next(train_iter)
+        input_s += time.perf_counter() - t_input
+        window_steps += 1
+        batch = place_batch(host_batch)
+        del host_batch
         state, metric_sums = train_step(state, batch,
                                         DropoutRngs.for_step(seed, step_idx, device))
         for name, pair in metric_sums.items():
@@ -150,8 +158,9 @@ def run_training(
         if at_boundary:
             finalized = finalize(window)  # the window's one device->host read
             finalized["steps_per_sec"] = trainer.steps_per_loop / (time.perf_counter() - t_loop)
+            finalized["input_seconds"] = input_s / window_steps
             logger.info("step %d: %s", step, finalized)
-            window = {}
+            window, window_steps, input_s = {}, 0, 0.0
             if step % trainer.summary_interval == 0 or last:
                 writer.write(step, finalized)
 

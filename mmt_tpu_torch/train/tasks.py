@@ -47,7 +47,14 @@ from mmt_tpu_torch.train import losses as losses_lib
 from mmt_tpu_torch.train.metrics import weighted_accuracy
 from mmt_tpu_torch.train.train_state import TrainState
 
-MODEL_INPUT_KEYS = ("word_ids", "segment_ids", "patch_embeddings", "lengths")
+MODEL_INPUT_KEYS = (
+    "word_ids",
+    "segment_ids",
+    "patch_embeddings",
+    "lengths",
+    "images",  # patch extraction on the device (ship_raw_images)
+    "patch_mask",  # MPP's patch zeroing on the device (pretraining, raw images)
+)
 
 
 def batch_to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:
@@ -181,7 +188,7 @@ class ClassificationTask:
                      ) -> Tuple[torch.Tensor, Tuple[Dict, Dict]]:
         self.model.train(not deterministic)
         outputs = self.model(**{k: batch[k] for k in MODEL_INPUT_KEYS if k in batch},
-                             rngs=rngs, images=batch.get("images"))
+                             rngs=rngs)
         logits = outputs[self.logits_key]
         labels = batch["label_ids"]
         weights = batch["label_weights"]

@@ -460,8 +460,8 @@ def test_cli_refuses_what_is_not_ported(records, tmp_path):
             f"--config_file={config}", "--device=cpu"]
     with pytest.raises(NotImplementedError, match="continuous"):
         main(base + ["--mode=continuous_train_and_eval", "--pretrain_model_dir=x"])
-    with pytest.raises(NotImplementedError, match="num_workers"):
-        main(base + ["--params_override=task.train_data.num_workers=2"])
+    with pytest.raises(NotImplementedError, match="pipeline"):
+        main(base + ["--params_override=runtime.num_pipeline_stages=2"])
     with pytest.raises(NotImplementedError, match="ZeRO"):
         main(base + ["--params_override=runtime.zero_sharded_optimizer=true"])
     tf_ckpt = tmp_path / "tf"

@@ -340,12 +340,18 @@ def test_cli_tiny_dummy_run(tmp_path):
     lines = [json.loads(l) for l in (model_dir / "train_summaries.jsonl").read_text().splitlines()]
     assert [l["step"] for l in lines] == [1, 2]
     assert all(np.isfinite(l["total_loss"]) and l["steps_per_sec"] > 0 for l in lines)
+    assert all(0 <= l["input_seconds"] < 1 / l["steps_per_sec"] for l in lines)
 
-    with pytest.raises(NotImplementedError, match="loaders"):
+    # Record input paths run (tests/test_torch_pretrain_records.py): one
+    # that matches no file raises, and eval needs validation records.
+    from tests.test_torch_finetune import write_vocab
+
+    records = ('{"task": {"train_data": {"input_path": "x", "vocab_filename": "%s"}}}'
+               % write_vocab(tmp_path))
+    with pytest.raises(ValueError, match="does not match any files"):
         main(["--experiment=mmt/pretraining", f"--model_dir={model_dir}",
-              f"--config_file={config}", "--params_override=task.train_data.input_path=x",
-              "--device=cpu"])
-    with pytest.raises(NotImplementedError, match="mode"):
+              f"--config_file={config}", f"--params_override={records}", "--device=cpu"])
+    with pytest.raises(ValueError, match="validation_data.input_path"):
         main(["--experiment=mmt/pretraining", "--mode=eval", f"--model_dir={model_dir}",
               f"--config_file={config}", "--device=cpu"])
     with pytest.raises(NotImplementedError, match="retrieval"):
