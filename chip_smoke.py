@@ -144,11 +144,21 @@ Phases, each printed as one JSON line:
    launches per step and 12 forward launches per eval batch.  Then the run's
    directory copied and taken on to step 6 must resume at step 4 and end,
    per parameter tensor, within RESUME_SPREAD_FACTOR x the spread between
-   two uninterrupted 6-step runs + RESUME_FLOOR of the first of them; and
+   two uninterrupted 6-step runs + RESUME_FLOOR_ULPS fp32 spacings of the
+   first of them; and
    ``cli.predict`` on the finetuned checkpoint.  Reports examples/s and ms
    per step from the loop's one-step windows (the first step apart), the
    classification loader alone (records -> batches), eval examples/s and
-   the peak memory.
+   the peak memory.  The run's TensorBoard event files
+   (``summaries/{train,validation}``, decoded by ``read_event_scalars``)
+   must hold the jsonl summaries' scalars to float32.  Preemption: the
+   6-step run as a ``python -m mmt_tpu_torch.cli.train`` process, saving
+   every 5 steps, gets SIGTERM once its summaries show step 3; it must exit
+   0 with a checkpoint and the stream's snapshot at the step k it logs, k
+   not a regular checkpoint step (so the watcher made that save), and the same
+   command run again must resume at k, finish, and end within the resume
+   bound above; k, the seconds from the signal to the exit and the exit
+   codes are reported.
 22. finetune_profile: one B=512 training step under the profiler (device
    time by kernel group, idle share, the forward and backward kernels per
    call), and the two kernels at B=512, S=256 with the records' lengths and
@@ -159,8 +169,32 @@ Phases, each printed as one JSON line:
    from the same seeds) with the kernels, with dense attention and with
    dense attention in float32: the kernels' relative error against float32
    may exceed dense attention's by at most TRAIN_GRAD_BOUND.
+24. continuous: ``cli.train.main --mode=continuous_train_and_eval`` on the
+   finetune yaml at CONT_STEPS steps a round, watching a pretraining
+   directory that holds the seeded WIT checkpoint at step 0; once the first
+   ``continuous_results.jsonl`` line is written, a helper thread saves a
+   second one (step 1, another seed) with ``async_save``, and the CLI's
+   watch (shortened through ``CONTINUOUS_TIMEOUT_S``) ends after the
+   second round.  Two lines with ``pretrain_step`` 0 and 1 and finite
+   ``cls_accuracy``, ``cls_loss`` and ``auc``, the finetune phase's
+   ``count_restored`` in each round, and 12 forward launches per step and
+   per eval batch and 12 backward launches per step.
+25. checkpoint: ``CheckpointManager.save`` of the WIT pretraining model and
+   its AdamW state, synchronous and asynchronous in turns (sync, async,
+   async, sync): the bytes, the ms the caller is blocked and the ms until
+   the checkpoint is durable; the restored tensors bit-equal to the saved
+   ones.
+26. grad_accum: one WIT pretraining step of 8 micro-batches of 64 (S=256,
+   dropout 0.1, the same parameters, batch and seeds) with float32,
+   bfloat16, and again bfloat16 with every micro-batch's float32 gradient
+   recorded as the backward leaves it: that step's summed gradient equal,
+   bit for bit, to the bf16 sum of the recorded gradients, and per tensor
+   within 1e-2 of their float32 sum's norm (the same gradients, so the
+   backward's run-to-run spread drops out); the losses equal within 1e-5
+   relative (the same forward); the worst tensor and the card's peak
+   memory of each run, 12 launches of each kernel per micro-batch.
 
-24. pretrain_records: WIT pretraining from records through
+27. pretrain_records: WIT pretraining from records through
    ``mmt_tpu_torch.cli.train.main --experiment=mmt/pretraining`` in
    train_and_eval: seeded WIT-style records (8 files of 512 for training,
    512 for validation; smooth PNG images at 256 x 192, 192 x 256 and
@@ -181,14 +215,14 @@ Phases, each printed as one JSON line:
    per validation batch and 12 backward launches per micro-batch.  Then a
    profile of the loader's per-record work (``loader_profile``) and
    validation alone (records -> metrics).
-25. pretrain_records_profile: one optimizer step of a 4096-row batch of
+28. pretrain_records_profile: one optimizer step of a 4096-row batch of
    the records (``profile_batch``) on the card under the profiler (device
    time by kernel group, idle share, the kernels per call) and the host's
    share of the runs' steady steps; the forward and backward kernels at a
    micro-batch's lengths (B=64, rate 0.1) and the forward at a validation
    batch's (B=256, rate 0) against their plain versions (the bounds of
    phases 3 and 8), SDPA and the bound.
-26. pretrain_records_reference: a micro-batch of 64 rows of the records,
+29. pretrain_records_reference: a micro-batch of 64 rows of the records,
    kernels against dense attention: the loss within LOSS_REL_BOUND, the
    gradients by train_reference's rule, or, for a tensor outside it,
    finetune_reference's float32 rule; then one MLM + MPP + ITM batch at MPP
@@ -209,6 +243,7 @@ from __future__ import annotations
 import json
 import logging
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1800,12 +1835,21 @@ FT_TRAIN_RECORDS, FT_VAL_RECORDS = 512, 128  # 4 steps' worth; 2 eval batches
 FT_STEPS, FT_RESUME_STEPS = 4, 6
 FT_POS_WEIGHT = 2.0  # finetune_reference's positives (the yaml's pos_weight is 1)
 # A resumed run on the card against the uninterrupted one, per parameter
-# tensor: ||B - C|| / ||C|| <= RESUME_SPREAD_FACTOR x the same error of a
-# second uninterrupted run D (the backward's run-to-run spread) +
-# RESUME_FLOOR.  The floor is ~2 fp32 spacings of relative error: below
-# what a resume that drew other dropout masks or batches gives (updates of
-# ~lr = 1e-7 per element, ~1e-6 of a tensor's norm).
-RESUME_SPREAD_FACTOR, RESUME_FLOOR = 4.0, 1e-7
+# tensor: ||B - C|| <= RESUME_SPREAD_FACTOR x ||D - C|| for a second
+# uninterrupted run D (the backward's run-to-run spread) + RESUME_FLOOR_ULPS
+# x ||spacing(C)||, the norm of C's elementwise fp32 spacings, for the
+# rounding flips of a tensor on which D happens to equal C (one flip in a
+# 2-element head bias can be 1.2e-7 of its norm).  The floor, ~1.8e-7 of a
+# large tensor's norm, stays below what a resume that drew other dropout masks or
+# batches gives (updates of ~lr = 1e-7 per element, ~1e-6 of a tensor's norm).
+RESUME_SPREAD_FACTOR, RESUME_FLOOR_ULPS = 4.0, 2.0
+# Seconds a preempted CLI process may take to reach its signal step, to
+# exit, or to run again.
+PREEMPT_WAIT_S = 600.0
+# The preempted run saves every PREEMPT_CKPT_INTERVAL steps and is signalled
+# once its summaries show PREEMPT_AT_STEP: it stops at step 3 or 4, neither
+# a regular checkpoint step, so the save it resumes from is the watcher's own.
+PREEMPT_AT_STEP, PREEMPT_CKPT_INTERVAL = 3, 5
 
 
 def write_paired_flickr_records(path: Path, n: int, seed: int) -> str:
@@ -1834,7 +1878,8 @@ def write_paired_flickr_records(path: Path, n: int, seed: int) -> str:
     return str(path)
 
 
-def finetune_experiment(root: Path, init_checkpoint: str, train_steps: int) -> Path:
+def finetune_experiment(root: Path, init_checkpoint: str, train_steps: int,
+                        checkpoint_interval: int = 2) -> Path:
     """The Flickr30k yaml (``flickr_experiment``) with its placeholders
     filled and only its schedule cut, written as JSON text."""
     experiment = flickr_experiment(str(root / "vocab.txt"))
@@ -1842,9 +1887,10 @@ def finetune_experiment(root: Path, init_checkpoint: str, train_steps: int) -> P
     experiment["task"]["train_data"]["input_path"] = str(root / "train.tfrecord")
     experiment["task"]["validation_data"]["input_path"] = str(root / "val.tfrecord")
     experiment["trainer"].update({"train_steps": train_steps, "validation_interval": 2,
-                                  "checkpoint_interval": 2, "steps_per_loop": 1,
+                                  "checkpoint_interval": checkpoint_interval,
+                                  "steps_per_loop": 1,
                                   "summary_interval": 1})
-    path = root / f"finetune_{train_steps}.json"
+    path = root / f"finetune_{train_steps}_{checkpoint_interval}.json"
     path.write_text(json.dumps(experiment))
     return path
 
@@ -1858,8 +1904,9 @@ class _LogLines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def run_train_cli(config: Path, model_dir: Path, experiment="mmt/classification") -> list:
-    """``cli.train.main`` in train_and_eval; returns its log lines."""
+def run_train_cli(config: Path, model_dir: Path, experiment="mmt/classification",
+                  mode="train_and_eval", extra=()) -> list:
+    """``cli.train.main`` (default in train_and_eval); returns its log lines."""
     from mmt_tpu_torch.cli import train as cli_train
 
     handler = _LogLines()
@@ -1868,8 +1915,8 @@ def run_train_cli(config: Path, model_dir: Path, experiment="mmt/classification"
     root.addHandler(handler)
     root.setLevel(logging.INFO)
     try:
-        state = cli_train.main([f"--experiment={experiment}", "--mode=train_and_eval",
-                                f"--model_dir={model_dir}", f"--config_file={config}"])
+        state = cli_train.main([f"--experiment={experiment}", f"--mode={mode}",
+                                f"--model_dir={model_dir}", f"--config_file={config}", *extra])
         torch.cuda.synchronize()
     finally:
         root.removeHandler(handler)
@@ -1900,6 +1947,128 @@ def finetune_params(model_dir: Path, step: int) -> dict:
 
     return {k: v for k, v in CheckpointManager(str(model_dir)).restore(step).items()
             if v.is_floating_point()}
+
+
+def read_event_scalars(path: Path) -> list:
+    """``[(step, {tag: value})]`` of the scalar Events of a TensorBoard
+    event file (``utils/tb_events.py``'s format), decoded with the port's
+    TFRecord reader; the first record must be the file version."""
+    import struct
+
+    from mmt_tpu_torch.data.tfrecord import TFRecordReader, _read_varint
+
+    def fields(buf):
+        out, pos = [], 0
+        while pos < len(buf):
+            key, pos = _read_varint(buf, pos)
+            wire = key & 7
+            if wire == 0:
+                value, pos = _read_varint(buf, pos)
+            elif wire in (1, 5):
+                n = 8 if wire == 1 else 4
+                value, pos = buf[pos:pos + n], pos + n
+            else:
+                n, pos = _read_varint(buf, pos)
+                value, pos = buf[pos:pos + n], pos + n
+            out.append((key >> 3, value))
+        return out
+
+    records = list(TFRecordReader(str(path), check_crc=True))
+    if dict(fields(records[0])).get(3) != b"brain.Event:2":
+        raise AssertionError(f"{path}: the first record is not the file version")
+    events = []
+    for record in records[1:]:
+        event = dict(fields(record))
+        tags = {}
+        for _, value in fields(event.get(5, b"")):
+            v = dict(fields(value))
+            tags[v[1].decode()] = struct.unpack("<f", v[2])[0]
+        events.append((event.get(2, 0), tags))
+    return events
+
+
+def check_event_files(model_dir: Path, name: str, lines: list) -> None:
+    """``<model_dir>/summaries/<name>`` holds one event file whose scalars
+    are the jsonl summaries ``lines``, to float32."""
+    files = sorted((model_dir / "summaries" / name).glob("events.out.tfevents.*"))
+    if len(files) != 1:
+        raise AssertionError(f"summaries/{name} holds {len(files)} event files")
+    want = [(l["step"], {k: float(np.float32(v)) for k, v in l.items() if k != "step"})
+            for l in lines]
+    got = read_event_scalars(files[0])
+    if got != want:
+        raise AssertionError(f"summaries/{name} events {got[:2]} != the jsonl {want[:2]}")
+
+
+def preempt_cli(command: list, model_dir: Path, log_path: Path, at_step: int) -> dict:
+    """Runs ``command`` (a train CLI process) until its
+    ``train_summaries.jsonl`` shows ``at_step``, sends it SIGTERM and waits
+    for its exit: the exit code, the preempted step from its log and the
+    seconds from the signal to the exit."""
+    import signal
+
+    summaries = model_dir / "train_summaries.jsonl"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(command, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            deadline = time.monotonic() + PREEMPT_WAIT_S
+            while f'"step": {at_step},' not in (summaries.read_text() if summaries.exists()
+                                                else ""):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(f"the run ended or stalled before step {at_step}: "
+                                         f"{log_path.read_text()[-3000:]}")
+                time.sleep(0.05)
+            t_signal = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=PREEMPT_WAIT_S)
+            exit_s = time.perf_counter() - t_signal
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = log_path.read_text()
+    steps = [int(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+             if "exiting after preemption checkpoint at step" in line]
+    if code != 0 or len(steps) != 1:
+        raise AssertionError(f"preempted run exited {code}, preemptions {steps}: {text[-3000:]}")
+    return {"exit_code": code, "step": steps[0], "signal_to_exit_seconds": exit_s}
+
+
+def fp32_spacing(t: torch.Tensor) -> torch.Tensor:
+    """The distance from each element of ``t`` to the next float32 away
+    from zero."""
+    a = t.float().abs()
+    return torch.nextafter(a, torch.full_like(a, math.inf)) - a
+
+
+def resume_errors(resumed: dict, whole: list) -> dict:
+    """Per parameter tensor, ``resumed``'s relative error against the first
+    uninterrupted run beside the second's (the run-to-run spread): the
+    largest, the tensors outside RESUME_SPREAD_FACTOR x spread +
+    RESUME_FLOOR_ULPS fp32 spacings (each with its error, spread and
+    floor), and the whole model's."""
+    errors, spread, failing = {}, {}, {}
+    for name, ref in whole[0].items():
+        norm = ref.norm().item()
+        errors[name] = (resumed[name] - ref).norm().item() / norm
+        spread[name] = (whole[1][name] - ref).norm().item() / norm
+        floor = RESUME_FLOOR_ULPS * fp32_spacing(ref).norm().item() / norm
+        if not errors[name] <= RESUME_SPREAD_FACTOR * spread[name] + floor:
+            failing[name] = {"err": errors[name], "spread": spread[name], "floor": floor}
+    total = math.sqrt(sum(float((resumed[n] - r).double().square().sum()) for n, r in
+                          whole[0].items()))
+    total_spread = math.sqrt(sum(float((whole[1][n] - r).double().square().sum()) for n, r in
+                                 whole[0].items()))
+    ref_norm = math.sqrt(sum(float(r.double().square().sum()) for r in whole[0].values()))
+    return {"bound": f"{RESUME_SPREAD_FACTOR} x spread + {RESUME_FLOOR_ULPS} fp32 spacings",
+            "max_rel_err": max(errors.values()), "worst_tensor": max(errors, key=errors.get),
+            "max_spread": max(spread.values()),
+            "tensors_with_spread": sum(v > 0 for v in spread.values()),
+            "tensors_with_err": sum(v > 0 for v in errors.values()),
+            "whole_model_rel_err": total / ref_norm,
+            "whole_model_rel_spread": total_spread / ref_norm,
+            "failing": dict(list(failing.items())[:5])}
 
 
 def phase_finetune(root: Path):
@@ -1973,6 +2142,8 @@ def phase_finetune(root: Path):
         raise AssertionError(f"validation summaries lack a metric: {val_log}")
     if not all(math.isfinite(v) for r in train_log + val_log for v in r.values()):
         raise AssertionError(f"non-finite finetune numbers: {train_log} {val_log}")
+    check_event_files(run_a, "train", train_log)
+    check_event_files(run_a, "validation", val_log)
     # The warm start takes every encoder tensor the pretraining model has
     # and the itm head; the rest (the absolute position table, which the
     # WIT pretraining model has not) keeps its fresh initialisation.
@@ -2041,18 +2212,37 @@ def phase_finetune(root: Path):
         run_train_cli(resume_config, root / name)
         whole.append(finetune_params(root / name, FT_RESUME_STEPS))
         shutil.rmtree(root / name)
-    errors, spread, failing = {}, {}, []
-    for name, ref in whole[0].items():
-        norm = ref.norm().item()
-        errors[name] = (resumed[name] - ref).norm().item() / norm
-        spread[name] = (whole[1][name] - ref).norm().item() / norm
-        if not errors[name] <= RESUME_SPREAD_FACTOR * spread[name] + RESUME_FLOOR:
-            failing.append(name)
-    total = math.sqrt(sum(float((resumed[n] - r).double().square().sum()) for n, r in
-                          whole[0].items()))
-    total_spread = math.sqrt(sum(float((whole[1][n] - r).double().square().sum()) for n, r in
-                                 whole[0].items()))
-    ref_norm = math.sqrt(sum(float(r.double().square().sum()) for r in whole[0].values()))
+    # Preemption: the same 6-step run as a process of the CLI, saving every
+    # PREEMPT_CKPT_INTERVAL steps, SIGTERM once its summaries show
+    # PREEMPT_AT_STEP; then the same command again.
+    run_p = root / "ft_preempted"
+    preempt_config = finetune_experiment(root, str(root / "pretrain"), FT_RESUME_STEPS,
+                                         checkpoint_interval=PREEMPT_CKPT_INTERVAL)
+    command = [sys.executable, "-m", "mmt_tpu_torch.cli.train",
+               "--experiment=mmt/classification", "--mode=train_and_eval",
+               f"--model_dir={run_p}", f"--config_file={preempt_config}"]
+    preempt = preempt_cli(command, run_p, root / "preempted.log", at_step=PREEMPT_AT_STEP)
+    k = preempt["step"]
+    preempt["checkpoint_interval"] = PREEMPT_CKPT_INTERVAL
+    if k % PREEMPT_CKPT_INTERVAL == 0:
+        raise AssertionError(f"preempted at step {k}, a regular checkpoint step: the watcher's "
+                             f"own save did not run")
+    if not (k < FT_RESUME_STEPS and (run_p / str(k) / "model.pt").exists()
+            and (run_p / "data_stream" / f"step_{k}.pkl").exists()):
+        raise AssertionError(f"preempted at step {k}: no checkpoint or stream snapshot there")
+    t0 = time.perf_counter()
+    rerun = subprocess.run(command, cwd=REPO, capture_output=True, text=True,
+                           timeout=PREEMPT_WAIT_S)
+    preempt["rerun_seconds"] = time.perf_counter() - t0
+    preempt["rerun_exit_code"] = rerun.returncode
+    steps_p = [r["step"] for r in read_jsonl(run_p / "train_summaries.jsonl")]
+    if rerun.returncode != 0 or f"resumed from checkpoint at step {k}" not in rerun.stderr \
+            or steps_p != list(range(1, FT_RESUME_STEPS + 1)):
+        raise AssertionError(f"the rerun after preemption exited {rerun.returncode}, steps "
+                             f"{steps_p}: {rerun.stderr[-3000:]}")
+    preempt.update(resume_errors(finetune_params(run_p, FT_RESUME_STEPS), whole))
+    shutil.rmtree(run_p)
+    resume = resume_errors(resumed, whole)
     del resumed, whole
 
     later = [1.0 / r["steps_per_sec"] for r in train_log[1:]]
@@ -2071,18 +2261,11 @@ def phase_finetune(root: Path):
           "count_restored": restored[0], "fresh_tensors": fresh, "best": best_info, "validation": val_log,
           "train": train_log, "predict": {"rows": len(rows) - 1, "seconds": predict_s,
                                           "recall": recall},
-          "resume": {"bound": f"{RESUME_SPREAD_FACTOR} x spread + {RESUME_FLOOR}",
-                     "max_rel_err": max(errors.values()),
-                     "worst_tensor": max(errors, key=errors.get),
-                     "max_spread": max(spread.values()),
-                     "tensors_with_spread": sum(v > 0 for v in spread.values()),
-                     "tensors_with_err": sum(v > 0 for v in errors.values()),
-                     "whole_model_rel_err": total / ref_norm,
-                     "whole_model_rel_spread": total_spread / ref_norm,
-                     "failing": failing[:5]}})
-    if failing:
-        raise AssertionError(f"resumed run outside its bound at {failing[:5]}")
-    return counts, batch, task
+          "resume": resume, "preemption": preempt})
+    for name, result in (("resumed", resume), ("preempted and resumed", preempt)):
+        if result["failing"]:
+            raise AssertionError(f"{name} run outside its bound at {result['failing']}")
+    return counts, batch, task, restored[0]
 
 
 def phase_finetune_profile(task, batch):
@@ -2241,6 +2424,264 @@ def phase_finetune_reference(root: Path, batch):
         raise AssertionError(f"{worst_excess}: the kernels' gradient error against float32 "
                              f"{kernel_err[worst_excess]} exceeds dense attention's "
                              f"{dense_err[worst_excess]} by more than {TRAIN_GRAD_BOUND}")
+
+
+# ------------------------------------------- continuous finetuning, checkpoints
+
+# continuous_train_and_eval of the finetune yaml at CONT_STEPS steps a
+# round: the CLI's watch ends CONT_TIMEOUT_S after it started and polls every
+# CONT_POLL_S (3600 s and 10 s in the CLI), which leaves room for two rounds
+# and the second checkpoint's save between them.
+CONT_STEPS, CONT_TIMEOUT_S, CONT_POLL_S = 2, 30.0, 1.0
+# grad_accum: one step of GA_MICRO_BATCHES micro-batches of TRAIN_MICRO;
+# the bf16 sum makes 8 roundings of ~2**-9 relative each, held against the
+# float32 sum of the same micro-batch gradients.
+GA_MICRO_BATCHES, GA_LOSS_REL_BOUND, GA_GRAD_REL_BOUND = 8, 1e-5, 1e-2
+
+
+def phase_continuous(root: Path, expected_restored: int):
+    """``cli.train.main --mode=continuous_train_and_eval`` on the finetune
+    yaml at CONT_STEPS steps a round, watching a pretraining directory that
+    holds the seeded WIT checkpoint at step 0; once the first results line
+    is written, a helper thread saves a second checkpoint (step 1, another
+    seed) with ``async_save``.  Two rounds, their numbers, the tensors
+    restored in each and the launches; returns the launches."""
+    import threading
+
+    from mmt_tpu_torch.cli import train as cli_train
+    from mmt_tpu_torch.train.checkpoint import CheckpointManager
+    from mmt_tpu_torch.train.tasks import PretrainingTask
+
+    pre_dir = root / "continuous_pretrain"
+    link_copy(root / "pretrain", pre_dir)
+    pre_cfg = pretrain_experiment()
+    second = PretrainingTask(pre_cfg.task, pre_cfg.trainer, device="cpu", seed=12).model
+    config = finetune_experiment(root, "", CONT_STEPS)
+    model_dir = root / "continuous"
+    results = model_dir / "continuous_results.jsonl"
+    timeline = {}
+
+    def save_second():
+        deadline = time.monotonic() + CONT_TIMEOUT_S
+        while not results.exists() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        timeline["first_line_s"] = time.perf_counter() - t0
+        mgr = CheckpointManager(str(pre_dir), async_save=True)
+        t_save = time.perf_counter()
+        mgr.save(1, second)
+        timeline["save_blocked_ms"] = (time.perf_counter() - t_save) * 1e3
+        mgr.wait_until_finished()
+        timeline["save_durable_ms"] = (time.perf_counter() - t_save) * 1e3
+        while len(results.read_text().splitlines()) < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        timeline["second_line_s"] = time.perf_counter() - t0
+
+    saved = cli_train.CONTINUOUS_TIMEOUT_S, cli_train.CONTINUOUS_POLL_S
+    cli_train.CONTINUOUS_TIMEOUT_S, cli_train.CONTINUOUS_POLL_S = CONT_TIMEOUT_S, CONT_POLL_S
+    helper = threading.Thread(target=save_second)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    helper.start()
+    try:
+        log = run_train_cli(config, model_dir, mode="continuous_train_and_eval",
+                            extra=[f"--pretrain_model_dir={pre_dir}"])
+    finally:
+        cli_train.CONTINUOUS_TIMEOUT_S, cli_train.CONTINUOUS_POLL_S = saved
+        helper.join(timeout=CONT_TIMEOUT_S)
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    del second
+    lines = read_jsonl(results)
+    restored = [int(line.split("count_restored=")[1].split()[0])
+                for line in log if "continuous finetune @" in line and "count_restored=" in line]
+    layers = pre_cfg.task.model.encoder.mmt.num_hidden_layers
+    eval_batches = math.ceil(FT_VAL_RECORDS / (FT_EVAL_BATCH // (FT_RATIO + 1)))
+    expected = {"fwd": layers * 2 * (CONT_STEPS + eval_batches), "fwd_window": 0,
+                "bwd": layers * 2 * CONT_STEPS, "bwd_window": 0}
+    emit({"phase": "continuous", "steps_per_round": CONT_STEPS, "global_batch": FT_GLOBAL,
+          "timeout_s": CONT_TIMEOUT_S, "poll_s": CONT_POLL_S, "run_seconds": run_s,
+          **timeline, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "results": lines, "count_restored": restored, "launches": counts,
+          "expected_launches": expected})
+    if [l["pretrain_step"] for l in lines] != [0, 1] or not all(
+            math.isfinite(l[k]) for l in lines for k in ("cls_accuracy", "cls_loss", "auc")):
+        raise AssertionError(f"continuous results {lines}")
+    if restored != [expected_restored] * 2:
+        raise AssertionError(f"count_restored {restored}, expected {expected_restored} a round")
+    if counts != expected:
+        raise AssertionError(f"continuous launches {counts}, expected {expected}")
+    shutil.rmtree(pre_dir)
+    shutil.rmtree(model_dir)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_checkpoint(root: Path) -> None:
+    """``CheckpointManager.save`` of the WIT pretraining model and its AdamW
+    state (moments filled from a seed), synchronous and asynchronous in
+    turns: the ms the caller is blocked and the ms until the checkpoint is
+    durable, the bytes written, and the restored tensors bit-equal to the
+    saved ones."""
+    from mmt_tpu_torch.train.checkpoint import CheckpointManager
+    from mmt_tpu_torch.train.optimizer import create_optimizer
+    from mmt_tpu_torch.train.tasks import PretrainingTask
+
+    cfg = pretrain_experiment()
+    task = PretrainingTask(cfg.task, cfg.trainer, device="cuda", seed=13)
+    optimizer = create_optimizer(cfg.trainer.optimizer_config, cfg.trainer.train_steps,
+                                 task.model)
+    gen = torch.Generator("cuda").manual_seed(13)
+    with torch.no_grad():
+        for name in optimizer.mu:
+            optimizer.mu[name].normal_(generator=gen)
+            optimizer.nu[name].uniform_(generator=gen)
+    optimizer.count = 7
+    want_model = {k: v.cpu() for k, v in task.model.state_dict().items()}
+    want_opt = {key: {n: t.cpu() for n, t in getattr(optimizer, key).items()}
+                for key in ("mu", "nu")}
+    runs = []
+    for i, async_save in enumerate((False, True, True, False)):
+        directory = root / f"checkpoint_{i}"
+        mgr = CheckpointManager(str(directory), async_save=async_save)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(1, task.model, optimizer)
+        blocked_ms = (time.perf_counter() - t0) * 1e3
+        mgr.wait_until_finished()
+        durable_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(f.stat().st_size for f in (directory / "1").iterdir())
+        got = mgr.restore(1)
+        got_opt = torch.load(directory / "1" / "optimizer.pt", map_location="cpu",
+                             weights_only=True)
+        unequal = [n for n, v in want_model.items() if not torch.equal(got[n], v)]
+        unequal += [f"{key}.{n}" for key, ts in want_opt.items() for n, t in ts.items()
+                    if not torch.equal(got_opt[key][n], t)]
+        if got.keys() != want_model.keys() or got_opt["count"] != 7 or unequal:
+            raise AssertionError(f"restored checkpoint differs from the saved state: "
+                                 f"{unequal[:5]}")
+        runs.append({"async": async_save, "blocked_ms": blocked_ms, "durable_ms": durable_ms,
+                     "bytes": nbytes})
+        del got, got_opt
+        shutil.rmtree(directory)
+    emit({"phase": "checkpoint", "model": "WIT pretraining (mlm_itm_2d.yaml) + AdamW",
+          "tensors": len(want_model), "runs": runs})
+    del task, optimizer
+    torch.cuda.empty_cache()
+
+
+class GradKeeper:
+    """An optimizer stand-in that keeps the summed gradient it is handed
+    and updates nothing."""
+
+    def __init__(self, model):
+        self.model = model
+        self.grads = None
+
+    def step(self):
+        self.grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                      for n, p in self.model.named_parameters()}
+
+    def zero_grad(self):
+        self.model.zero_grad(set_to_none=True)
+
+
+class MicroGradSums:
+    """Post-accumulate-grad hooks on every parameter of ``model``: each
+    gradient the backward leaves in ``.grad`` is added to a float32 sum and,
+    rounded to bfloat16, to a bfloat16 sum.  In a step that accumulates in
+    bfloat16 ``.grad`` is cleared after every micro-batch, so the hooks see
+    each micro-batch's gradient."""
+
+    def __init__(self, model):
+        self.params = dict(model.named_parameters())
+        self.f32 = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()}
+        self.bf16 = {n: torch.zeros_like(p, dtype=torch.bfloat16) for n, p in self.params.items()}
+        self.handles = [p.register_post_accumulate_grad_hook(self._hook(n))
+                        for n, p in self.params.items()]
+
+    def _hook(self, name):
+        def hook(p):
+            self.f32[name] += p.grad
+            self.bf16[name] += p.grad.to(torch.bfloat16)
+        return hook
+
+    def remove(self):
+        for handle in self.handles:
+            handle.remove()
+
+
+def phase_grad_accum():
+    """One WIT pretraining step of GA_MICRO_BATCHES micro-batches of 64 (the
+    same parameters, batch and dropout seed) with float32, bfloat16, and
+    again bfloat16 under ``MicroGradSums``.  That step's summed gradient
+    must equal the bf16 sum of the micro-batches' gradients it recorded bit
+    for bit, and lie per tensor within GA_GRAD_REL_BOUND of their float32
+    sum's norm (``gradient_errors``' rule: the key bias against the query
+    bias's norm); both sums are of the same gradients, so the backward's
+    run-to-run spread drops out.  The losses within GA_LOSS_REL_BOUND
+    relative: the three steps drove the same forward (the accumulation
+    starts after the loss).  Reports the worst tensors, the float32 step's
+    distance from the bfloat16 step (run-to-run spread included) and the
+    peak memory of the first two runs; returns the launches."""
+    from mmt_tpu_torch.models import DropoutRngs
+    from mmt_tpu_torch.train.tasks import PretrainingTask
+    from mmt_tpu_torch.train.train_state import TrainState
+
+    cfg = pretrain_experiment()
+    task = PretrainingTask(cfg.task, cfg.trainer, device="cuda", seed=14)
+    gen = torch.Generator("cuda").manual_seed(14)
+    batch = synthetic_pretrain_batch(cfg.task.train_data, cfg.task.model.encoder.mmt.vocab_size,
+                                     GA_MICRO_BATCHES * TRAIN_MICRO, gen)
+    layers = cfg.task.model.encoder.mmt.num_hidden_layers
+    runs = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for dtype, recorded in (("float32", False), ("bfloat16", False), ("bfloat16", True)):
+        keeper = GradKeeper(task.model)
+        step = task.make_train_step(TRAIN_MICRO, dtype)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sums = MicroGradSums(task.model) if recorded else None
+        t0 = time.perf_counter()
+        _, metrics = step(TrainState(step=0, model=task.model, optimizer=keeper), batch,
+                          DropoutRngs.for_step(0, 0, "cuda"))
+        torch.cuda.synchronize()
+        run = {"dtype": dtype, "recorded": recorded, "grads": keeper.grads,
+               "loss": metrics["total_loss"][0].item()}
+        if recorded:
+            sums.remove()
+        else:
+            run.update(seconds=time.perf_counter() - t0,
+                       peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        runs.append(run)
+    counts = launch_counts()
+    g32, g16, g16_rec = (r.pop("grads") for r in runs)
+    unequal = [n for n, g in g16_rec.items() if not torch.equal(g, sums.bf16[n].float())]
+    _, _, n_zero, errors = gradient_errors(g16_rec, sums.f32)
+    _, _, _, across = gradient_errors(g16, g32)
+    worst = max(errors, key=errors.get)
+    loss_rel = max(abs(r["loss"] - runs[0]["loss"]) for r in runs) / abs(runs[0]["loss"])
+    expected = layers * GA_MICRO_BATCHES * len(runs)
+    emit({"phase": "grad_accum", "micro_batches": GA_MICRO_BATCHES, "micro_batch": TRAIN_MICRO,
+          "seq_len": TRAIN_SEQ, "rate": DROPOUT, "runs": runs,
+          "loss_rel_diff": loss_rel, "loss_bound": GA_LOSS_REL_BOUND,
+          "bf16_sum_unequal_tensors": len(unequal), "bound": GA_GRAD_REL_BOUND,
+          "max_grad_rel_err": errors[worst], "worst_tensor": worst,
+          "largest_errors": sorted(errors.items(), key=lambda kv: -kv[1])[:5],
+          "float32_step_vs_bf16_step": sorted(across.items(), key=lambda kv: -kv[1])[:5],
+          "zero_tensors": n_zero, "launches": counts})
+    del runs, task, batch, g16, g32, g16_rec, sums
+    torch.cuda.empty_cache()
+    if unequal:
+        raise AssertionError(f"bf16 accumulation: the step's sum is not the bf16 sum of its "
+                             f"micro-batches' gradients at {unequal[:5]}")
+    if not (loss_rel <= GA_LOSS_REL_BOUND and errors[worst] <= GA_GRAD_REL_BOUND):
+        raise AssertionError(f"bf16 accumulation: loss {loss_rel}, {worst} {errors[worst]}")
+    if counts != {"fwd": expected, "fwd_window": 0, "bwd": expected, "bwd_window": 0}:
+        raise AssertionError(f"grad_accum launches {counts}, expected {expected} each")
+    return counts
 
 
 # ------------------------------------------------- WIT pretraining from records
@@ -2778,11 +3219,12 @@ def main() -> int:
     entry["max_abs_err"] = max(entry["max_abs_err"], phase_kernel_dropout())
     bwd_entry = phase_kernel_bwd()
     task, cfg, train_launches = phase_train()
-    # The forward runs on five main paths: retrieval (phase main),
+    # The forward runs on the main paths of retrieval (phase main),
     # pretraining (phase train), the predict CLI (phase predict_cli),
-    # finetuning (phase finetune) and pretraining from records (phase
-    # pretrain_records), the last three added below; the backward on the
-    # second, the fourth and the fifth.
+    # finetuning (phase finetune), continuous finetuning (phase continuous),
+    # bf16 gradient accumulation (phase grad_accum) and pretraining from
+    # records (phase pretrain_records), the last five added below; the
+    # backward on all of them but retrieval and the predict CLI.
     entry["launches"] = launches + train_launches["fwd"]
     bwd_entry["launches"] = train_launches["bwd"]
     phase_train_profile(task, cfg, fwd_alone["train"], bwd_entry["ms"])
@@ -2801,13 +3243,20 @@ def main() -> int:
     probe_entries = [*phase_probe_split(), *phase_probe_op_cost(), *phase_probe_hopper()]
     entry["launches"] += phase_predict_cli()
     with tempfile.TemporaryDirectory() as tmp:
-        ft_launches, ft_batch, task = phase_finetune(Path(tmp))
+        ft_launches, ft_batch, task, ft_restored = phase_finetune(Path(tmp))
         entry["launches"] += ft_launches["fwd"]
         bwd_entry["launches"] += ft_launches["bwd"]
         phase_finetune_profile(task, ft_batch)
         del task
         torch.cuda.empty_cache()
         phase_finetune_reference(Path(tmp), ft_batch)
+        cont_launches = phase_continuous(Path(tmp), ft_restored)
+        entry["launches"] += cont_launches["fwd"]
+        bwd_entry["launches"] += cont_launches["bwd"]
+        phase_checkpoint(Path(tmp))
+        ga_launches = phase_grad_accum()
+        entry["launches"] += ga_launches["fwd"]
+        bwd_entry["launches"] += ga_launches["bwd"]
         root = Path(tmp, "wit")
         root.mkdir()
         pr_launches, task, pr_cfg, pr_runs = phase_pretrain_records(root)

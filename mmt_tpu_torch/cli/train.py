@@ -3,14 +3,22 @@
     python -m mmt_tpu_torch.cli.train --experiment=mmt/classification \
         --mode=train_and_eval --model_dir=/tmp/model --config_file=itm.yaml
 
-Resolves the experiment, applies the yaml files and the string override
-(strict keys), writes the merged config to ``<model_dir>/params.yaml`` in
-the train modes (as JSON, which is valid YAML, so writing needs no yaml
-package), builds the task on ``--device`` (default the card) and runs
-``run_training``: train summaries, checkpoints with the optimizer state
-and the input stream's position (a rerun of the same command resumes from
+Applies the ``--gin_file`` / ``--gin_params`` bindings first
+(``utils/bindings.py``; e.g. ``build_encoder.encoder_cls = @my.Encoder``),
+then resolves the experiment, applies the yaml files and the string
+override (strict keys), writes the merged config to
+``<model_dir>/params.yaml`` in the train modes (as JSON, which is valid
+YAML, so writing needs no yaml package), builds the task on ``--device``
+(default the card) and runs ``run_training``: train summaries (jsonl, and
+TensorBoard event files under ``summaries/`` with
+``trainer.tensorboard_summaries``), checkpoints with the optimizer state
+and the input stream's position (written by a background thread with
+``trainer.async_checkpointing``; a rerun of the same command resumes from
 the latest), and in ``train_and_eval`` validation summaries with ``auc``
-and the best-checkpoint export.
+and the best-checkpoint export.  With ``trainer.save_on_preemption`` a
+SIGTERM ends the run after the current step with a checkpoint there, and
+the command exits 0 ("exiting after preemption checkpoint at step k"); run
+again, it resumes at k.
 
 What runs:
 
@@ -21,24 +29,33 @@ What runs:
   in the modes ``train``, ``train_and_eval`` and ``eval`` (the latest
   checkpoint in ``--model_dir`` if there is one, else the initial or
   warm-started parameters).  Validation reports the metric pairs' means,
-  and for classification ``auc``.
+  and for classification ``auc``.  ``trainer.grad_accum_dtype`` is
+  "float32" or "bfloat16" (pretraining's micro-batch sum).
+* ``--mode=continuous_train_and_eval`` with ``--pretrain_model_dir``:
+  ``train.continuous.run_continuous_finetune`` watches that directory and
+  finetunes each new checkpoint for ``trainer.train_steps`` steps from the
+  fresh initialisation, validates, and appends a line to
+  ``<model_dir>/continuous_results.jsonl``; it ends when no new checkpoint
+  came for CONTINUOUS_TIMEOUT_S seconds from its start.  As in the JAX
+  package, the rounds' batches start after the batch pulled to prime the
+  stream.
 * ``train_data.num_workers``: 0 runs the loader in this process as a
   checkpointable ``TrainStream`` (a resumed run continues the input stream
   where it stopped); N > 0 runs N loader processes
   (``data.prefetch.multiprocess_batches``), whose stream has no
   ``state()``, so a resumed run restarts it from its beginning, as the JAX
-  package's does.
+  package's does.  The workers ignore SIGTERM, so a signal sent to the
+  whole process group preempts the run cleanly; the command stops them.
 * ``task.init_checkpoint``: a checkpoint directory this package wrote.  A
   classification model takes the ``encoder.*`` tensors and the heads whose
   names match (``restore_encoder_and_heads``) and keeps the rest of its
   fresh initialisation; a pretraining model takes the whole checkpoint.
 
 Everything else raises NotImplementedError naming what is missing: TF and
-ViT checkpoints, ``continuous_train_and_eval``, and pipeline,
-model-parallel or ZeRO runtimes.  ``--lenient_warm_start`` (it concerns TF
-checkpoints) and ``--pretrain_model_dir`` (for
-``continuous_train_and_eval``) are accepted so that the JAX package's
-command lines parse.
+ViT checkpoints, pipeline, model-parallel or ZeRO runtimes, and
+``grad_accum_dtype`` values other than float32 and bfloat16.
+``--lenient_warm_start`` (it concerns TF checkpoints) is accepted so that
+the JAX package's command lines parse.
 """
 
 from __future__ import annotations
@@ -51,6 +68,11 @@ import os
 import numpy as np
 
 JAX_MODES = ("train", "train_and_eval", "eval", "continuous_train_and_eval")
+# continuous_train_and_eval: the watch ends this long after it started once
+# no new checkpoint comes (the JAX CLI's 3600 s), polling at this interval
+# (JAX's default).
+CONTINUOUS_TIMEOUT_S = 3600.0
+CONTINUOUS_POLL_S = 10.0
 
 
 def parse_args(argv=None):
@@ -63,6 +85,10 @@ def parse_args(argv=None):
     p.add_argument("--config_file", action="append", default=[])
     p.add_argument("--params_override", default="")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--gin_file", action="append", default=[],
+                   help="binding file(s) of 'target.attr = value' lines (utils/bindings.py)")
+    p.add_argument("--gin_params", action="append", default=[],
+                   help='inline bindings, e.g. "build_encoder.encoder_cls = @my.Encoder"')
     p.add_argument("--lenient_warm_start", action="store_true")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -88,10 +114,8 @@ def _check_ported(args, cfg) -> None:
     from mmt_tpu_torch.configs.data import MmtClassificationDataConfig
     from mmt_tpu_torch.configs.experiments import PretrainingTaskConfig
 
-    if args.mode == "continuous_train_and_eval":
-        raise NotImplementedError(
-            "--mode=continuous_train_and_eval: continuous finetuning "
-            "(train/continuous.py) is not ported yet")
+    if args.mode == "continuous_train_and_eval" and not args.pretrain_model_dir:
+        raise ValueError("--mode=continuous_train_and_eval needs --pretrain_model_dir")
     pretraining = isinstance(cfg.task, PretrainingTaskConfig)
     if not pretraining and not isinstance(cfg.task.train_data, MmtClassificationDataConfig):
         raise NotImplementedError(
@@ -104,6 +128,9 @@ def _check_ported(args, cfg) -> None:
     rt = cfg.runtime
     if rt.num_pipeline_stages > 1 or rt.num_model_parallel > 1 or rt.zero_sharded_optimizer:
         raise NotImplementedError("pipeline, model-parallel and ZeRO runtimes are not ported yet")
+    if cfg.trainer.grad_accum_dtype not in ("float32", "bfloat16"):
+        raise NotImplementedError(f"trainer.grad_accum_dtype={cfg.trainer.grad_accum_dtype!r}: "
+                                  f"the port accumulates in float32 or bfloat16")
 
 
 def _checkpoint_dir(path: str) -> str:
@@ -200,10 +227,18 @@ def train_batches(loader_cls, data_cfg):
 
 
 def main(argv=None):
-    """Runs the command; returns the final ``TrainState`` (train modes) or
-    the validation metrics (``--mode=eval``)."""
+    """Runs the command; returns the final ``TrainState`` (train modes),
+    the validation metrics (``--mode=eval``), the results by pretraining
+    step (``continuous_train_and_eval``), or None after a preemption."""
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
+    if args.gin_file or args.gin_params:
+        # Before any config or model is built (the reference's order,
+        # src/train.py:48).
+        from mmt_tpu_torch.utils.bindings import apply_bindings
+
+        logging.info("applied %d gin-style binding(s)",
+                     apply_bindings(args.gin_file, args.gin_params))
     cfg = build_experiment_config(args)
     _check_ported(args, cfg)
 
@@ -247,16 +282,39 @@ def _run(args, cfg, task, train_step, train_iter, device):
     from mmt_tpu_torch.train.checkpoint import CheckpointManager
     from mmt_tpu_torch.train.loop import run_training
     from mmt_tpu_torch.train.optimizer import create_optimizer
+    from mmt_tpu_torch.train.preemption import TrainingPreempted
     from mmt_tpu_torch.train.tasks import batch_to_device
     from mmt_tpu_torch.train.train_state import TrainState
 
+    continuous = args.mode == "continuous_train_and_eval"
+    if continuous:  # each round starts from the fresh initialisation
+        fresh = {k: v.to("cpu", copy=True) for k, v in task.model.state_dict().items()}
     if cfg.task.init_checkpoint:
         warm_start(task, cfg.task.init_checkpoint)
 
     eval_fn = None
-    if args.mode in ("train_and_eval", "eval") and _has_validation(cfg):
+    if args.mode != "train" and _has_validation(cfg):
         eval_fn = make_eval_fn(task, cfg.task.validation_data, cfg.trainer.validation_steps,
                                device)
+    place_batch = lambda b: batch_to_device(b, device)  # noqa: E731
+
+    if continuous:
+        from mmt_tpu_torch.train.continuous import run_continuous_finetune
+
+        def make_state():
+            task.model.load_state_dict(fresh)
+            return TrainState.create(task.model, create_optimizer(
+                cfg.trainer.optimizer_config, cfg.trainer.train_steps, task.model))
+
+        next(train_iter)  # JAX's rounds start after the batch that primed the stream
+        results = run_continuous_finetune(
+            pretrain_model_dir=args.pretrain_model_dir, model_dir=args.model_dir,
+            make_state=make_state, train_step=train_step, train_iter_fn=lambda: train_iter,
+            eval_fn=eval_fn, steps_per_checkpoint=cfg.trainer.train_steps, seed=args.seed,
+            place_batch=place_batch, poll_interval_s=CONTINUOUS_POLL_S,
+            timeout_s=CONTINUOUS_TIMEOUT_S)
+        logging.info("continuous finetune results: %s", results)
+        return results
 
     optimizer = create_optimizer(cfg.trainer.optimizer_config, cfg.trainer.train_steps,
                                  task.model)
@@ -274,11 +332,15 @@ def _run(args, cfg, task, train_step, train_iter, device):
         print(metrics)
         return metrics
 
-    state = run_training(
-        train_step=train_step, state=state, train_iter=train_iter, trainer=cfg.trainer,
-        model_dir=args.model_dir, eval_fn=eval_fn, seed=args.seed,
-        place_batch=lambda b: batch_to_device(b, device),
-    )
+    try:
+        state = run_training(
+            train_step=train_step, state=state, train_iter=train_iter, trainer=cfg.trainer,
+            model_dir=args.model_dir, eval_fn=eval_fn, seed=args.seed, place_batch=place_batch,
+        )
+    except TrainingPreempted as e:
+        # The checkpoint at e.step is durable; rerunning this command resumes there.
+        logging.warning("exiting after preemption checkpoint at step %d", e.step)
+        return None
     logging.info("training complete")
     return state
 

@@ -3,9 +3,9 @@
 The field names and values are kept so that yaml written for the JAX
 package loads here unchanged.  ``attention_impl`` keeps its two values:
 ``"xla"`` selects the dense PyTorch attention and ``"pallas"`` the fused
-Hopper kernel (``mmt_tpu_torch.ops.fused_attention``).  The
-``encoder_cls`` injection point is kept as a field for yaml
-compatibility; the port's encoder raises when it is set.
+Hopper kernel (``mmt_tpu_torch.ops.fused_attention``).  ``build_encoder``
+is the ``encoder_cls`` injection point of both models, bindable as
+``build_encoder.encoder_cls = @pkg.Encoder`` (``utils/bindings.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import dataclasses
 from typing import Optional
 
 from mmt_tpu_torch.configs.base import Config
+from mmt_tpu_torch.utils.bindings import configurable, resolve_reference
 
 
 @dataclasses.dataclass
@@ -71,11 +72,37 @@ class EncoderConfig(Config):
 
     type: str = "mmt"
     mmt: MmtEncoderConfig = dataclasses.field(default_factory=MmtEncoderConfig)
-    # Dotted import path of a custom encoder class; not supported by the
-    # port yet (the encoder raises when it is set).
+    # Dotted import path ("pkg.mod.Class" or "pkg.mod:Class") of a custom
+    # encoder class that build_encoder instantiates in place of MmtEncoder.
     encoder_cls: str = ""
 
     def get(self) -> MmtEncoderConfig:
         if self.type != "mmt":
             raise ValueError(f"Only 'mmt' encoders are supported, got {self.type!r}.")
         return self.mmt
+
+
+@configurable
+def build_encoder(config: EncoderConfig, num_patch_per_row: int, patch_dim: int,
+                  device=None, encoder_cls=None):
+    """The encoder of both models, with the ``encoder_cls`` injection point
+    (``src/configs/encoders.py:112-158``).
+
+    The class comes from the argument, else from a binding
+    ``build_encoder.encoder_cls = @pkg.Encoder``, else from the config's
+    dotted ``encoder_cls``, else it is ``MmtEncoder``.  A custom class is
+    built as ``cls(config=<MmtEncoderConfig>, num_patch_per_row=...,
+    patch_dim=..., device=...)``: an ``nn.Module`` whose forward takes
+    ``MmtEncoder.forward``'s arguments and returns ``{"sequence_output":
+    <float32>[B, S, H]}`` (and ``"pooled_output"``).  The model's
+    ``init_params`` then fills its parameters with the rest.
+    """
+    cls = encoder_cls
+    if cls is None and config.encoder_cls:
+        cls = resolve_reference(config.encoder_cls)
+    if cls is None:
+        from mmt_tpu_torch.models.encoder import MmtEncoder  # deferred: models import configs
+
+        cls = MmtEncoder
+    return cls(config=config.get(), num_patch_per_row=num_patch_per_row, patch_dim=patch_dim,
+               device=device)

@@ -1,7 +1,7 @@
 """Experiment registry and trainer configs (fields of ``mmt_tpu/configs/experiments.py``).
 
 The three experiments of the JAX package load here to the same values.
-The port trains ``mmt/pretraining`` (on dummy input) and
+The port trains ``mmt/pretraining`` (from records or dummy input) and
 ``mmt/classification`` (ITM finetuning from records), and runs
 ``mmt/retrieval`` through ``cli.predict``.  ``RuntimeConfig`` keeps the
 JAX package's mesh fields for yaml compatibility: the port trains on one
@@ -38,11 +38,12 @@ class RuntimeConfig(Config):
 class TrainerConfig(Config):
     """Training-loop knobs (same fields and defaults as the JAX package).
 
-    Kept for yaml compatibility and unused by the port's loop:
-    ``async_checkpointing`` (saves are synchronous), ``save_on_preemption``
-    (no preemption watcher: a killed run resumes from its last
-    checkpoint) and ``tensorboard_summaries`` (jsonl summaries only);
-    ``grad_accum_dtype`` values other than "float32" raise.
+    ``async_checkpointing``: checkpoints are written by a background thread
+    after a copy to host memory; ``tensorboard_summaries``: TensorBoard
+    event files beside the jsonl summaries; ``save_on_preemption``: a
+    SIGTERM ends the run after the current step with a checkpoint there
+    (``train/loop.py``).  ``grad_accum_dtype`` is "float32" or "bfloat16"
+    (the micro-batch gradient sum of pretraining); other values raise.
     ``micro_batch_size`` applies to pretraining only: the classification
     step takes the whole batch, as JAX's does.
     """

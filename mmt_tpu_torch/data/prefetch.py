@@ -12,8 +12,17 @@ and the per-shard seeds).
 Workers are started with the ``spawn`` method: the parent may have
 initialised CUDA, after which ``fork`` is unsafe.  A spawned worker imports
 the port afresh and runs only the numpy / PIL loader; it never touches
-CUDA.  The port has no gin-style bindings, so a worker re-applies none
-(the JAX package's workers re-apply the parent's ``--gin_*`` bindings).
+CUDA.  It first replays the parent's gin-style bindings
+(``utils.bindings.snapshot_bindings``), which a fresh interpreter would
+otherwise lack, as the JAX package's workers do.
+
+Workers ignore SIGTERM: a scheduler that signals the whole process group
+preempts the training process, which checkpoints after its step and
+stops the workers as it exits (closing the generator kills them).  Had the
+workers died with the signal, the parent would have raised for a dead
+worker while it waited for a batch, instead of exiting cleanly.  A worker
+also exits within a second of its parent's death, so a parent killed
+outright leaves no worker behind.
 
 Unlike the JAX package's workers, which pickle each batch through the
 queue's pipe, a worker copies a batch's arrays into one shared-memory block
@@ -43,6 +52,8 @@ import multiprocessing as mp
 import os
 import queue as queue_lib
 import secrets
+import signal
+import threading
 import time
 import traceback
 from multiprocessing import resource_tracker, shared_memory
@@ -115,8 +126,22 @@ def _unlink(name: str) -> None:
         resource_tracker.unregister("/" + name, "shared_memory")
 
 
-def _worker(loader_fn, shard, num_shards, out_queue, prefix):
+def _exit_with_parent(parent_pid: int) -> None:
+    """Ends this worker within _POLL_S of its parent's death (it would
+    otherwise wait on a full queue for ever, holding its batches)."""
+    while os.getppid() == parent_pid:
+        time.sleep(_POLL_S)
+    os._exit(1)
+
+
+def _worker(loader_fn, shard, num_shards, out_queue, prefix, binding_lines, parent_pid):
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)  # the parent decides when workers stop
+    threading.Thread(target=_exit_with_parent, args=(parent_pid,), daemon=True).start()
     try:
+        if binding_lines:
+            from mmt_tpu_torch.utils.bindings import apply_bindings
+
+            apply_bindings(params=binding_lines)
         for i, batch in enumerate(loader_fn(shard, num_shards)):
             name = f"{prefix}_{shard}_{i}"
             out_queue.put((name, _share(batch, name)))
@@ -163,14 +188,19 @@ def multiprocess_batches(
     (host-level sharding composed with worker-level sharding).  With
     ``num_workers <= 0`` the loader runs in this process.  A worker that
     sends nothing for WORKER_TIMEOUT_S, fails or dies raises RuntimeError.
-    Closing the generator stops the workers and frees their blocks.
+    Each worker replays this process's gin-style bindings and ignores
+    SIGTERM; closing the generator kills the workers and frees their
+    blocks.
     """
     if num_workers <= 0:
         yield from loader_fn(base_shard, total_shards)
         return
 
+    from mmt_tpu_torch.utils.bindings import snapshot_bindings
+
     ctx = mp.get_context("spawn")
     prefix = f"mmt_{os.getpid()}_{secrets.token_hex(4)}"
+    binding_lines = tuple(snapshot_bindings())
     queues, procs = [], []
     try:
         for i in range(num_workers):
@@ -178,7 +208,7 @@ def multiprocess_batches(
             p = ctx.Process(
                 target=_worker,
                 args=(loader_fn, base_shard * num_workers + i,
-                      total_shards * num_workers, q, prefix),
+                      total_shards * num_workers, q, prefix, binding_lines, os.getpid()),
                 daemon=True,
             )
             p.start()
@@ -200,13 +230,13 @@ def multiprocess_batches(
     finally:
         for p in procs:
             if p.is_alive():
-                p.terminate()
+                p.kill()  # they ignore SIGTERM
         for p in procs:
             p.join(timeout=5)
         for q in queues:
             q.cancel_join_thread()
             q.close()
-        # Blocks made but never taken: queued, or cut short by terminate.
+        # Blocks made but never taken: queued, or cut short by kill.
         for name in os.listdir(_SHM_DIR):
             if name.startswith(prefix + "_"):
                 _unlink(name)

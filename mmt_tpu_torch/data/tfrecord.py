@@ -62,6 +62,9 @@ class TFRecordWriter:
         self._f.write(payload)
         self._f.write(struct.pack("<I", _masked_crc(payload)))
 
+    def flush(self) -> None:
+        self._f.flush()
+
     def close(self) -> None:
         self._f.close()
 

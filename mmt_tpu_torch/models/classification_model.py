@@ -1,7 +1,9 @@
 """Classification model: encoder + classification heads.
 
 Torch counterpart of ``mmt_tpu/models/classification_model.py``: returns
-``sequence_output`` plus ``<head>_logits`` per head.  The model is built
+``sequence_output`` plus ``<head>_logits`` per head.  The encoder comes
+from ``configs.encoder.build_encoder`` (``MmtEncoder``, or the
+``encoder_cls`` of a binding or of the config).  The model is built
 on ``device`` (default ``"cuda"``, which raises when no GPU is present)
 with parameters drawn from a numpy ``seed``; load converted Flax
 parameters with ``convert.params_from_flax`` + ``load_state_dict``.
@@ -15,10 +17,11 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from mmt_tpu_torch.configs.encoder import build_encoder
 from mmt_tpu_torch.configs.model import ClassificationModelConfig
 from mmt_tpu_torch.device import resolve_device
 from mmt_tpu_torch.models.common import DropoutRngs, init_params
-from mmt_tpu_torch.models.encoder import MmtEncoder
+from mmt_tpu_torch.models.encoder import compute_dtype
 from mmt_tpu_torch.models.heads import ClassificationHead
 
 
@@ -28,17 +31,15 @@ class MmtClassificationModel(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         encoder_cfg = config.encoder.get()
-        if config.encoder.encoder_cls:
-            raise NotImplementedError("encoder_cls is not ported yet")
         names = [h.name for h in config.cls_heads]
         if len(set(names)) != len(names):
             raise ValueError("Classification heads should have unique names.")
         self.config = config
-        self.encoder = MmtEncoder(encoder_cfg, num_patch_per_row, patch_dim, device=dev)
+        self.encoder = build_encoder(config.encoder, num_patch_per_row, patch_dim, device=dev)
         self.cls_heads = nn.ModuleDict({
             str(h.name): ClassificationHead(
                 encoder_cfg.hidden_size, h.inner_dim, h.num_classes, h.activation,
-                h.cls_token_idx, dtype=self.encoder.dtype, dropout_rate=h.dropout_rate,
+                h.cls_token_idx, dtype=compute_dtype(encoder_cfg), dropout_rate=h.dropout_rate,
                 device=dev)
             for h in config.cls_heads
         })
@@ -47,7 +48,7 @@ class MmtClassificationModel(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.encoder.embeddings_layer_norm.weight.device
+        return next(self.parameters()).device
 
     def forward(
         self,

@@ -53,6 +53,13 @@ _NUM_OTHER_RELATIVE_IDS = 3
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def compute_dtype(config: MmtEncoderConfig) -> torch.dtype:
+    """The torch dtype of ``config.compute_dtype``; ValueError for others."""
+    if config.compute_dtype not in _DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
+    return _DTYPES[config.compute_dtype]
+
+
 def encoder_geometry(config: MmtEncoderConfig, num_patch_per_row: int) -> Optional[RelGeometry]:
     """The relative-id and attention-pattern geometry of a config, or None
     when it has no bias.
@@ -96,12 +103,9 @@ class MmtEncoder(nn.Module):
                 f"`relative_pos_max_distance` ({cfg.relative_pos_max_distance})")
         if cfg.quantize != "none":
             raise NotImplementedError(f"quantize={cfg.quantize!r} is not ported yet")
-        if cfg.compute_dtype not in _DTYPES:
-            raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
-
         self.config = cfg
         self.num_patch_per_row = num_patch_per_row
-        self.dtype = _DTYPES[cfg.compute_dtype]
+        self.dtype = compute_dtype(cfg)
         emb_size = cfg.embedding_size or cfg.hidden_size
         self.word_embeddings = EmbeddingLookup(
             cfg.vocab_size, emb_size, cfg.hidden_size, use_one_hot_lookup=False,

@@ -3,7 +3,8 @@
 Torch counterpart of ``mmt_tpu/models/pretraining_model.py``: returns
 ``sequence_output``, ``mlm_logits`` (with ``mlm_positions``),
 ``mpp_logits`` (with ``mpp_positions``) and ``<head>_logits`` per
-classification head.  The image comes as ``patch_embeddings`` or as
+classification head.  The encoder comes from ``configs.encoder.build_encoder``
+(``MmtEncoder``, or the ``encoder_cls`` of a binding or of the config).  The image comes as ``patch_embeddings`` or as
 ``images`` (raw, at the model's image size) with MPP's ``patch_mask``; see
 ``MmtEncoder``.  The MLM output projection uses the encoder's word
 embedding table when ``bind_word_embedding_table`` is set (the default),
@@ -21,10 +22,11 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from mmt_tpu_torch.configs.encoder import build_encoder
 from mmt_tpu_torch.configs.model import PretrainModelConfig
 from mmt_tpu_torch.device import resolve_device
 from mmt_tpu_torch.models.common import DropoutRngs, init_params
-from mmt_tpu_torch.models.encoder import MmtEncoder
+from mmt_tpu_torch.models.encoder import compute_dtype
 from mmt_tpu_torch.models.heads import ClassificationHead, MaskedLMHead, MaskedPPHead
 
 
@@ -35,14 +37,16 @@ class MmtPretrainingModel(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         encoder_cfg = config.encoder.get()
-        if config.encoder.encoder_cls:
-            raise NotImplementedError("encoder_cls is not ported yet")
         names = [h.name for h in config.cls_heads]
         if len(set(names)) != len(names):
             raise ValueError("Classification heads should have unique names.")
         self.config = config
-        self.encoder = MmtEncoder(encoder_cfg, num_patch_per_row, patch_dim, device=dev)
-        dtype = self.encoder.dtype
+        self.encoder = build_encoder(config.encoder, num_patch_per_row, patch_dim, device=dev)
+        if config.bind_word_embedding_table and not hasattr(
+                getattr(self.encoder, "word_embeddings", None), "embedding_table"):
+            raise ValueError("bind_word_embedding_table: the encoder has no "
+                             "word_embeddings.embedding_table for the MLM head to share")
+        dtype = compute_dtype(encoder_cfg)
         emb_size = encoder_cfg.embedding_size or encoder_cfg.hidden_size
         self.mlm_embedding_table = None
         if not config.bind_word_embedding_table:
@@ -63,7 +67,7 @@ class MmtPretrainingModel(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.encoder.embeddings_layer_norm.weight.device
+        return next(self.parameters()).device
 
     def forward(
         self,

@@ -11,7 +11,13 @@ place of Orbax (tensors on the CPU):
   parameters only (prediction and warm starts read a training checkpoint
   so), ``restore_train_state`` the parameters and the optimizer state.
   Both raise ``FileNotFoundError`` naming the directory when it holds no
-  checkpoint.
+  checkpoint.  With ``async_save`` (the JAX package's Orbax option),
+  ``save`` copies the state to host memory and returns; one background
+  thread writes the files and prunes, so the write overlaps the next
+  steps.  At most one save is in flight (a second waits for the first), a
+  writer's exception is raised again by the next ``save`` or by
+  ``wait_until_finished``, which a caller runs before it reads the
+  checkpoint back or exits.
 * ``BestCheckpointExporter``: keeps the parameters of the best step by an
   eval metric (``higher`` or ``lower``) as a one-step checkpoint directory
   ``<export_dir>/best_ckpt`` and writes ``<export_dir>/best_info.json``.
@@ -25,6 +31,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from typing import Dict, Mapping, Optional
 
 import torch
@@ -34,23 +41,28 @@ _MODEL_FILE = "model.pt"
 _OPTIMIZER_FILE = "optimizer.pt"
 
 
-def _to_cpu(tree):
+def _to_cpu(tree, copy: bool = False):
+    """``tree`` with its tensors on the CPU; ``copy`` copies those already
+    there too (a snapshot that later in-place updates leave alone)."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
+        return tree.detach().to("cpu", copy=copy)
     if isinstance(tree, Mapping):
-        return {k: _to_cpu(v) for k, v in tree.items()}
+        return {k: _to_cpu(v, copy) for k, v in tree.items()}
     return tree
 
 
 def _save(obj, path: str) -> None:
-    torch.save(_to_cpu(obj), path + ".tmp")
+    torch.save(obj, path + ".tmp")
     os.replace(path + ".tmp", path)
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 32):
+    def __init__(self, directory: str, max_to_keep: int = 32, async_save: bool = False):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.async_save = async_save
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
 
     def _path(self, step: int, name: str = _MODEL_FILE) -> str:
         return os.path.join(self.directory, str(step), name)
@@ -66,14 +78,45 @@ class CheckpointManager:
         """Writes the model's parameters and buffers (and the optimizer's
         state) as step ``step``, then drops all but the newest
         ``max_to_keep`` steps.  ``model.pt`` is written last: a step
-        counts once it is there."""
+        counts once it is there.  With ``async_save`` the state is copied
+        to host memory before this returns (the card is synchronised by the
+        copy) and written by a background thread."""
+        self.wait_until_finished()
+        model_state = _to_cpu(model.state_dict(), copy=self.async_save)
+        opt_state = None if optimizer is None else _to_cpu(optimizer.state_dict(),
+                                                           copy=self.async_save)
+        if not self.async_save:
+            self._write(step, model_state, opt_state)
+            return
+        self._writer = threading.Thread(target=self._write_in_background,
+                                        args=(step, model_state, opt_state),
+                                        name=f"checkpoint-{step}")
+        self._writer.start()
+
+    def _write(self, step: int, model_state, opt_state) -> None:
         os.makedirs(os.path.dirname(self._path(step)), exist_ok=True)
-        if optimizer is not None:
-            _save(optimizer.state_dict(), self._path(step, _OPTIMIZER_FILE))
-        _save(model.state_dict(), self._path(step))
+        if opt_state is not None:
+            _save(opt_state, self._path(step, _OPTIMIZER_FILE))
+        _save(model_state, self._path(step))
         steps = self.steps()
         for old in steps[:max(0, len(steps) - self.max_to_keep)]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
+
+    def _write_in_background(self, step: int, model_state, opt_state) -> None:
+        try:
+            self._write(step, model_state, opt_state)
+        except Exception as e:  # raised again by the caller's next call
+            self._error = e
+
+    def wait_until_finished(self) -> None:
+        """Returns once the save in flight (if any) is durable; raises the
+        writer's exception if it failed."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
 
     def latest_step(self) -> Optional[int]:
         return max(self.steps(), default=None)

@@ -10,8 +10,11 @@ Torch counterparts of ``mmt_tpu/train/tasks.py``.  ``PretrainingTask``:
 * ``make_train_step``: one optimizer update per global batch; with
   ``micro_batch_size`` the batch is cut into k contiguous micro-batches
   and the gradients of loss / k are summed in the parameters' float32
-  ``.grad`` (the JAX ``lax.scan`` accumulation), and the micro-batches'
-  metric pairs are summed;
+  ``.grad`` (the JAX ``lax.scan`` accumulation), or with
+  ``grad_accum_dtype="bfloat16"`` in a bf16 buffer per parameter (each
+  micro-batch's gradient rounded to bf16 and added, the sum cast back to
+  float32 before the update), and the micro-batches' metric pairs are
+  summed;
 * ``make_eval_step``: the loss and metrics in ``eval()`` mode, no grad.
 
 ``ClassificationTask`` builds the classification model of a
@@ -55,6 +58,21 @@ MODEL_INPUT_KEYS = (
     "images",  # patch extraction on the device (ship_raw_images)
     "patch_mask",  # MPP's patch zeroing on the device (pretraining, raw images)
 )
+
+
+_ACCUM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _accumulate(params, acc, dtype):
+    """Adds each parameter's ``.grad`` (a micro-batch's gradient), rounded
+    to ``dtype``, to its running sum in ``dtype`` and clears it (JAX's
+    ``a + g.astype(acc_dtype)``); returns the sums."""
+    out = []
+    for i, p in enumerate(params):
+        g = torch.zeros_like(p, dtype=dtype) if p.grad is None else p.grad.to(dtype)
+        out.append(g if acc is None else acc[i] + g)
+        p.grad = None
+    return out
 
 
 def batch_to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:
@@ -121,9 +139,13 @@ class PretrainingTask:
     def make_train_step(self, micro_batch_size: int = 0, grad_accum_dtype: str = "float32"):
         """Returns (state, batch, rngs) -> (state, metric pairs); ``batch``
         holds tensors on the task's device."""
-        if grad_accum_dtype != "float32":
+        if grad_accum_dtype not in _ACCUM_DTYPES:
             raise NotImplementedError(
-                f"grad_accum_dtype={grad_accum_dtype!r}: the port accumulates in float32 only")
+                f"grad_accum_dtype={grad_accum_dtype!r}: the port accumulates in "
+                f"{' or '.join(_ACCUM_DTYPES)}")
+        # As in JAX, the accumulator's dtype applies only with micro-batches.
+        acc_dtype = _ACCUM_DTYPES[grad_accum_dtype] if micro_batch_size else torch.float32
+        params = [p for p in self.model.parameters() if p.requires_grad]
 
         def step(state: TrainState, batch, rngs: Optional[DropoutRngs] = None):
             bsz = batch["word_ids"].shape[0]
@@ -133,15 +155,21 @@ class PretrainingTask:
             m = bsz // k
             sums: Dict = {}
             loss_sum = torch.zeros((), device=self.device)
+            acc = None
             for i in range(k):
                 micro = {key: v[i * m:(i + 1) * m] for key, v in batch.items()}
                 loss, (_, metrics) = self.compute_loss(micro, rngs, deterministic=False)
                 (loss / k).backward()
+                if acc_dtype != torch.float32:
+                    acc = _accumulate(params, acc, acc_dtype)
                 loss_sum = loss_sum + loss.detach() / k
                 for name, (total, count) in metrics.items():
                     prev = sums.get(name)
                     pair = (total.detach(), count.detach())
                     sums[name] = pair if prev is None else (prev[0] + pair[0], prev[1] + pair[1])
+            if acc is not None:
+                for p, a in zip(params, acc):
+                    p.grad = a.to(p.dtype)
             state = state.apply_gradients()
             sums["total_loss"] = (loss_sum, torch.ones((), device=self.device))
             return state, sums

@@ -458,8 +458,8 @@ def test_cli_refuses_what_is_not_ported(records, tmp_path):
                                               records["val"], "pallas")))
     base = ["--experiment=mmt/classification", f"--model_dir={tmp_path / 'm'}",
             f"--config_file={config}", "--device=cpu"]
-    with pytest.raises(NotImplementedError, match="continuous"):
-        main(base + ["--mode=continuous_train_and_eval", "--pretrain_model_dir=x"])
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        main(base + ["--params_override=trainer.grad_accum_dtype=float16"])
     with pytest.raises(NotImplementedError, match="pipeline"):
         main(base + ["--params_override=runtime.num_pipeline_stages=2"])
     with pytest.raises(NotImplementedError, match="ZeRO"):

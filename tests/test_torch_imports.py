@@ -36,7 +36,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "probes.op_cost_probe", "probes.hopper_probe", "probes.common", "probes.fwd_ab",
                  "data.tfrecord", "data.native", "data.assembly", "data.loaders",
                  "text.wordpiece", "text.trimmer", "text.native", "features.patches",
-                 "cli.predict", "train.checkpoint", "features.masking", "data.prefetch"):
+                 "cli.predict", "train.checkpoint", "features.masking", "data.prefetch",
+                 "train.preemption", "train.continuous", "utils.tb_events", "utils.bindings",
+                 "utils.profiling"):
         assert f"mmt_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
