@@ -129,7 +129,31 @@ Phases, each printed as one JSON line:
    plain version at this path's shape (B=128, S=256, the first batch's
    lengths, no dropout; the o / lse bounds of phase 3); pairs/s of the whole call, of the host part (records ->
    batches) and of the device part (batches -> scores).
-21. finetune: Flickr30k ITM finetuning at full width through
+21. int8: the flagship model of phase main in dynamic int8
+   (``quantize="int8_dynamic"``: the 72 projection and FFN layers as
+   ``ops.quant.Int8Linear``, the float state dict loaded unchanged) against
+   the same weights in bf16, at the retrieval shape (S=4096, batch 32, the
+   batches of phase main) and at the predict CLI's (S=256, batch 128,
+   lengths ~ U[204, 256]): examples/s of each, INT8_ROUNDS passes in turns,
+   the largest |ITM probability| difference (JAX's
+   ``scripts/bench_suite.py`` measure), 12 forward-kernel launches per int8
+   forward, and one full-shape ``Int8Linear`` call's int32 accumulator
+   (``torch._int_mm``) bit-equal to the exact float64 product, with both
+   products' times beside the bf16 matmul's.
+22. export: the predict CLI's serving export at full width (the records,
+   config and seeded checkpoint of phase predict_cli): ``cli.predict.main``
+   with ``--export_serving_artifact`` (a static batch of 128: the config's
+   attention is the fused op) and again with ``--export_bucket_sizes="1,
+   8,32,"`` (a bundle), and the xla impl exported with a symbolic batch at
+   batch 8; a fresh Python process that imports only
+   ``mmt_tpu_torch.eval.export`` (and fails if ``mmt_tpu_torch.models`` was
+   imported) loads all three and scores the CLI's first batch, bundle
+   requests of 1, 5, 8 and 40 examples and xla calls at 3 and 17, and
+   times the bucket-32 artifact; against the direct inference step on the
+   same examples the scores must lie within 4 bf16 spacings (equality is
+   expected), the artifact within 1% of the parameters' bytes, and the
+   process must launch the forward kernel 12 times per fused call.
+23. finetune: Flickr30k ITM finetuning at full width through
    ``mmt_tpu_torch.cli.train.main`` in train_and_eval: seeded paired records
    (512 for training, 4 steps' worth at 128 records a step, and 128 for
    validation; 224 x 224 PNG images, 5 captions of 8-24 words each), a
@@ -159,17 +183,17 @@ Phases, each printed as one JSON line:
    command run again must resume at k, finish, and end within the resume
    bound above; k, the seconds from the signal to the exit and the exit
    codes are reported.
-22. finetune_profile: one B=512 training step under the profiler (device
+24. finetune_profile: one B=512 training step under the profiler (device
    time by kernel group, idle share, the forward and backward kernels per
    call), and the two kernels at B=512, S=256 with the records' lengths and
    dropout 0.1: against their plain versions (the bounds of phases 3 and 8),
    alone, against SDPA handed the bias mask, and against the bound.
-23. finetune_reference: the classification model's per-tensor gradients on
+25. finetune_reference: the classification model's per-tensor gradients on
    2 examples of the records (positives weighted 2, attention dropout 0.1
    from the same seeds) with the kernels, with dense attention and with
    dense attention in float32: the kernels' relative error against float32
    may exceed dense attention's by at most TRAIN_GRAD_BOUND.
-24. continuous: ``cli.train.main --mode=continuous_train_and_eval`` on the
+26. continuous: ``cli.train.main --mode=continuous_train_and_eval`` on the
    finetune yaml at CONT_STEPS steps a round, watching a pretraining
    directory that holds the seeded WIT checkpoint at step 0; once the first
    ``continuous_results.jsonl`` line is written, a helper thread saves a
@@ -179,12 +203,12 @@ Phases, each printed as one JSON line:
    ``cls_accuracy``, ``cls_loss`` and ``auc``, the finetune phase's
    ``count_restored`` in each round, and 12 forward launches per step and
    per eval batch and 12 backward launches per step.
-25. checkpoint: ``CheckpointManager.save`` of the WIT pretraining model and
+27. checkpoint: ``CheckpointManager.save`` of the WIT pretraining model and
    its AdamW state, synchronous and asynchronous in turns (sync, async,
    async, sync): the bytes, the ms the caller is blocked and the ms until
    the checkpoint is durable; the restored tensors bit-equal to the saved
    ones.
-26. grad_accum: one WIT pretraining step of 8 micro-batches of 64 (S=256,
+28. grad_accum: one WIT pretraining step of 8 micro-batches of 64 (S=256,
    dropout 0.1, the same parameters, batch and seeds) with float32,
    bfloat16, and again bfloat16 with every micro-batch's float32 gradient
    recorded as the backward leaves it: that step's summed gradient equal,
@@ -194,7 +218,7 @@ Phases, each printed as one JSON line:
    relative (the same forward); the worst tensor and the card's peak
    memory of each run, 12 launches of each kernel per micro-batch.
 
-27. pretrain_records: WIT pretraining from records through
+29. pretrain_records: WIT pretraining from records through
    ``mmt_tpu_torch.cli.train.main --experiment=mmt/pretraining`` in
    train_and_eval: seeded WIT-style records (8 files of 512 for training,
    512 for validation; smooth PNG images at 256 x 192, 192 x 256 and
@@ -215,14 +239,14 @@ Phases, each printed as one JSON line:
    per validation batch and 12 backward launches per micro-batch.  Then a
    profile of the loader's per-record work (``loader_profile``) and
    validation alone (records -> metrics).
-28. pretrain_records_profile: one optimizer step of a 4096-row batch of
+30. pretrain_records_profile: one optimizer step of a 4096-row batch of
    the records (``profile_batch``) on the card under the profiler (device
    time by kernel group, idle share, the kernels per call) and the host's
    share of the runs' steady steps; the forward and backward kernels at a
    micro-batch's lengths (B=64, rate 0.1) and the forward at a validation
    batch's (B=256, rate 0) against their plain versions (the bounds of
    phases 3 and 8), SDPA and the bound.
-29. pretrain_records_reference: a micro-batch of 64 rows of the records,
+31. pretrain_records_reference: a micro-batch of 64 rows of the records,
    kernels against dense attention: the loss within LOSS_REL_BOUND, the
    gradients by train_reference's rule, or, for a tensor outside it,
    finetune_reference's float32 rule; then one MLM + MPP + ITM batch at MPP
@@ -1824,6 +1848,296 @@ def phase_predict_cli() -> int:
 
 
 
+# ------------------------------------------------------------------- int8
+
+INT8_CLI_LENGTHS = (TRAIN_MIN_LEN, CLI_SEQ)  # the predict CLI's lengths ~ U[204, 256]
+# Repeats of each model's timed pass over its batches; the two models in turns.
+INT8_ROUNDS = 2
+SCORE_BOUND = 4 * 2.0 ** -8  # 4 bf16 spacings just below 1, the scores' upper end
+
+
+def int8_config(quantize: str):
+    """The flagship model of phase main with ``quantize``."""
+    import dataclasses
+
+    cfg = flagship_config("pallas")
+    enc = dataclasses.replace(cfg.encoder.mmt, quantize=quantize)
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, mmt=enc))
+
+
+def cli_shape_batches(seed: int = 6, count: int = 2):
+    """``count`` batches at the predict CLI's shape (B=128, S=256, the 196
+    patches and text, lengths ~ U[204, 256])."""
+    rng = np.random.default_rng(seed)
+    segment = np.where(np.arange(CLI_SEQ) < NUM_PATCHES + 2, 1, 2).astype(np.int32)
+    return [dict(
+        word_ids=rng.integers(0, 30000, (CLI_BATCH, CLI_SEQ)).astype(np.int32),
+        segment_ids=np.broadcast_to(segment, (CLI_BATCH, CLI_SEQ)).copy(),
+        patch_embeddings=rng.standard_normal((CLI_BATCH, NUM_PATCHES, PATCH_DIM), np.float32),
+        lengths=rng.integers(INT8_CLI_LENGTHS[0], INT8_CLI_LENGTHS[1] + 1,
+                             CLI_BATCH).astype(np.int32)) for _ in range(count)]
+
+
+def accumulator_check(model, batch) -> dict:
+    """One full-shape ``Int8Linear`` call of ``model`` (layer 0's FFN input
+    projection, captured by a hook on ``batch``): its int32 accumulator
+    from ``torch._int_mm`` against the exact plain product, bit for bit."""
+    from mmt_tpu_torch.ops import quant
+
+    from mmt_tpu_torch.eval.predict import MODEL_INPUT_KEYS
+
+    layer = model.encoder.transformer.layers[0].intermediate
+    seen = {}
+
+    def keep_input(module, args):
+        seen.setdefault("x", args[0])  # returns None: the call's arguments stay
+
+    hook = layer.register_forward_pre_hook(keep_input)
+    try:
+        with torch.inference_mode():
+            model(**{k: torch.as_tensor(batch[k]).cuda() for k in MODEL_INPUT_KEYS if k in batch})
+    finally:
+        hook.remove()
+    with torch.inference_mode():
+        x_q, _ = quant.dynamic_quantize_activations(seen["x"])
+        w_q, _ = quant.quantize_symmetric(layer.weight, contracting_dims=(1,))
+        a = x_q.reshape(-1, x_q.shape[-1])
+        got, want = quant.int8_matmul(a, w_q), quant.int8_matmul_plain(a, w_q)
+        equal = bool(torch.equal(got, want))
+        ms = cuda_ms(lambda: quant.int8_matmul(a, w_q), iters=10)
+        plain_ms = cuda_ms(lambda: quant.int8_matmul_plain(a, w_q), iters=2)
+        bf16 = seen["x"].reshape(a.shape).to(torch.bfloat16)
+        bf16_ms = cuda_ms(lambda: bf16 @ layer.weight.to(torch.bfloat16).t(), iters=10)
+    out = {"shape": [a.shape[0], a.shape[1], w_q.shape[0]], "equal": equal,
+           "max_abs_diff": int((got.long() - want.long()).abs().max()),
+           "int_mm_ms": ms, "plain_ms": plain_ms, "bf16_matmul_ms": bf16_ms}
+    del seen, a, got, want, bf16
+    torch.cuda.empty_cache()
+    if not equal:
+        raise AssertionError(f"int8 accumulator differs from the exact product: {out}")
+    return out
+
+
+def timed_scores(model, batches):
+    """(seconds, scores) of ``eval.predict``'s inference step over
+    ``batches``, ended by a synchronise."""
+    from mmt_tpu_torch.eval.predict import make_inference_step
+
+    step = make_inference_step(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = torch.cat([step(b) for b in batches])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, scores
+
+
+def int8_shape(name, fp, q, batches) -> dict:
+    """bf16 and int8 at one shape: examples/s in turns (the int8 passes'
+    launches counted alone), the largest ITM probability difference,
+    the accumulator check."""
+    for model in (fp, q):  # warm-up: cuBLAS handles, allocator
+        timed_scores(model, batches[:1])
+    examples = sum(len(b["lengths"]) for b in batches)
+    fp_s, q_s, launches = [], [], 0
+    for _ in range(INT8_ROUNDS):
+        seconds, fp_scores = timed_scores(fp, batches)
+        fp_s.append(seconds)
+        reset_launch_counts()
+        seconds, q_scores = timed_scores(q, batches)
+        counts = launch_counts()
+        q_s.append(seconds)
+        if counts["fwd"] != 12 * len(batches) or any(v for k, v in counts.items() if k != "fwd"):
+            raise AssertionError(f"int8 {name}: launches {counts}, expected 12 x {len(batches)}")
+        launches += counts["fwd"]
+    diff = float((q_scores - fp_scores).abs().max())
+    if not (torch.isfinite(q_scores).all() and 0 <= q_scores.min() and q_scores.max() <= 1):
+        raise AssertionError(f"int8 {name}: bad scores {q_scores}")
+    fp_eps, q_eps = [examples / s for s in fp_s], [examples / s for s in q_s]
+    return {"shape": [len(batches[0]["lengths"]), batches[0]["word_ids"].shape[1]],
+            "forwards": len(batches), "examples": examples,
+            "examples_per_s_bf16": fp_eps, "examples_per_s_int8": q_eps,
+            "int8_over_bf16": float(np.median(q_eps) / np.median(fp_eps)),
+            "max_abs_itm_prob_diff": diff, "launches_per_forward": 12,
+            "launches": launches, "accumulator": accumulator_check(q, batches[0])}
+
+
+def phase_int8() -> int:
+    """The flagship model in dynamic int8 against bf16 at the retrieval
+    shape (S=4096, batch 32) and at the predict CLI's (S=256, batch 128);
+    returns the forward kernel's launches in the int8 passes."""
+    from mmt_tpu_torch.models import MmtClassificationModel
+    from mmt_tpu_torch.ops import quant
+
+    fp = MmtClassificationModel(int8_config("none"))
+    q = MmtClassificationModel(int8_config("int8_dynamic"))
+    q.load_state_dict(fp.state_dict())  # the float checkpoint, unchanged
+    linears = sum(isinstance(m, quant.Int8Linear) for m in q.modules())
+    if linears != 6 * 12:
+        raise AssertionError(f"{linears} Int8Linear layers, expected 72")
+    flagship = int8_shape("retrieval", fp, q, retrieval_batches())
+    cli = int8_shape("predict_cli", fp, q, cli_shape_batches())
+    emit({"phase": "int8", "int8_linear_layers": linears, "retrieval": flagship,
+          "predict_cli_shape": cli})
+    del fp, q
+    torch.cuda.empty_cache()
+    return flagship["launches"] + cli["launches"]
+
+
+# ----------------------------------------------------------------- export
+
+EXPORT_REQUESTS = (1, 5, 8, 40)  # examples per bundle request
+EXPORT_BUCKETS = "1, 8,32,"  # as a user might type it
+EXPORT_XLA_BATCH, EXPORT_XLA_CALLS = 8, (3, 17)
+EXPORT_TIMED_CALLS = 10
+
+# The serving process: imports the export module alone, loads the static
+# artifact, the bundle and the xla artifact, scores, times the bundle's
+# calls of 32 examples (its bucket-32 artifact, host clock, the scores
+# copied back) and prints one JSON line.
+EXPORT_SERVER = r"""
+import json, sys, time
+import numpy as np, torch
+from mmt_tpu_torch.eval.export import load_scoring, load_scoring_bundle
+from mmt_tpu_torch.ops import fused_attention as fa
+
+root = sys.argv[1]
+params = torch.load(root + "/params.pt", map_location="cuda")
+first = dict(np.load(root + "/first.npz"))
+out = {}
+t0 = time.perf_counter()
+static = load_scoring(open(root + "/artifact.pt2", "rb").read())
+bundle = load_scoring_bundle(open(root + "/bundle.zip", "rb").read())
+xla = load_scoring(open(root + "/xla.pt2", "rb").read())
+out["load_seconds"] = time.perf_counter() - t0
+out["static"] = static.call(params, first).float().cpu().tolist()
+out["bundle"] = {n: bundle.call(params, {k: v[:n] for k, v in first.items()}).tolist()
+                 for n in json.loads(sys.argv[2])}
+out["xla"] = {n: xla.call(params, {k: v[:n] for k, v in first.items()}).float().cpu().tolist()
+              for n in json.loads(sys.argv[3])}
+b32 = {k: v[:32] for k, v in first.items()}
+bundle.call(params, b32)
+t0 = time.perf_counter()
+for _ in range(int(sys.argv[4])):
+    bundle.call(params, b32)  # the bucket-32 artifact; scores back on the host
+out["bucket32_ms"] = (time.perf_counter() - t0) / int(sys.argv[4]) * 1e3
+out["launches"] = fa.relative_attention_forward.launches
+out["launches_window"] = fa.relative_attention_forward.launches_window
+out["model_modules"] = sorted(m for m in sys.modules if m.startswith("mmt_tpu_torch.models"))
+print(json.dumps(out))
+sys.exit(1 if out["model_modules"] else 0)
+"""
+
+
+def phase_export() -> int:
+    """The predict CLI's serving export at full width (S=256, batch 128,
+    fused attention): a static-batch artifact and a bucket bundle through
+    ``cli.predict.main``, an xla artifact with a symbolic batch, all loaded
+    and called in a fresh process that never imports the model code, held
+    against the direct inference step.  Returns the forward kernel's
+    launches in that process."""
+    from mmt_tpu_torch.cli import predict as cli_predict
+    from mmt_tpu_torch.configs import get_experiment_config, override
+    from mmt_tpu_torch.data.loaders import MmtRetrievalLoader
+    from mmt_tpu_torch.eval import export
+    from mmt_tpu_torch.eval.predict import MODEL_INPUT_KEYS, make_inference_step
+    from mmt_tpu_torch.train.checkpoint import CheckpointManager
+    from mmt_tpu_torch.train.tasks import ClassificationTask
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        meta = write_flickr_records(root)
+        experiment = flickr_experiment(str(root / "vocab.txt"))
+        (root / "experiment.json").write_text(json.dumps(experiment))
+        cfg = override(get_experiment_config("mmt/classification"), experiment)
+        task = ClassificationTask(cfg.task, cfg.trainer, seed=4)
+        CheckpointManager(str(root / "ckpt")).save(0, task.model)
+        params = task.model.state_dict()
+        torch.save(params, root / "params.pt")
+        param_bytes = sum(v.numel() * v.element_size() for v in params.values())
+        data_cfg = cli_predict.build_retrieval_data_config(cfg.task.train_data, meta, "test",
+                                                           CLI_BATCH)
+        first = next(iter(MmtRetrievalLoader(data_cfg).load()))
+        first = {k: np.asarray(first[k]) for k in MODEL_INPUT_KEYS if k in first}
+        np.savez(root / "first.npz", **first)
+
+        argv = [f"--config_file={root / 'experiment.json'}",
+                f"--input_meta_data_path={root / 'meta.json'}", "--predict_split=test",
+                f"--init_checkpoint={root / 'ckpt'}", f"--test_output_dir={root / 'out'}",
+                f"--predict_global_batch_size={CLI_BATCH}"]
+        seconds = {}
+        t0 = time.perf_counter()
+        cli_predict.main(argv + [f"--export_serving_artifact={root / 'artifact.pt2'}"])
+        seconds["cli_static"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_predict.main(argv + [f"--export_serving_artifact={root / 'bundle.zip'}",
+                                 f"--export_bucket_sizes={EXPORT_BUCKETS}"])
+        seconds["cli_bundle"] = time.perf_counter() - t0
+        if Path(root, "out", "results.csv").exists():
+            raise AssertionError("the export runs scored the pairs")
+        xla_task = ClassificationTask(
+            override(cfg, flickr_experiment("", "xla")).task, cfg.trainer, seed=4)
+        xla_task.model.load_state_dict(params)
+        t0 = time.perf_counter()
+        (root / "xla.pt2").write_bytes(export.export_scoring(
+            xla_task, params, {k: v[:EXPORT_XLA_BATCH] for k, v in first.items()}))
+        seconds["xla"] = time.perf_counter() - t0
+        sizes = {name: Path(root, name).stat().st_size
+                 for name in ("artifact.pt2", "bundle.zip", "xla.pt2")}
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", EXPORT_SERVER, str(root), json.dumps(EXPORT_REQUESTS),
+             json.dumps(EXPORT_XLA_CALLS), str(EXPORT_TIMED_CALLS)],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        seconds["server"] = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"the serving process failed ({proc.returncode}): "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    served = json.loads(proc.stdout.strip().splitlines()[-1])
+
+    # The direct inference step on the same examples, in this process.
+    step, xla_step = make_inference_step(task.model), make_inference_step(xla_task.model)
+    errors = {"static": float(np.abs(np.asarray(served["static"])
+                                     - step(first).float().cpu().numpy()).max())}
+    for n in EXPORT_REQUESTS:
+        want = step({k: v[:n] for k, v in first.items()}).float().cpu().numpy()
+        errors[f"bundle_{n}"] = float(np.abs(np.asarray(served["bundle"][str(n)]) - want).max())
+    for n in EXPORT_XLA_CALLS:
+        want = xla_step({k: v[:n] for k, v in first.items()}).float().cpu().numpy()
+        errors[f"xla_{n}"] = float(np.abs(np.asarray(served["xla"][str(n)]) - want).max())
+    b32 = {k: v[:32] for k, v in first.items()}
+    step(b32).cpu()
+    t0 = time.perf_counter()
+    for _ in range(EXPORT_TIMED_CALLS):
+        step(b32).cpu()  # as the bundle's call: scores back on the host
+    eager32_ms = (time.perf_counter() - t0) / EXPORT_TIMED_CALLS * 1e3
+    # Fused-attention calls in the serving process: the static artifact
+    # once, the bundle once per chunk (1, 8, 8, 32 + 8), the bucket-32
+    # artifact 1 + EXPORT_TIMED_CALLS times; 12 layers each.
+    calls = 1 + 5 + 1 + EXPORT_TIMED_CALLS
+    emit({"phase": "export", "batch": CLI_BATCH, "seq_len": CLI_SEQ,
+          "buckets": EXPORT_BUCKETS, "requests": list(EXPORT_REQUESTS),
+          "xla_export_batch": EXPORT_XLA_BATCH, "xla_calls": list(EXPORT_XLA_CALLS),
+          "bytes": sizes, "param_bytes": param_bytes,
+          "artifact_share_of_params": sizes["artifact.pt2"] / param_bytes,
+          "max_abs_err": errors, "bound": SCORE_BOUND,
+          "bucket32_ms": served["bucket32_ms"], "eager32_ms": eager32_ms,
+          "load_seconds": served["load_seconds"], "seconds": seconds,
+          "launches": served["launches"], "expected_launches": 12 * calls})
+    if served["launches"] != 12 * calls or served["launches_window"]:
+        raise AssertionError(f"{served['launches']} launches in the serving process, "
+                             f"expected 12 x {calls}")
+    if not max(errors.values()) <= SCORE_BOUND:
+        raise AssertionError(f"served scores differ from the inference step: {errors}")
+    if not sizes["artifact.pt2"] <= 0.01 * param_bytes:
+        raise AssertionError(f"the artifact holds {sizes['artifact.pt2']} bytes, over 1% "
+                             f"of the {param_bytes} parameter bytes")
+    del task, xla_task
+    torch.cuda.empty_cache()
+    return served["launches"]
+
+
 # ---------------------------------------------------------------- finetune
 
 # Flickr30k ITM finetuning (configs/exp_yamls/finetune/flickr30k/
@@ -3220,11 +3534,13 @@ def main() -> int:
     bwd_entry = phase_kernel_bwd()
     task, cfg, train_launches = phase_train()
     # The forward runs on the main paths of retrieval (phase main),
-    # pretraining (phase train), the predict CLI (phase predict_cli),
+    # pretraining (phase train), the predict CLI (phase predict_cli), int8
+    # serving (phase int8), the exported artifacts (phase export),
     # finetuning (phase finetune), continuous finetuning (phase continuous),
     # bf16 gradient accumulation (phase grad_accum) and pretraining from
-    # records (phase pretrain_records), the last five added below; the
-    # backward on all of them but retrieval and the predict CLI.
+    # records (phase pretrain_records), the last seven added below; the
+    # backward on all of them but retrieval, the predict CLI, int8 and the
+    # export.
     entry["launches"] = launches + train_launches["fwd"]
     bwd_entry["launches"] = train_launches["bwd"]
     phase_train_profile(task, cfg, fwd_alone["train"], bwd_entry["ms"])
@@ -3242,6 +3558,8 @@ def main() -> int:
     phase_train_window_reference()
     probe_entries = [*phase_probe_split(), *phase_probe_op_cost(), *phase_probe_hopper()]
     entry["launches"] += phase_predict_cli()
+    entry["launches"] += phase_int8()
+    entry["launches"] += phase_export()
     with tempfile.TemporaryDirectory() as tmp:
         ft_launches, ft_batch, task, ft_restored = phase_finetune(Path(tmp))
         entry["launches"] += ft_launches["fwd"]

@@ -7,5 +7,8 @@ one-pass backward), built with nvcc at first use into the git-ignored
 ``_build/`` directory.  Retrieval inference (``eval.predict``,
 ``cli.predict``), WIT pretraining and ITM finetuning
 (``train.tasks.PretrainingTask`` / ``ClassificationTask`` +
-``train.loop.run_training``, ``cli.train``) run through them.
+``train.loop.run_training``, ``cli.train``) run through them; so do the
+serving extras (dynamic int8 in ``ops.quant``, ``torch.export`` scoring
+artifacts and bundles in ``eval.export``).  ``preprocessing`` holds the
+dataset CLIs.
 """

@@ -16,9 +16,18 @@ Usage:
 ``mmt_tpu_torch.train.checkpoint.CheckpointManager``.  The model runs on
 ``--device`` (default ``cuda``; without a GPU that raises, it does not
 carry on on the CPU).  One device: the JAX CLI's multi-device batch
-rounding and mesh have no counterpart yet, and the serving-artifact export
-flags raise.  A yaml ``--config_file`` needs pyyaml; one written as JSON
-text loads without it.
+rounding and mesh have no counterpart yet.  A yaml ``--config_file`` needs
+pyyaml; one written as JSON text loads without it.
+
+``--export_serving_artifact=F`` restores the checkpoint, writes the scoring
+computation as a ``torch.export`` artifact to F (``eval/export.py``; a
+static batch of ``--predict_global_batch_size`` when the config's
+``attention_impl`` is ``pallas``, a symbolic one otherwise, as in JAX) and
+returns without scoring; with ``--export_bucket_sizes=1,8,32`` it writes a
+bundle of one static-batch artifact per bucket instead.  The bucket list
+takes spaces, empty items and a trailing comma; a non-integer or a size
+below 1 is a usage error (exit 2), as is a bucket list without
+``--export_serving_artifact``.
 """
 
 from __future__ import annotations
@@ -27,6 +36,19 @@ import argparse
 import dataclasses
 import json
 import logging
+
+
+def bucket_sizes(text: str) -> list:
+    """``--export_bucket_sizes``: comma-separated ints >= 1; spaces, empty
+    items and a trailing comma are ignored."""
+    items = [x.strip() for x in text.split(",") if x.strip()]
+    try:
+        sizes = [int(x) for x in items]
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"not a comma-separated list of integers: {text!r}")
+    if not sizes or min(sizes) < 1:
+        raise argparse.ArgumentTypeError(f"bucket sizes must be integers >= 1, got {text!r}")
+    return sizes
 
 
 def parse_args(argv=None):
@@ -39,12 +61,20 @@ def parse_args(argv=None):
     p.add_argument("--init_checkpoint", required=True)
     p.add_argument("--test_output_dir", required=True)
     p.add_argument("--predict_global_batch_size", type=int, default=2048)
-    p.add_argument("--export_serving_artifact", default="",
-                   help="not ported yet (the serving export, Slice D): raises")
-    p.add_argument("--export_bucket_sizes", default="",
-                   help="not ported yet (the serving export, Slice D): raises")
+    p.add_argument(
+        "--export_serving_artifact", default="",
+        help="write the scoring computation as a torch.export artifact to this path "
+             "and exit without scoring; see mmt_tpu_torch/eval/export.py")
+    p.add_argument(
+        "--export_bucket_sizes", type=bucket_sizes, default=[],
+        help="comma-separated batch-size buckets (e.g. '1,8,32'): write a bundle of "
+             "static-batch artifacts instead of one artifact; load it with "
+             "mmt_tpu_torch.eval.export.load_scoring_bundle")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.export_bucket_sizes and not args.export_serving_artifact:
+        p.error("--export_bucket_sizes needs --export_serving_artifact (the bundle's path)")
+    return args
 
 
 def build_retrieval_data_config(task_data_cfg, meta, split: str, batch_size: int):
@@ -83,10 +113,6 @@ def build_retrieval_data_config(task_data_cfg, meta, split: str, batch_size: int
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
-    if args.export_serving_artifact or args.export_bucket_sizes:
-        raise NotImplementedError(
-            "--export_serving_artifact / --export_bucket_sizes: the serving export "
-            "(Slice D of the port) is not ported yet")
 
     from mmt_tpu_torch.configs import get_experiment_config
     from mmt_tpu_torch.configs.base import from_yaml_file, parse_params_override
@@ -118,6 +144,24 @@ def main(argv=None):
     logging.info("restored checkpoint from %s", args.init_checkpoint)
 
     loader = MmtRetrievalLoader(data_cfg)
+    if args.export_serving_artifact:
+        from mmt_tpu_torch.eval import export
+
+        first = next(iter(loader.load()))
+        params = task.model.state_dict()
+        if args.export_bucket_sizes:
+            blob = export.export_scoring_bundle(task, params, first,
+                                                batch_sizes=args.export_bucket_sizes)
+        else:
+            impl = cfg.task.model.encoder.get().attention_impl
+            blob = export.export_scoring(task, params, first,
+                                         symbolic_batch=(impl != "pallas"))
+        with open(args.export_serving_artifact, "wb") as f:
+            f.write(blob)
+        logging.info("wrote serving artifact (%d bytes) to %s",
+                     len(blob), args.export_serving_artifact)
+        return
+
     results = predict(task.make_inference_step(), loader.load())
     recall = write_results(results, args.test_output_dir)
     print(json.dumps(recall, indent=2))

@@ -62,7 +62,7 @@ class MmtEncoderConfig(Config):
     # to the first attention_num_global slots (-1 = the image part, 2+P^2).
     attention_window: int = 0
     attention_num_global: int = -1
-    # "none" only in the port; "int8_dynamic" raises.
+    # "none" or "int8_dynamic" (inference only; see mmt_tpu_torch/ops/quant.py).
     quantize: str = "none"
 
 

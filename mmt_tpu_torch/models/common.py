@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmt_tpu_torch.ops.quant import Int8Linear
+
 
 class LayerSeeds(NamedTuple):
     """The randomness of one transformer layer call: the int32 seed of the
@@ -81,6 +83,11 @@ class DropoutRngs:
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """``layer`` in the compute dtype, from float32 parameters; an
+    ``Int8Linear`` quantizes ``x`` as given (JAX's ``Int8Dense`` does not
+    cast its input) and returns ``dtype``."""
+    if isinstance(layer, Int8Linear):
+        return layer(x, dtype)
     bias = layer.bias.to(dtype) if layer.bias is not None else None
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 

@@ -30,8 +30,9 @@ image size) takes the place of ``patch_embeddings``: /255, normalisation and
 patch extraction then run here, on the model's device, and ``patch_mask``
 (<float>[B, N], MPP's masked patches from a ``ship_raw_images`` batch)
 zeroes those patches' features before the projection, as the host
-pipeline zeroes them in ``patch_embeddings``.  Not ported yet:
-``quantize="int8_dynamic"`` (it raises).
+pipeline zeroes them in ``patch_embeddings``.  ``quantize="int8_dynamic"``
+runs the layers' projections and FFN in dynamic int8 (``ops/quant.py``;
+inference only, as in JAX).
 """
 
 from __future__ import annotations
@@ -101,8 +102,6 @@ class MmtEncoder(nn.Module):
             raise ValueError(
                 f"`relative_vocab_size` ({cfg.relative_vocab_size}) too small for "
                 f"`relative_pos_max_distance` ({cfg.relative_pos_max_distance})")
-        if cfg.quantize != "none":
-            raise NotImplementedError(f"quantize={cfg.quantize!r} is not ported yet")
         self.config = cfg
         self.num_patch_per_row = num_patch_per_row
         self.dtype = compute_dtype(cfg)
@@ -132,6 +131,7 @@ class MmtEncoder(nn.Module):
             hidden_dropout=cfg.hidden_dropout_prob,
             attention_dropout=cfg.attention_probs_dropout_prob,
             remat=cfg.remat,
+            quantize=cfg.quantize,
             device=device,
         )
         self.pooler_transform = None

@@ -34,6 +34,11 @@ only the layer's input is kept, and the backward runs the layer's forward
 again, attention kernel included, from the same seeds, so remat on and off
 give the same function and the same gradients.
 
+``quantize="int8_dynamic"`` makes the q/k/v/output projections and the
+FFN's two layers ``ops.quant.Int8Linear`` (dynamic int8, inference only:
+``train()`` mode raises); LayerNorm, attention, embeddings and heads stay
+as they are (``mmt_tpu/models/relative_attention.py:86-91,217``).
+
 Parameter layout: the q/k/v projections are ``nn.Linear(hidden, A*D)``
 (Flax DenseGeneral kernel ``[hidden, A, D]``), the output projection
 ``nn.Linear(A*D, hidden)`` (kernel ``[A, D, hidden]``), and the relative
@@ -54,6 +59,7 @@ from mmt_tpu_torch.ops.fused_attention import (
     relative_attention,
     relative_attention_plain,
 )
+from mmt_tpu_torch.ops.quant import dense_cls
 
 ATTENTION_IMPLS = ("xla", "pallas")
 
@@ -68,9 +74,11 @@ class RelativeAttention(nn.Module):
         dtype: torch.dtype,
         attention_impl: str = "xla",
         attention_dropout: float = 0.0,
+        quantize: str = "none",
         device=None,
     ):
         super().__init__()
+        linear = dense_cls(quantize)
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} not divisible by {num_heads} heads")
         if attention_impl not in ATTENTION_IMPLS:
@@ -82,19 +90,24 @@ class RelativeAttention(nn.Module):
         self.dtype = dtype
         self.attention_impl = attention_impl
         self.attention_dropout = attention_dropout
-        self.query = nn.Linear(hidden_size, hidden_size, device=device)
-        self.key = nn.Linear(hidden_size, hidden_size, device=device)
-        self.value = nn.Linear(hidden_size, hidden_size, device=device)
+        self.quantize = quantize
+        self.query = linear(hidden_size, hidden_size, device=device)
+        self.key = linear(hidden_size, hidden_size, device=device)
+        self.value = linear(hidden_size, hidden_size, device=device)
         self.relative_emb_table = None
         if relative_vocab_size:
             self.relative_emb_table = nn.Parameter(torch.empty(
                 relative_vocab_size, num_heads, self.head_dim, device=device))
-        self.output = nn.Linear(hidden_size, hidden_size, device=device)
+        self.output = linear(hidden_size, hidden_size, device=device)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 dropout_seed: Optional[int] = None) -> torch.Tensor:
         """``dropout_seed``: the int32 seed of the attention dropout, used in
         ``train()`` mode at a rate > 0 (required there)."""
+        if self.quantize != "none" and self.training:
+            raise ValueError(
+                "quantize='int8_dynamic' is an inference-only path "
+                "(rounding has zero gradient); train with quantize='none'.")
         batch, seq_len, _ = x.shape
         shape = (batch, seq_len, self.num_heads, self.head_dim)
         q = dense(x, self.query, self.dtype).view(shape)
@@ -125,19 +138,21 @@ class RelativeTransformerLayer(nn.Module):
         attention_impl: str = "xla",
         hidden_dropout: float = 0.0,
         attention_dropout: float = 0.0,
+        quantize: str = "none",
         device=None,
     ):
         super().__init__()
+        linear = dense_cls(quantize)
         self.dtype = dtype
         self.use_pre_activation_order = use_pre_activation_order
         self.hidden_dropout = hidden_dropout
         self.attention = RelativeAttention(
             hidden_size, num_heads, relative_vocab_size, geometry, dtype,
-            attention_impl, attention_dropout, device=device)
+            attention_impl, attention_dropout, quantize, device=device)
         self.attention_layer_norm = nn.LayerNorm(hidden_size, eps=1e-12, device=device)
         self.ffn_layer_norm = nn.LayerNorm(hidden_size, eps=1e-12, device=device)
-        self.intermediate = nn.Linear(hidden_size, intermediate_size, device=device)
-        self.ffn_output = nn.Linear(intermediate_size, hidden_size, device=device)
+        self.intermediate = linear(hidden_size, intermediate_size, device=device)
+        self.ffn_output = linear(intermediate_size, hidden_size, device=device)
 
     def _ffn(self, h: torch.Tensor) -> torch.Tensor:
         h = gelu(dense(h, self.intermediate, self.dtype))

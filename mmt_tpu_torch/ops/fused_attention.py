@@ -34,8 +34,11 @@ Public pieces:
   ``custom_vjp`` ``pallas_relative_attention``).
 * ``relative_attention_forward`` / ``relative_attention_backward`` are
   the launchers: on CUDA tensors they launch the kernels or raise; on CPU
-  tensors they return the plain versions.  Each launcher counts its
-  kernel launches, dense and windowed apart:
+  tensors they return the plain versions.  The forward launcher goes
+  through the registered torch op ``mmt_tpu_torch::rel_attention_fwd``
+  (with a fake version, so that ``torch.export`` can trace a model that
+  calls it).  Each launcher counts its kernel launches, dense and windowed
+  apart:
   ``relative_attention_forward.launches`` / ``.launches_window`` and
   ``relative_attention_backward.launches`` / ``.launches_window``.
 * ``relative_attention_plain`` / ``relative_attention_backward_plain``
@@ -329,9 +332,14 @@ def relative_attention_plain(
     ids = _plain_ids(geometry, rel_table, seq_len, q.device)
     window = _window_term(geometry, seq_len, q.device)
     chunk = max(1, _PLAIN_CHUNK_ELEMENTS // (num_heads * seq_len * seq_len))
+    if torch.compiler.is_exporting():
+        # A traced batch may be symbolic: one chunk, whatever its size.
+        chunks = [slice(None)]
+    else:
+        chunks = [slice(b0, b0 + chunk) for b0 in range(0, batch, chunk)]
     outs, lses = [], []
-    for b0 in range(0, batch, chunk):
-        sl = slice(b0, b0 + chunk)
+    for sl in chunks:
+        b0 = sl.start or 0
         logits = _masked_logits(q[sl], k[sl], rel_table, ids, lengths[sl], window)
         lses.append(torch.logsumexp(logits, dim=-1))
         probs = torch.softmax(logits, dim=-1)
@@ -743,9 +751,27 @@ def _check_devices(device: str, **tensors) -> torch.device:
     return dev
 
 
+def _geometry_args(rel_table, geometry) -> Tuple[int, ...]:
+    """The geometry as the kernels' 8 ints (image_len, num_patch_per_row,
+    num_core_layers, text_max_distance, image_part_id, text_part_id, window,
+    num_global; window and num_global 0 when dense); all 0 without a bias."""
+    geo = geometry if rel_table is not None and geometry is not None else RelGeometry(0)
+    window = geo.window if _windowed(geo) else 0
+    return (geo.image_len, geo.num_patch_per_row, geo.num_core_layers,
+            geo.text_max_distance, geo.image_part_id, geo.text_part_id,
+            window, geo.num_global if window else 0)
+
+
+def _geometry_from_args(geo_args) -> RelGeometry:
+    """``_geometry_args``'s inverse (the bias-carrying case)."""
+    _, num_patch_per_row, num_core_layers, text_max_distance, _, _, window, num_global = geo_args
+    return RelGeometry(text_max_distance, num_patch_per_row, num_core_layers, window, num_global)
+
+
 def _check_kernel_inputs(q, lengths, rel_table, geometry, **same_shape):
-    """Shape/dtype/alignment checks shared by the launchers; returns the
-    kernel's geometry arguments (ids, then window and num_global)."""
+    """Shape/dtype checks shared by the launchers; returns whether the bias
+    is used, the relative vocab and the kernel's geometry arguments
+    (``_geometry_args``)."""
     batch, seq_len, num_heads, head_dim = q.shape
     for name, t in same_shape.items():
         if t.shape != q.shape:
@@ -768,11 +794,7 @@ def _check_kernel_inputs(q, lengths, rel_table, geometry, **same_shape):
     if use_rel and geometry.image_len and geometry.num_patch_per_row > MAX_PATCH_PER_ROW:
         raise ValueError(f"the kernels take num_patch_per_row <= {MAX_PATCH_PER_ROW}, "
                          f"got {geometry.num_patch_per_row}")
-    geo = geometry if use_rel else RelGeometry(0)
-    window = geo.window if _windowed(geo) else 0
-    return use_rel, vocab, (geo.image_len, geo.num_patch_per_row, geo.num_core_layers,
-                            geo.text_max_distance, geo.image_part_id, geo.text_part_id,
-                            window, geo.num_global if window else 0)
+    return use_rel, vocab, _geometry_args(rel_table, geometry)
 
 
 def _kernel_table(rel_table, kernel_table):
@@ -816,6 +838,71 @@ def _refuse_grad(*tensors) -> None:
             "whose backward runs the backward kernel")
 
 
+# The forward launcher as a registered torch op, so that a traced program
+# (``torch.export``) holds one opaque call: its fake version gives the
+# outputs' shapes, the CUDA version launches the kernel, the CPU version is
+# the plain one.  Arguments are flat: the geometry as its 8 ints
+# (``_geometry_args``), the dropout as its rate and int32 seed (0 at rate
+# 0).  ``kernel_table`` is the table in the kernels' layout when the caller
+# built it (CUDA only); the kernel builds it from ``rel_table`` otherwise.
+
+
+@torch.library.custom_op("mmt_tpu_torch::rel_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _rel_attention_fwd_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel_table: Optional[torch.Tensor],
+    kernel_table: Optional[torch.Tensor], lengths: torch.Tensor, image_len: int,
+    num_patch_per_row: int, num_core_layers: int, text_max_distance: int,
+    image_part_id: int, text_part_id: int, window: int, num_global: int,
+    dropout_rate: float, dropout_seed: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    batch, seq_len, num_heads, head_dim = q.shape
+    q, k, v = _contiguous_aligned(q=q, k=k, v=v)
+    rel = None
+    if rel_table is not None:
+        rel = _kernel_table(rel_table, kernel_table)
+    lengths32 = lengths.to(torch.int32).contiguous()
+    o = torch.empty_like(q)
+    lse = torch.empty(batch, num_heads, seq_len, dtype=torch.float32, device=q.device)
+    lib = _fwd_kernel()
+    err = lib.mmt_rel_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        rel.data_ptr() if rel is not None else None,
+        lengths32.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        batch, seq_len, num_heads, head_dim,
+        rel_table.shape[0] if rel_table is not None else 0,
+        image_len, num_patch_per_row, num_core_layers, text_max_distance,
+        image_part_id, text_part_id, window, num_global,
+        1.0 / math.sqrt(head_dim),
+        *_dropout_args(dropout_rate, dropout_seed),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"rel_attention_fwd launch failed: CUDA error {err} "
+                           f"({_error_string(lib, err)})")
+    if window:
+        relative_attention_forward.launches_window += 1
+    else:
+        relative_attention_forward.launches += 1
+    return o, lse
+
+
+@_rel_attention_fwd_op.register_kernel("cpu")
+def _rel_attention_fwd_cpu(q, k, v, rel_table, kernel_table, lengths, *geo_and_dropout):
+    *geo_args, dropout_rate, dropout_seed = geo_and_dropout
+    geometry = _geometry_from_args(geo_args) if rel_table is not None else None
+    o, lse = relative_attention_plain(q, k, v, rel_table, geometry, lengths, dropout_rate,
+                                      dropout_seed if dropout_rate > 0.0 else None)
+    return o.contiguous(), lse.contiguous()
+
+
+@_rel_attention_fwd_op.register_fake
+def _rel_attention_fwd_fake(q, k, v, rel_table, kernel_table, lengths, *geo_and_dropout):
+    batch, seq_len, num_heads, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((batch, num_heads, seq_len), dtype=torch.float32))
+
+
 def relative_attention_forward(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -833,7 +920,9 @@ def relative_attention_forward(
     ``device`` names where the tensors must lie.  On ``"cuda"`` the Hopper
     kernel runs (bf16 q/k/v, head_dim 32 or 64, relative vocab <= 64), its
     windowed variant when ``geometry.window > 0``, or this raises; on
-    ``"cpu"`` the plain version runs.  Not differentiable:
+    ``"cpu"`` the plain version runs.  Both go through the registered op
+    ``torch.ops.mmt_tpu_torch.rel_attention_fwd``, which counts the
+    kernel's launches.  Not differentiable:
     raises when grad mode is on and an input requires grad
     (``relative_attention`` is the differentiable op).
 
@@ -852,35 +941,17 @@ def relative_attention_forward(
     _check_dropout(dropout_rate, dropout_seed)
     _refuse_grad(q, k, v, rel_table)
     dev = _check_devices(device, q=q, k=k, v=v, lengths=lengths)
-    if dev.type == "cpu":
-        return relative_attention_plain(q, k, v, rel_table, geometry, lengths,
-                                        dropout_rate, dropout_seed)
-
-    batch, seq_len, num_heads, head_dim = q.shape
-    use_rel, vocab, geo_args = _check_kernel_inputs(q, lengths, rel_table, geometry, k=k, v=v)
-    q, k, v = _contiguous_aligned(q=q, k=k, v=v)
-    rel = _kernel_table(rel_table, kernel_table) if use_rel else None
-    lengths32 = lengths.to(torch.int32).contiguous()
-    o = torch.empty_like(q)
-    lse = torch.empty(batch, num_heads, seq_len, dtype=torch.float32, device=q.device)
-    lib = _fwd_kernel()
-    err = lib.mmt_rel_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        rel.data_ptr() if rel is not None else None,
-        lengths32.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        batch, seq_len, num_heads, head_dim, vocab, *geo_args,
-        1.0 / math.sqrt(head_dim),
-        *_dropout_args(dropout_rate, dropout_seed),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"rel_attention_fwd launch failed: CUDA error {err} "
-                           f"({_error_string(lib, err)})")
-    if _windowed(geometry):
-        relative_attention_forward.launches_window += 1
+    if rel_table is None or geometry is None:
+        rel_table = kernel_table = None
+    if dev.type == "cuda":
+        _, _, geo_args = _check_kernel_inputs(q, lengths, rel_table, geometry, k=k, v=v)
+        if rel_table is not None:
+            kernel_table = _kernel_table(rel_table, kernel_table)
     else:
-        relative_attention_forward.launches += 1
-    return o, lse
+        geo_args, kernel_table = _geometry_args(rel_table, geometry), None
+    seed = int(dropout_seed) if dropout_rate > 0.0 else 0
+    return _rel_attention_fwd_op(q, k, v, rel_table, kernel_table, lengths, *geo_args,
+                                 float(dropout_rate), seed)
 
 
 relative_attention_forward.launches = 0

@@ -357,3 +357,41 @@ def test_hopper_probes_ok(cuda):
     for name in hp.PROBES:
         assert hp.run_probe(name) <= hp.PROBES[name][3], name
     assert all(count >= 1 for count in hp.launches.values())
+
+
+@pytest.mark.parametrize("m,k,n", [(8192, 768, 3072), (5, 20, 13), (17, 64, 8)])
+def test_int8_matmul_on_the_card_equals_plain(cuda, m, k, n):
+    """``torch._int_mm`` with its padding (M > 16, K and N multiples of 8)
+    against the exact float64 product, bit for bit."""
+    from mmt_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=cuda, generator=gen)
+    b = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=cuda, generator=gen)
+    assert torch.equal(quant.int8_matmul(a, b), quant.int8_matmul_plain(a, b))
+
+
+def test_exported_op_launches_the_kernel(cuda):
+    """The forward kernel's registered op inside a ``torch.export`` program:
+    the loaded program launches the kernel (counted) and equals the eager
+    call."""
+    import io
+
+    q, k, v, table, lens = _inputs(cuda, 3, 200, 2, 64, 49, [200, 131, 64])
+
+    class Attention(torch.nn.Module):
+        def forward(self, q, k, v, table, lens):
+            return fa.relative_attention_forward(q, k, v, table, FLAGSHIP, lens)[0]
+
+    batch = torch.export.Dim("batch", min=1)
+    program = torch.export.export(Attention(), (q, k, v, table, lens), dynamic_shapes=(
+        {0: batch}, {0: batch}, {0: batch}, None, {0: batch}))
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    loaded = torch.export.load(io.BytesIO(buf.getvalue())).module()
+    before = fa.relative_attention_forward.launches
+    got = loaded(q, k, v, table, lens)
+    assert fa.relative_attention_forward.launches == before + 1
+    want, _ = fa.relative_attention_forward(q, k, v, table, FLAGSHIP, lens)
+    for b, n in enumerate([200, 131, 64]):
+        assert torch.equal(got[b, :n], want[b, :n])

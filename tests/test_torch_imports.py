@@ -38,7 +38,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "text.wordpiece", "text.trimmer", "text.native", "features.patches",
                  "cli.predict", "train.checkpoint", "features.masking", "data.prefetch",
                  "train.preemption", "train.continuous", "utils.tb_events", "utils.bindings",
-                 "utils.profiling"):
+                 "utils.profiling", "ops.quant", "eval.export", "preprocessing.records",
+                 "preprocessing.flickr30k", "preprocessing.wit", "preprocessing.fashion_gen"):
         assert f"mmt_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"

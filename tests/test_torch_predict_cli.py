@@ -199,8 +199,13 @@ def test_missing_checkpoint_names_the_path(workdir, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--export_serving_artifact=/tmp/x", "--export_bucket_sizes=1,8"])
 def test_export_flags_raise(workdir, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="Slice D"):
-        cli_predict.main(_torch_args(workdir, tmp_path / "ckpt", tmp_path / "out", flag))
+    """The export flags' usage errors exit 2 before anything is read: a
+    bucket size below 1, and a bucket list without the artifact's path."""
+    extra = ["--export_bucket_sizes=0,8"] if flag.startswith("--export_serving") else []
+    with pytest.raises(SystemExit) as err:
+        cli_predict.main(_torch_args(workdir, tmp_path / "ckpt", tmp_path / "out", flag, *extra))
+    assert err.value.code == 2
+    assert not (tmp_path / "out").exists()
 
 
 def test_default_device_is_the_card(workdir, tmp_path):
