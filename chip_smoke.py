@@ -169,7 +169,8 @@ Phases, each printed as one JSON line:
    directory copied and taken on to step 6 must resume at step 4 and end,
    per parameter tensor, within RESUME_SPREAD_FACTOR x the spread between
    two uninterrupted 6-step runs + RESUME_FLOOR_ULPS fp32 spacings of the
-   first of them; and
+   first of them + RESUME_GRAD_SPACING x the summed learning rates per
+   element, with the input stream's step-6 snapshot equal to theirs; and
    ``cli.predict`` on the finetuned checkpoint.  Reports examples/s and ms
    per step from the loop's one-step windows (the first step apart), the
    classification loader alone (records -> batches), eval examples/s and
@@ -255,6 +256,27 @@ Phases, each printed as one JSON line:
    the two modes against each other and against dense attention (ITM
    within 4 bf16 spacings, MLM and MPP within SEQUENCE_REL_BOUND of their
    norm).
+32. warm_start: TF object checkpoints through ``cli.train.main`` at full
+   width, written by this script's bundle writer (``write_tf_bundle``; the
+   card's machine has no TF) and read by ``train/tf_bundle.py``.  A seeded
+   ViT-B/16 (``seeded_vit``: conv patch kernel [16, 16, 3, 768], position
+   table [578, 768], 12 layers, no text tables; 344 MB) warm-starts
+   configs/exp_yamls/pretrain/wit/mlm_itm_2d_from_vit.yaml
+   (``from_vit_experiment``: placeholders filled, the schedule cut to
+   VIT_STEPS steps of VIT_GLOBAL in micro-batches of 64, one validation batch
+   of 256, a shuffle buffer of VIT_SHUFFLE rows) on seeded WIT-style records
+   keyed by ``image_key``: every image-relevant tensor right after the warm
+   start bit-equal to the written array after the converter's reshape and
+   transpose (``vit_expected``), the word, segment and relative tables at
+   their fresh values, 12 forward and backward launches per micro-batch,
+   every number finite.  Then that run's last checkpoint in the reference's
+   TF layout (``export_tf_layout``, ~440 MB) warm-starts the finetune
+   experiment of phase finetune (WS_FT_STEPS steps) strictly, and the same
+   run from the port's own checkpoint of those weights: the models' state
+   right after the warm start bit-equal, ``count_restored`` and the first
+   step's numbers equal.  A copy with one data byte flipped must make the
+   CLI raise the crc32c error.  Reports each checkpoint's bytes, seconds to
+   read and to convert, and examples/s of the runs.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure raises, so the exit code is not 0 and no result is
@@ -323,10 +345,13 @@ WINDOW, WINDOW_NUM_GLOBAL = 512, 198  # attention_num_global -1: 2 + 14**2
 WINDOW_MIN_LEN = WINDOW_SEQ // 2
 
 _lines = []
+_start = [time.perf_counter()]  # reset by main
 
 
 def emit(obj) -> None:
-    line = json.dumps(obj)
+    """Prints ``obj`` as one JSON line, with the seconds since ``main``
+    started (``elapsed_s``)."""
+    line = json.dumps({**obj, "elapsed_s": time.perf_counter() - _start[0]})
     _lines.append(line)
     print(line, flush=True)
 
@@ -2153,10 +2178,23 @@ FT_POS_WEIGHT = 2.0  # finetune_reference's positives (the yaml's pos_weight is 
 # uninterrupted run D (the backward's run-to-run spread) + RESUME_FLOOR_ULPS
 # x ||spacing(C)||, the norm of C's elementwise fp32 spacings, for the
 # rounding flips of a tensor on which D happens to equal C (one flip in a
-# 2-element head bias can be 1.2e-7 of its norm).  The floor, ~1.8e-7 of a
-# large tensor's norm, stays below what a resume that drew other dropout masks or
-# batches gives (updates of ~lr = 1e-7 per element, ~1e-6 of a tensor's norm).
-RESUME_SPREAD_FACTOR, RESUME_FLOOR_ULPS = 4.0, 2.0
+# 2-element head bias can be 1.2e-7 of its norm), + RESUME_GRAD_SPACING x
+# sum(lr) per element for the flips of the gradient's own rounding: the
+# gradients reach AdamW in bfloat16, and one bfloat16 spacing (at most 2^-7
+# of the value) of a step's gradient moves that step's update (|mu_hat /
+# sqrt(nu_hat)| <= ~1) by at most 2^-7 of its learning rate.  Uninterrupted
+# runs differ so: the head bias's gradient at step 4 (-0.2832 or -0.2852) is
+# 1/512, one bfloat16 spacing, apart in some of them, and the bias, six
+# updates of ~lr from zero, then 1.6e-4 of its norm apart; without this term
+# the bound failed uninterrupted runs held against two others
+# (scripts/resume_bound_check.py holds it against such null controls and
+# against resumes broken on purpose).  The floor, ~2.6e-7 of a large
+# tensor's norm and 7.8e-3 of the head bias's, stays below what a resume
+# that drew other dropout masks or batches, or took the optimizer's count
+# one step back, gives: over 150 tensors outside the bound.  The input
+# stream's snapshot at the last step must equal the uninterrupted run's
+# exactly.
+RESUME_SPREAD_FACTOR, RESUME_FLOOR_ULPS, RESUME_GRAD_SPACING = 4.0, 2.0, 2.0 ** -7
 # Seconds a preempted CLI process may take to reach its signal step, to
 # exit, or to run again.
 PREEMPT_WAIT_S = 600.0
@@ -2254,6 +2292,14 @@ def link_copy(src: Path, dst: Path) -> None:
         return os.link(a, b) if a.endswith(".pt") else shutil.copy2(a, b)
 
     shutil.copytree(src, dst, copy_function=copy)
+
+
+def stream_snapshot(model_dir: Path, step: int) -> dict:
+    """The input stream's snapshot the CLI saved beside checkpoint ``step``."""
+    import pickle
+
+    with open(model_dir / "data_stream" / f"step_{step}.pkl", "rb") as f:
+        return pickle.load(f)
 
 
 def finetune_params(model_dir: Path, step: int) -> dict:
@@ -2356,18 +2402,20 @@ def fp32_spacing(t: torch.Tensor) -> torch.Tensor:
     return torch.nextafter(a, torch.full_like(a, math.inf)) - a
 
 
-def resume_errors(resumed: dict, whole: list) -> dict:
+def resume_errors(resumed: dict, whole: list, lr_sum: float) -> dict:
     """Per parameter tensor, ``resumed``'s relative error against the first
     uninterrupted run beside the second's (the run-to-run spread): the
     largest, the tensors outside RESUME_SPREAD_FACTOR x spread +
-    RESUME_FLOOR_ULPS fp32 spacings (each with its error, spread and
-    floor), and the whole model's."""
+    RESUME_FLOOR_ULPS fp32 spacings + RESUME_GRAD_SPACING x ``lr_sum`` (the
+    run's learning rates summed) per element (each with its error, spread
+    and floor), and the whole model's."""
     errors, spread, failing = {}, {}, {}
     for name, ref in whole[0].items():
         norm = ref.norm().item()
         errors[name] = (resumed[name] - ref).norm().item() / norm
         spread[name] = (whole[1][name] - ref).norm().item() / norm
-        floor = RESUME_FLOOR_ULPS * fp32_spacing(ref).norm().item() / norm
+        floor = (RESUME_FLOOR_ULPS * fp32_spacing(ref).norm().item()
+                 + RESUME_GRAD_SPACING * lr_sum * math.sqrt(ref.numel())) / norm
         if not errors[name] <= RESUME_SPREAD_FACTOR * spread[name] + floor:
             failing[name] = {"err": errors[name], "spread": spread[name], "floor": floor}
     total = math.sqrt(sum(float((resumed[n] - r).double().square().sum()) for n, r in
@@ -2375,11 +2423,13 @@ def resume_errors(resumed: dict, whole: list) -> dict:
     total_spread = math.sqrt(sum(float((whole[1][n] - r).double().square().sum()) for n, r in
                                  whole[0].items()))
     ref_norm = math.sqrt(sum(float(r.double().square().sum()) for r in whole[0].values()))
-    return {"bound": f"{RESUME_SPREAD_FACTOR} x spread + {RESUME_FLOOR_ULPS} fp32 spacings",
+    return {"bound": f"{RESUME_SPREAD_FACTOR} x spread + {RESUME_FLOOR_ULPS} fp32 spacings + "
+                     f"{RESUME_GRAD_SPACING} x {lr_sum} (sum of lr) per element",
             "max_rel_err": max(errors.values()), "worst_tensor": max(errors, key=errors.get),
             "max_spread": max(spread.values()),
             "tensors_with_spread": sum(v > 0 for v in spread.values()),
             "tensors_with_err": sum(v > 0 for v in errors.values()),
+            "tensors_failing": len(failing),
             "whole_model_rel_err": total / ref_norm,
             "whole_model_rel_spread": total_spread / ref_norm,
             "failing": dict(list(failing.items())[:5])}
@@ -2398,6 +2448,7 @@ def phase_finetune(root: Path):
     from mmt_tpu_torch.cli.train import build_experiment_config, make_eval_fn, parse_args
     from mmt_tpu_torch.data.loaders import MmtClassificationLoader
     from mmt_tpu_torch.train.checkpoint import CheckpointManager
+    from mmt_tpu_torch.train.optimizer import create_learning_rate_fn
     from mmt_tpu_torch.train.tasks import ClassificationTask, PretrainingTask
     from mmt_tpu_torch.train.train_state import TrainState
 
@@ -2519,13 +2570,21 @@ def phase_finetune(root: Path):
             or steps_b != list(range(1, FT_RESUME_STEPS + 1)):
         raise AssertionError(f"the resumed run did not start at step {FT_STEPS}: {steps_b}")
     resumed = finetune_params(run_b, FT_RESUME_STEPS)
+    streams = {"resumed": stream_snapshot(run_b, FT_RESUME_STEPS)}
     shutil.rmtree(run_a)
     shutil.rmtree(run_b)
     whole = []
     for name in ("ft_whole", "ft_whole_again"):
         run_train_cli(resume_config, root / name)
         whole.append(finetune_params(root / name, FT_RESUME_STEPS))
+        streams[name] = stream_snapshot(root / name, FT_RESUME_STEPS)
         shutil.rmtree(root / name)
+    resume_cfg = build_experiment_config(parse_args([
+        "--experiment=mmt/classification", "--model_dir=unused",
+        f"--config_file={resume_config}"]))
+    learning_rate = create_learning_rate_fn(resume_cfg.trainer.optimizer_config,
+                                            FT_RESUME_STEPS)
+    lr_sum = sum(learning_rate(n) for n in range(FT_RESUME_STEPS))
     # Preemption: the same 6-step run as a process of the CLI, saving every
     # PREEMPT_CKPT_INTERVAL steps, SIGTERM once its summaries show
     # PREEMPT_AT_STEP; then the same command again.
@@ -2554,9 +2613,10 @@ def phase_finetune(root: Path):
             or steps_p != list(range(1, FT_RESUME_STEPS + 1)):
         raise AssertionError(f"the rerun after preemption exited {rerun.returncode}, steps "
                              f"{steps_p}: {rerun.stderr[-3000:]}")
-    preempt.update(resume_errors(finetune_params(run_p, FT_RESUME_STEPS), whole))
+    preempt.update(resume_errors(finetune_params(run_p, FT_RESUME_STEPS), whole, lr_sum))
+    streams["preempted"] = stream_snapshot(run_p, FT_RESUME_STEPS)
     shutil.rmtree(run_p)
-    resume = resume_errors(resumed, whole)
+    resume = resume_errors(resumed, whole, lr_sum)
     del resumed, whole
 
     later = [1.0 / r["steps_per_sec"] for r in train_log[1:]]
@@ -2579,6 +2639,10 @@ def phase_finetune(root: Path):
     for name, result in (("resumed", resume), ("preempted and resumed", preempt)):
         if result["failing"]:
             raise AssertionError(f"{name} run outside its bound at {result['failing']}")
+    unequal = [name for name, st in streams.items() if st != streams["ft_whole"]]
+    if unequal:
+        raise AssertionError(f"the input stream at step {FT_RESUME_STEPS} of {unequal} is not "
+                             f"the uninterrupted run's")
     return counts, batch, task, restored[0]
 
 
@@ -3042,11 +3106,12 @@ def smooth_image(rng, height, width):
                     -1).astype(np.uint8)
 
 
-def write_wit_records(path: Path, n: int, seed: int, sizes=PR_IMAGE_SIZES) -> str:
+def write_wit_records(path: Path, n: int, seed: int, sizes=PR_IMAGE_SIZES,
+                      key_field: str = "canonical_doc_id") -> str:
     """Seeded WIT-style records: a smooth PNG image (PR_IMAGES_PER_FILE
-    distinct ones cycled, their sizes cycling through ``sizes``),
-    ``canonical_doc_id`` (two records a page) and the attribution and
-    reference captions, 8-40 words each."""
+    distinct ones cycled, their sizes cycling through ``sizes``), the key
+    ``key_field`` (two records a page) and the attribution and reference
+    captions, 8-40 words each."""
     import io
 
     from PIL import Image
@@ -3065,7 +3130,7 @@ def write_wit_records(path: Path, n: int, seed: int, sizes=PR_IMAGE_SIZES) -> st
             att, ref = (" ".join(rng.choice(words, size=int(rng.integers(8, 41)))).encode()
                         for _ in range(2))
             w.write(build_example({"image_data": [images[i % len(images)]],
-                                   "canonical_doc_id": [f"wit{seed}_{i // 2}".encode()],
+                                   key_field: [f"wit{seed}_{i // 2}".encode()],
                                    "caption_attribution_description": [att],
                                    "caption_reference_description": [ref]}))
     return str(path)
@@ -3507,6 +3572,431 @@ def phase_pretrain_records_reference(root: Path, batch):
 
 
 
+# ------------------------------------------- warm starts from TF and ViT checkpoints
+
+# A TF object checkpoint written without TensorFlow (test support: the card's
+# machine has no TF).  The format is what ``mmt_tpu_torch/train/tf_bundle.py``
+# reads: a LevelDB-format ``.index`` table and ``.data-*`` shards.
+TF_DTYPES = {np.dtype("float32"): 1, np.dtype("float64"): 2, np.dtype("int32"): 3,
+             np.dtype("uint8"): 4, np.dtype("int16"): 5, np.dtype("int8"): 6,
+             np.dtype("int64"): 9, np.dtype("bool"): 10, np.dtype("float16"): 19}
+TABLE_MAGIC = 0xDB4775248B80FB57
+TABLE_BLOCK_BYTES = 4096  # a data block is closed once it holds this many bytes
+TABLE_RESTART_INTERVAL = 16
+
+
+def _varint(value: int) -> bytes:
+    from mmt_tpu_torch.data.tfrecord import _write_varint
+
+    out = bytearray()
+    _write_varint(out, value)
+    return bytes(out)
+
+
+def _proto_field(field: int, value) -> bytes:
+    """One proto field: an int as a varint, bytes length-delimited."""
+    if isinstance(value, bytes):
+        return _varint(field << 3 | 2) + _varint(len(value)) + value
+    return _varint(field << 3) + _varint(value)
+
+
+def bundle_entry(array: np.ndarray, shard: int, offset: int, crc: int,
+                 sliced: bool = False) -> bytes:
+    """A ``BundleEntryProto``; ``sliced`` adds an (empty) slice, which marks
+    a partitioned variable."""
+    shape = b"".join(_proto_field(2, _proto_field(1, d)) for d in array.shape)
+    out = (_proto_field(1, TF_DTYPES[array.dtype]) + _proto_field(2, shape)
+           + _proto_field(3, shard) + _proto_field(4, offset) + _proto_field(5, array.nbytes)
+           + _varint(6 << 3 | 5) + crc.to_bytes(4, "little"))
+    return out + (_proto_field(7, b"") if sliced else b"")
+
+
+def table_block(entries, restart_interval: int) -> bytes:
+    """A LevelDB block of sorted (key, value) pairs with prefix-compressed
+    keys, and its trailer (type 0, masked crc32c)."""
+    from mmt_tpu_torch.data.tfrecord import masked_crc32c
+
+    out, restarts, last = bytearray(), [], b""
+    for i, (key, value) in enumerate(entries):
+        shared = 0
+        if i % restart_interval == 0:
+            restarts.append(len(out))
+        else:
+            while shared < min(len(key), len(last)) and key[shared] == last[shared]:
+                shared += 1
+        out += _varint(shared) + _varint(len(key) - shared) + _varint(len(value))
+        out += key[shared:] + value
+        last = key
+    restarts = restarts or [0]
+    out += b"".join(r.to_bytes(4, "little") for r in restarts)
+    out += len(restarts).to_bytes(4, "little") + b"\x00"
+    return bytes(out) + masked_crc32c(bytes(out)).to_bytes(4, "little")
+
+
+def write_tf_bundle(prefix: str, tensors: dict, num_shards: int = 1, sliced=()) -> int:
+    """Writes ``tensors`` ({key: array}) as the checkpoint ``prefix``:
+    ``<prefix>.data-<k>-of-<num_shards>`` (the i-th key in sorted order in
+    shard i mod num_shards) and ``<prefix>.index``; the keys in ``sliced``
+    are marked as partitioned.  Returns the bytes of tensor data."""
+    from mmt_tpu_torch.data.tfrecord import masked_crc32c
+
+    keys = sorted(tensors, key=lambda k: k.encode())
+    files = [open(f"{prefix}.data-{k:05d}-of-{num_shards:05d}", "wb")
+             for k in range(num_shards)]
+    offsets = [0] * num_shards
+    version = _proto_field(3, _proto_field(1, 1))  # VersionDef {producer: 1}
+    entries = [(b"", _proto_field(1, num_shards) + version)]
+    try:
+        for i, key in enumerate(keys):
+            array = np.asarray(tensors[key], order="C")
+            array = array.astype(array.dtype.newbyteorder("<"), copy=False)
+            data = array.reshape(-1).view(np.uint8)
+            shard = i % num_shards
+            files[shard].write(data)
+            entries.append((key.encode(), bundle_entry(array, shard, offsets[shard],
+                                                       masked_crc32c(data), key in sliced)))
+            offsets[shard] += data.size
+    finally:
+        for f in files:
+            f.close()
+    table, index, block = bytearray(), [], []
+    for n, entry in enumerate(entries):
+        block.append(entry)
+        size = sum(len(k) + len(v) for k, v in block)
+        if size >= TABLE_BLOCK_BYTES or n == len(entries) - 1:
+            contents = table_block(block, TABLE_RESTART_INTERVAL)
+            index.append((block[-1][0], _varint(len(table)) + _varint(len(contents) - 5)))
+            table += contents
+            block = []
+    meta = table_block([], 1)
+    meta_handle = _varint(len(table)) + _varint(len(meta) - 5)
+    table += meta
+    index_block = table_block(index, 1)
+    footer = meta_handle + _varint(len(table)) + _varint(len(index_block) - 5)
+    table += index_block
+    table += footer.ljust(40, b"\x00") + TABLE_MAGIC.to_bytes(8, "little")
+    with open(prefix + ".index", "wb") as f:
+        f.write(table)
+    return sum(offsets)
+
+
+def write_tf_checkpoint(directory: Path, variables: dict, name: str = "ckpt-1",
+                        num_shards: int = 1) -> str:
+    """``variables`` ({object path: array}) as ``tf.train.Checkpoint(model=...)``
+    writes them (``model/<path>/.ATTRIBUTES/VARIABLE_VALUE``, and
+    ``save_counter``) in ``directory``, with the ``checkpoint`` file a
+    ``tf.train.CheckpointManager`` keeps; returns the prefix."""
+    directory.mkdir(parents=True, exist_ok=True)
+    tensors = {f"model/{k}/.ATTRIBUTES/VARIABLE_VALUE": v for k, v in variables.items()}
+    tensors["save_counter/.ATTRIBUTES/VARIABLE_VALUE"] = np.asarray(1, np.int64)
+    write_tf_bundle(str(directory / name), tensors, num_shards)
+    (directory / "checkpoint").write_text(
+        f'model_checkpoint_path: "{name}"\nall_model_checkpoint_paths: "{name}"\n')
+    return str(directory / name)
+
+
+# The from-ViT pretraining run (configs/exp_yamls/pretrain/wit/
+# mlm_itm_2d_from_vit.yaml) cut to VIT_STEPS steps of VIT_GLOBAL (micro-batches
+# of TRAIN_MICRO) and one validation batch of VIT_EVAL_BATCH, its shuffle
+# buffer to VIT_SHUFFLE rows; seeded WIT-style records keyed by image_key.
+VIT_STEPS, VIT_GLOBAL, VIT_EVAL_BATCH, VIT_SHUFFLE = 2, 256, 256, 256
+VIT_TRAIN_RECORDS, VIT_VAL_RECORDS = 512, 128
+VIT_PATCH, VIT_POSITIONS = 16, 2 + 24 * 24  # the yaml's max_absolute_position_embeddings
+VIT_LAYERS, VIT_INIT_STD = 12, 0.02
+WS_FT_STEPS = 2  # the finetune runs from the TF MMT and the port's own checkpoint
+
+
+def from_vit_experiment(root: Path, init_checkpoint: str) -> dict:
+    """configs/exp_yamls/pretrain/wit/mlm_itm_2d_from_vit.yaml as nested
+    overrides of mmt/pretraining (written out as JSON text) with its
+    placeholders filled and only its schedule cut: VIT_STEPS steps at global
+    batch VIT_GLOBAL, validation at the last on one batch, a shuffle buffer
+    of VIT_SHUFFLE rows."""
+    data = {"seed": 128, "cycle_length": 8, "deterministic": True,
+            "vocab_filename": str(root / "vocab.txt"), "max_seq_len": TRAIN_SEQ,
+            "image_data_field": "image_data", "image_key_field": "image_key",
+            "text_special_token_field_dict": '{"caption_attribution_description": "[ATT]",'
+                                             ' "caption_reference_description":"[REF]"}',
+            "tasks": "mlm,itm", "mpp_fraction_to_mask": 0.0, "relative_att_num_core_layers": 1}
+    return {
+        "task": {
+            "model": {
+                "encoder": {"type": "mmt", "mmt": {
+                    "relative_att_num_core_layers": 1, "relative_pos_max_distance": 12,
+                    "relative_vocab_size": 49, "attention_impl": "pallas",
+                    "compute_dtype": "bfloat16", "max_absolute_position_embeddings": VIT_POSITIONS}},
+                "cls_heads": [{"inner_dim": 768, "num_classes": 2, "name": "itm"}]},
+            "train_data": {**data, "input_path": str(root / "vit_train.tfrecord"),
+                           "is_training": True, "global_batch_size": VIT_GLOBAL,
+                           "use_rand_aug": True, "shuffle_buffer_size": VIT_SHUFFLE},
+            "validation_data": {**data, "input_path": str(root / "vit_val.tfrecord"),
+                                "is_training": False, "global_batch_size": VIT_EVAL_BATCH},
+            "init_checkpoint": init_checkpoint},
+        "trainer": {"checkpoint_interval": 1000, "max_to_keep": 32, "steps_per_loop": 1,
+                    "summary_interval": 1, "train_steps": VIT_STEPS,
+                    "validation_interval": VIT_STEPS, "validation_steps": 1,
+                    "micro_batch_size": TRAIN_MICRO,
+                    "optimizer_config": {
+                        "polynomial": {"initial_learning_rate": 0.0005, "decay_steps": 20000},
+                        "warmup": {"warmup_steps": 2000}}}}
+
+
+def seeded_vit(seed: int, layers: int = VIT_LAYERS, hidden: int = 768, inter: int = 3072) -> dict:
+    """A ViT-B/16 image encoder at full width in the MMT layout of
+    tests/test_warm_start.py's ViT (a conv patch kernel [16, 16, 3, H], the
+    position table [2 + 24^2, H], no text tables), normal(0, 0.02) from a
+    seed: {object path: float32 array}."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(VIT_INIT_STD)
+
+    out = {"encoder/patch_embedding_projection/kernel": normal(VIT_PATCH, VIT_PATCH, 3, hidden),
+           "encoder/patch_embedding_projection/bias": normal(hidden),
+           "encoder/position_embedding_layer/embeddings": normal(VIT_POSITIONS, hidden),
+           "encoder/embedding_norm_layer/gamma": 1 + normal(hidden),
+           "encoder/embedding_norm_layer/beta": normal(hidden)}
+    for i in range(layers):
+        layer = f"encoder/transformer/layer_{i}"
+        for name in ("query", "key", "value", "output"):
+            out[f"{layer}/attention/{name}/kernel"] = normal(hidden, hidden)
+            out[f"{layer}/attention/{name}/bias"] = normal(hidden)
+        for norm in ("attention_layer_norm", "ffn_layer_norm"):
+            out[f"{layer}/{norm}/scale"] = 1 + normal(hidden)
+            out[f"{layer}/{norm}/bias"] = normal(hidden)
+        out[f"{layer}/intermediate/kernel"] = normal(hidden, inter)
+        out[f"{layer}/intermediate/bias"] = normal(inter)
+        out[f"{layer}/ffn_output/kernel"] = normal(inter, hidden)
+        out[f"{layer}/ffn_output/bias"] = normal(hidden)
+    return out
+
+
+def vit_expected(vit: dict, flax_path: str) -> np.ndarray:
+    """The port tensor the converter must make of ``vit`` at the target
+    ``flax_path``: the patch kernel flattened [py, px, c] -> rows, a Dense
+    kernel transposed (the q/k/v/output reshapes cancel out), the rest as
+    written."""
+    key = {"encoder/absolute_position_embeddings": "encoder/position_embedding_layer/embeddings",
+           "encoder/embeddings_layer_norm/scale": "encoder/embedding_norm_layer/gamma",
+           "encoder/embeddings_layer_norm/bias": "encoder/embedding_norm_layer/beta"
+           }.get(flax_path, flax_path)
+    value = vit[key]
+    if flax_path.endswith("/kernel"):
+        value = value.reshape(-1, value.shape[-1]).T
+    return value
+
+
+class WarmStartProbe:
+    """Wraps ``cli.train.warm_start`` and ``tf_checkpoint.load_tf_checkpoint``
+    while active: per warm start, the model's state before and after (on the
+    CPU), the count, the seconds reading the checkpoint and the seconds in
+    all, and the bytes of the tensors read."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from mmt_tpu_torch.cli import train as cli_train
+        from mmt_tpu_torch.convert import flax_paths
+        from mmt_tpu_torch.train import tf_checkpoint
+
+        self._saved = (cli_train.warm_start, tf_checkpoint.load_tf_checkpoint)
+        warm_start, load = self._saved
+        reads = []
+
+        def timed_load(path):
+            t0 = time.perf_counter()
+            tf_vars = load(path)
+            reads.append((time.perf_counter() - t0, sum(v.nbytes for v in tf_vars.values())))
+            return tf_vars
+
+        def probed(task, path, strict=True):
+            snapshot = lambda: {k: v.detach().to("cpu", copy=True)  # noqa: E731
+                                for k, v in task.model.state_dict().items()}
+            before = snapshot()
+            reads.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            count = warm_start(task, path, strict=strict)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            read_s, nbytes = reads[0] if reads else (0.0, 0)
+            self.calls.append({"count": count, "before": before, "after": snapshot(),
+                               "seconds": seconds, "read_seconds": read_s, "bytes": nbytes,
+                               "names": flax_paths(task.model)})
+            return count
+
+        cli_train.warm_start, tf_checkpoint.load_tf_checkpoint = probed, timed_load
+        return self
+
+    def __exit__(self, *exc):
+        from mmt_tpu_torch.cli import train as cli_train
+        from mmt_tpu_torch.train import tf_checkpoint
+
+        cli_train.warm_start, tf_checkpoint.load_tf_checkpoint = self._saved
+
+
+def read_rate(call: dict) -> dict:
+    return {"bytes": call["bytes"], "read_seconds": call["read_seconds"],
+            "convert_seconds": call["seconds"] - call["read_seconds"],
+            "read_bytes_per_s": call["bytes"] / call["read_seconds"],
+            "count_restored": call["count"]}
+
+
+def steady_examples_per_s(train_log: list, global_batch: int) -> float:
+    """Examples/s of the steps after the first (one-step windows)."""
+    return global_batch / float(np.mean([1.0 / r["steps_per_sec"] for r in train_log[1:]]))
+
+
+def phase_warm_start(root: Path):
+    """Warm starts from TF object checkpoints through ``cli.train.main`` at
+    full width: a seeded ViT-B/16 into the from-ViT WIT pretraining run; that
+    run's checkpoint in the reference's TF layout (``export_tf_layout``)
+    into Flickr30k finetuning, strict, against a warm start from the port's
+    own checkpoint of the same weights; a corrupt copy.  Returns the
+    forward / backward launches of the three training runs."""
+    import shutil
+
+    from mmt_tpu_torch.cli.train import build_experiment_config, parse_args
+    from mmt_tpu_torch.train.checkpoint import CheckpointManager
+    from mmt_tpu_torch.train.tf_checkpoint import export_tf_layout
+    from mmt_tpu_torch.train.tasks import PretrainingTask
+    from mmt_tpu_torch.train.vit_checkpoint import _is_text_only
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    write_wit_records(root / "vit_train.tfrecord", VIT_TRAIN_RECORDS, seed=200,
+                      key_field="image_key")
+    write_wit_records(root / "vit_val.tfrecord", VIT_VAL_RECORDS, seed=201, key_field="image_key")
+    vit = seeded_vit(seed=21)
+    vit_prefix = write_tf_checkpoint(root / "vit", vit)
+    setup_s = time.perf_counter() - t0
+
+    # 1. From ViT: the WIT pretraining yaml's from-ViT variant.
+    config = root / "from_vit.json"
+    config.write_text(json.dumps(from_vit_experiment(root, str(root / "vit"))))
+    vit_dir = root / "pt_from_vit"
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with WarmStartProbe() as probe:
+        run_train_cli(config, vit_dir, "mmt/pretraining")
+    vit_counts = launch_counts()
+    (call,) = probe.calls
+    train_log = read_jsonl(vit_dir / "train_summaries.jsonl")
+    val_log = read_jsonl(vit_dir / "validation_summaries.jsonl")
+    if [r["step"] for r in train_log] != list(range(1, VIT_STEPS + 1)) or \
+            [r["step"] for r in val_log] != [VIT_STEPS]:
+        raise AssertionError(f"from-ViT summaries at {[r['step'] for r in train_log]}, "
+                             f"{[r['step'] for r in val_log]}")
+    if not all(math.isfinite(v) for r in train_log + val_log for v in r.values()):
+        raise AssertionError(f"non-finite from-ViT numbers: {train_log} {val_log}")
+    image, text = [], []
+    for name, path in call["names"].items():
+        (text if _is_text_only(tuple(path.split("/"))) else image).append(name)
+    wrong = [n for n in image if not np.array_equal(
+        call["after"][n].numpy(), vit_expected(vit, call["names"][n]))]
+    moved = [n for n in text if not torch.equal(call["after"][n], call["before"][n])]
+    if wrong or moved or call["count"] != len(image):
+        raise AssertionError(f"ViT warm start: {len(wrong)} image tensors differ from the "
+                             f"checkpoint ({wrong[:4]}), {len(moved)} text tensors moved "
+                             f"({moved[:4]}), count_restored {call['count']} of {len(image)}")
+    layers = VIT_LAYERS  # the yaml's encoder has as many as the ViT
+    micro = VIT_GLOBAL // TRAIN_MICRO
+    expected = {"fwd": layers * (micro * VIT_STEPS + 1), "fwd_window": 0,
+                "bwd": layers * micro * VIT_STEPS, "bwd_window": 0}
+    if vit_counts != expected:
+        raise AssertionError(f"from-ViT launches {vit_counts}, expected {expected}")
+    vit_result = {"read": read_rate(call), "image_tensors": len(image),
+                  "text_tensors_fresh": len(text),
+                  "examples_per_s": steady_examples_per_s(train_log, VIT_GLOBAL),
+                  "first_step_ms": 1e3 / train_log[0]["steps_per_sec"],
+                  "launches": vit_counts, "train": train_log, "validation": val_log}
+    del probe, call
+
+    # 2. From a TF MMT checkpoint: the from-ViT run's last checkpoint in the
+    # reference's layout, strict, against the port's own checkpoint of it.
+    t0 = time.perf_counter()
+    pre_cfg = build_experiment_config(parse_args([
+        "--experiment=mmt/pretraining", "--model_dir=unused", f"--config_file={config}"]))
+    holder = PretrainingTask(pre_cfg.task, pre_cfg.trainer, device="cuda", seed=1)
+    exported = export_tf_layout(CheckpointManager(str(vit_dir)).restore(VIT_STEPS), holder.model)
+    tf_bytes = sum(v.nbytes for v in exported.values())
+    write_tf_checkpoint(root / "tf_mmt", exported)
+    del holder, exported
+    torch.cuda.empty_cache()
+    export_s = time.perf_counter() - t0
+    runs = {}
+    for name, init in (("tf", str(root / "tf_mmt")), ("port", str(vit_dir))):
+        ft_config = finetune_experiment(root, init, WS_FT_STEPS)
+        reset_launch_counts()
+        with WarmStartProbe() as probe:
+            run_train_cli(ft_config, root / f"ft_{name}")
+        (call,) = probe.calls
+        runs[name] = {"call": call, "launches": launch_counts(),
+                      "train": read_jsonl(root / f"ft_{name}" / "train_summaries.jsonl")}
+        shutil.rmtree(root / f"ft_{name}")
+    tf_call, port_call = runs["tf"]["call"], runs["port"]["call"]
+    differ = [n for n in port_call["after"] if not torch.equal(tf_call["after"][n],
+                                                                port_call["after"][n])]
+    timing = ("steps_per_sec", "input_seconds")
+    first = [{k: v for k, v in runs[n]["train"][0].items() if k not in timing}
+             for n in ("tf", "port")]
+    eval_batches = math.ceil(FT_VAL_RECORDS / (FT_EVAL_BATCH // (FT_RATIO + 1)))
+    ft_expected = {"fwd": layers * (WS_FT_STEPS + eval_batches), "fwd_window": 0,
+                   "bwd": layers * WS_FT_STEPS, "bwd_window": 0}
+    if differ or tf_call["count"] != port_call["count"] or first[0] != first[1] \
+            or tf_call["count"] != len(port_call["after"]):
+        raise AssertionError(f"TF MMT warm start against the port's checkpoint: {len(differ)} "
+                             f"tensors differ ({differ[:4]}), count_restored {tf_call['count']} "
+                             f"vs {port_call['count']}, first step {first}")
+    for name, run in runs.items():
+        if run["launches"] != ft_expected or not all(
+                math.isfinite(v) for r in run["train"] for v in r.values()):
+            raise AssertionError(f"finetune from the {name} checkpoint: launches "
+                                 f"{run['launches']}, expected {ft_expected}; {run['train']}")
+
+    # 3. A corrupt copy: one byte of a tensor flipped.
+    corrupt = root / "tf_mmt_corrupt"
+    shutil.copytree(root / "tf_mmt", corrupt)
+    data = corrupt / "ckpt-1.data-00000-of-00001"
+    with open(data, "r+b") as f:
+        f.seek(data.stat().st_size // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0x40]))
+    try:
+        run_train_cli(finetune_experiment(root, str(corrupt), WS_FT_STEPS), root / "ft_corrupt")
+    except ValueError as e:
+        if "crc32c" not in str(e):
+            raise
+        corrupt_error = str(e)
+    else:
+        raise AssertionError("a corrupt TF checkpoint was read without an error")
+    shutil.rmtree(corrupt)
+    shutil.rmtree(root / "tf_mmt")
+    shutil.rmtree(vit_dir)
+    shutil.rmtree(root / "vit")
+
+    emit({"phase": "warm_start", "nvidia_smi": smi, "setup_seconds": setup_s,
+          "from_vit": vit_result,
+          "tf_mmt": {"export_seconds": export_s, "tensor_bytes_written": tf_bytes,
+                     "read": read_rate(tf_call),
+                     "port_checkpoint": {"seconds": port_call["seconds"],
+                                         "count_restored": port_call["count"]},
+                     "tensors_equal_to_port_checkpoint": len(port_call["after"]),
+                     "first_step": first[0],
+                     "examples_per_s": {n: steady_examples_per_s(r["train"], FT_GLOBAL)
+                                        for n, r in runs.items()},
+                     "launches": {n: r["launches"] for n, r in runs.items()}},
+          "corrupt": corrupt_error[:300]})
+    return {k: vit_counts[k] + sum(r["launches"][k] for r in runs.values())
+            for k in ("fwd", "bwd")}
+
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3517,7 +4007,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
+    t_start = _start[0] = time.perf_counter()
 
     from mmt_tpu_torch.models import MmtClassificationModel
 
@@ -3538,9 +4028,9 @@ def main() -> int:
     # serving (phase int8), the exported artifacts (phase export),
     # finetuning (phase finetune), continuous finetuning (phase continuous),
     # bf16 gradient accumulation (phase grad_accum) and pretraining from
-    # records (phase pretrain_records), the last seven added below; the
-    # backward on all of them but retrieval, the predict CLI, int8 and the
-    # export.
+    # records (phase pretrain_records) and the warm starts (phase
+    # warm_start), the last eight added below; the backward on all of them
+    # but retrieval, the predict CLI, int8 and the export.
     entry["launches"] = launches + train_launches["fwd"]
     bwd_entry["launches"] = train_launches["bwd"]
     phase_train_profile(task, cfg, fwd_alone["train"], bwd_entry["ms"])
@@ -3585,6 +4075,9 @@ def main() -> int:
         del task
         torch.cuda.empty_cache()
         phase_pretrain_records_reference(root, pr_batch)
+        ws_launches = phase_warm_start(Path(tmp))
+        entry["launches"] += ws_launches["fwd"]
+        bwd_entry["launches"] += ws_launches["bwd"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     kernels = {"kernels": [entry, bwd_entry, win_entry, win_bwd_entry, *probe_entries]}
     print(json.dumps(kernels), flush=True)

@@ -46,16 +46,28 @@ What runs:
   ``state()``, so a resumed run restarts it from its beginning, as the JAX
   package's does.  The workers ignore SIGTERM, so a signal sent to the
   whole process group preempts the run cleanly; the command stops them.
-* ``task.init_checkpoint``: a checkpoint directory this package wrote.  A
-  classification model takes the ``encoder.*`` tensors and the heads whose
-  names match (``restore_encoder_and_heads``) and keeps the rest of its
-  fresh initialisation; a pretraining model takes the whole checkpoint.
+* ``task.init_checkpoint``, detected as the JAX package's CLI detects it:
+  - a directory with a ``checkpoint`` file: the TF checkpoint it names
+    (``tf_bundle.latest_checkpoint``), or a path ``p`` with ``p.index``: a
+    TF object checkpoint, read without tensorflow (``train/tf_bundle.py``).
+    With word-embedding tables it is a full MMT checkpoint, converted into
+    the whole task model (``train/tf_checkpoint.py``; strict unless
+    ``--lenient_warm_start``, which keeps the fresh initialisation of what
+    it does not match); without them, a ViT: the image-relevant encoder
+    tensors are restored, the position grid interpolated, the text tables
+    and heads stay fresh (``train/vit_checkpoint.py``).  Local paths only:
+    ``gs://`` raises ValueError.
+  - anything else: a checkpoint directory this package wrote.  A
+    classification model takes the ``encoder.*`` tensors and the heads
+    whose names match (``restore_encoder_and_heads``) and keeps the rest of
+    its fresh initialisation; a pretraining model takes the whole
+    checkpoint.  (``scripts/orbax_to_torch.py`` brings a JAX package
+    checkpoint into this form.)
+  The warm start logs ``count_restored``, the tensors it filled.
 
-Everything else raises NotImplementedError naming what is missing: TF and
-ViT checkpoints, pipeline, model-parallel or ZeRO runtimes, and
-``grad_accum_dtype`` values other than float32 and bfloat16.
-``--lenient_warm_start`` (it concerns TF checkpoints) is accepted so that
-the JAX package's command lines parse.
+Everything else raises NotImplementedError naming what is missing:
+pipeline, model-parallel or ZeRO runtimes, and ``grad_accum_dtype`` values
+other than float32 and bfloat16.
 """
 
 from __future__ import annotations
@@ -89,7 +101,9 @@ def parse_args(argv=None):
                    help="binding file(s) of 'target.attr = value' lines (utils/bindings.py)")
     p.add_argument("--gin_params", action="append", default=[],
                    help='inline bindings, e.g. "build_encoder.encoder_cls = @my.Encoder"')
-    p.add_argument("--lenient_warm_start", action="store_true")
+    p.add_argument("--lenient_warm_start", action="store_true",
+                   help="convert a TF init_checkpoint that matches the model partly, keeping "
+                        "the fresh initialisation of the rest")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
 
@@ -133,19 +147,19 @@ def _check_ported(args, cfg) -> None:
                                   f"the port accumulates in float32 or bfloat16")
 
 
-def _checkpoint_dir(path: str) -> str:
-    """``path`` if it is a checkpoint directory of this package; TF object
-    checkpoints (the reference's and the ViT warm starts) raise."""
-    if os.path.exists(os.path.join(path, "checkpoint")) or os.path.exists(path + ".index"):
-        raise NotImplementedError(
-            f"task.init_checkpoint={path!r} is a TF checkpoint: TF and ViT warm starts "
-            f"(train/tf_checkpoint.py, train/vit_checkpoint.py) are not ported yet")
-    return path
+def tf_checkpoint_path(path: str):
+    """The TF checkpoint prefix ``path`` names, or None for a checkpoint
+    directory of this package (``mmt_tpu/cli/train.py:84-101``)."""
+    from mmt_tpu_torch.train.tf_bundle import check_local, latest_checkpoint
+
+    if os.path.isdir(check_local(path)):
+        return latest_checkpoint(path)
+    return path if os.path.exists(path + ".index") else None
 
 
-def warm_start(task, path: str) -> int:
-    """Loads ``path`` (a checkpoint directory of this package, its latest
-    step) into ``task.model``; returns the number of tensors restored."""
+def warm_start(task, path: str, strict: bool = True) -> int:
+    """Loads ``path`` into ``task.model`` (see the module docstring for the
+    kinds of checkpoint); returns the number of tensors restored."""
     from mmt_tpu_torch.configs.experiments import PretrainingTaskConfig
     from mmt_tpu_torch.train.checkpoint import (
         CheckpointManager,
@@ -153,7 +167,25 @@ def warm_start(task, path: str) -> int:
         restore_encoder_and_heads,
     )
 
-    source = CheckpointManager(_checkpoint_dir(path)).restore()
+    tf_path = tf_checkpoint_path(path)
+    if tf_path is not None:
+        from mmt_tpu_torch.train.tf_checkpoint import convert_tf_checkpoint, load_tf_checkpoint
+        from mmt_tpu_torch.train.vit_checkpoint import convert_vit_checkpoint
+
+        tf_vars = load_tf_checkpoint(tf_path)
+        assigned = set()
+        if any("word_embedding" in k for k in tf_vars):
+            state = convert_tf_checkpoint(tf_vars, task.model, strict=strict, assigned=assigned)
+            kind = "TF MMT"
+        else:
+            state = convert_vit_checkpoint(tf_vars, task.model, assigned=assigned)
+            kind = "TF ViT"
+        task.model.load_state_dict(state)
+        logging.info("warm-started from %s checkpoint %s: count_restored=%d tensors", kind,
+                     tf_path, len(assigned))
+        return len(assigned)
+
+    source = CheckpointManager(path).restore()
     if isinstance(task.config, PretrainingTaskConfig):
         task.model.load_state_dict(source)
         restored = len(source)
@@ -290,7 +322,7 @@ def _run(args, cfg, task, train_step, train_iter, device):
     if continuous:  # each round starts from the fresh initialisation
         fresh = {k: v.to("cpu", copy=True) for k, v in task.model.state_dict().items()}
     if cfg.task.init_checkpoint:
-        warm_start(task, cfg.task.init_checkpoint)
+        warm_start(task, cfg.task.init_checkpoint, strict=not args.lenient_warm_start)
 
     eval_fn = None
     if args.mode != "train" and _has_validation(cfg):

@@ -17,7 +17,8 @@ jax or flax) and returns tensors named as the port's modules name them:
 
 A leaf that no rule consumes raises.  Given ``model``, the result must
 name exactly the model's parameters with their shapes, or this raises.
-``flax_paths(model)`` is the inverse map: each port parameter's Flax path.
+``flax_paths(model)`` is the inverse map: each port parameter's Flax path,
+and ``flax_from_state_dict(state, model)`` the inverse conversion.
 """
 
 from __future__ import annotations
@@ -43,6 +44,16 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
         else:
             out[path] = np.asarray(value)
     return out
+
+
+def _unflatten(flat: Mapping[tuple, np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, value in flat.items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = value
+    return tree
 
 
 def _module_path(parts) -> list:
@@ -133,3 +144,30 @@ def flax_paths(model: nn.Module) -> Dict[str, str]:
             name = ".".join(parts + [leaf])
             out[name] = "/".join(_flax_module_path(parts) + [flax_leaf])
     return out
+
+
+def flax_from_state_dict(state: Mapping[str, torch.Tensor], model: nn.Module) -> dict:
+    """The inverse of ``params_from_flax``: ``state`` (the port's tensors,
+    named as ``model`` names its parameters) as the Flax parameter tree of
+    nested dicts of float32 numpy arrays (without the ``params`` root), in
+    Flax's layouts.  q/k/v ``weight[A*D, H]`` -> ``kernel[H, A, D]``,
+    ``bias[A*D]`` -> ``bias[A, D]``, output ``weight[H, A*D]`` ->
+    ``kernel[A, D, H]``, with ``A`` the owning attention module's
+    ``num_heads``; the relative table is ``[V, A, D]`` in both."""
+    flat = {}
+    modules = dict(model.named_modules())
+    for name, path in flax_paths(model).items():
+        value = state[name].detach().to("cpu", torch.float32).numpy()
+        parts = tuple(path.split("/"))
+        # q/k/v/output are children of the attention module.
+        heads = getattr(modules.get(name.rsplit(".", 2)[0]), "num_heads", None)
+        if parts[-1] == "kernel":
+            value = value.T
+            if heads and parts[-2] in _QKV:
+                value = value.reshape(value.shape[0], heads, -1)
+            elif heads and parts[-2] == "output":
+                value = value.reshape(heads, -1, value.shape[-1])
+        elif parts[-1] == "bias" and heads and parts[-2] in _QKV:
+            value = value.reshape(heads, -1)
+        flat[parts] = np.ascontiguousarray(value)
+    return _unflatten(flat)

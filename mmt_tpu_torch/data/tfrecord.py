@@ -1,4 +1,5 @@
-"""TFRecord container + tf.train.Example wire-format codec, dependency-free.
+"""TFRecord container + tf.train.Example wire-format codec, in numpy and
+the standard library.
 
 The port's own copy of ``mmt_tpu/data/tfrecord.py`` (the port imports
 nothing of the JAX package); records written by either parse in the other.
@@ -7,7 +8,10 @@ Re-provides the capability of the reference's ``tf.data.TFRecordDataset``
 + ``tf.io.parse_single_example`` input path (``src/data/
 pretrain_dataloader.py:129-150``) without the TensorFlow runtime: the
 TFRecord framing (length + masked crc32c) and the tiny subset of
-protobuf needed for ``tf.train.Example`` are hand-implemented.
+protobuf needed for ``tf.train.Example`` are hand-implemented.  Unlike the
+JAX package's bytewise loop, ``crc32c`` runs a buffer of 1 KiB or more as
+numpy lanes of 4-byte words and folds the lanes' CRCs together, so that it
+keeps up with file reads (TF checkpoints, ``train/tf_bundle.py``).
 
 Wire format facts (stable, public):
 * TFRecord frame: uint64 length | uint32 masked_crc(length) |
@@ -20,8 +24,11 @@ Wire format facts (stable, public):
 
 from __future__ import annotations
 
+import functools
 import struct
 from typing import Dict, Iterator, List, Tuple, Union
+
+import numpy as np
 
 FeatureValue = Union[List[bytes], List[float], List[int]]
 
@@ -35,15 +42,101 @@ for _n in range(256):
         _c = (_c >> 1) ^ _POLY if _c & 1 else _c >> 1
     _CRC_TABLE.append(_c)
 
+_T = [np.asarray(_CRC_TABLE, np.uint32)]
+for _ in range(3):  # _T[k][i]: byte i followed by k zero bytes
+    _T.append((_T[-1] >> 8) ^ _T[0][_T[-1] & 0xFF])
+_V16 = np.arange(1 << 16, dtype=np.uint32)
+# One 32-bit word x = crc ^ word: crc' = _LO[x & 0xffff] ^ _HI[x >> 16].
+_LO = _T[3][_V16 & 0xFF] ^ _T[2][_V16 >> 8]
+_HI = _T[1][_V16 & 0xFF] ^ _T[0][_V16 >> 8]
+del _V16
+_MAX_LANES = 16384  # each step touches one cache line per lane
+_MIN_LANE_WORDS = 64
+_SMALL_BYTES = 1024
 
-def crc32c(data: bytes) -> int:
-    crc = 0xFFFFFFFF
-    for b in data:
-        crc = _CRC_TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
-    return crc ^ 0xFFFFFFFF
+
+@functools.lru_cache(maxsize=None)
+def _zeros_op(nbytes: int) -> Tuple[int, ...]:
+    """The linear map 'feed ``nbytes`` (>= 1) zero bytes' on a raw CRC
+    state, as the images of its 32 unit vectors."""
+    if nbytes == 1:
+        return tuple((e >> 8) ^ _CRC_TABLE[e & 0xFF] for e in (1 << i for i in range(32)))
+    half = _zeros_op(nbytes // 2)
+    op = [_apply_int(half, c) for c in half]
+    return tuple(_apply_int(_zeros_op(1), c) for c in op) if nbytes % 2 else tuple(op)
 
 
-def _masked_crc(data: bytes) -> int:
+def _apply_int(op: Tuple[int, ...], x: int) -> int:
+    out = 0
+    for i in range(32):
+        if x >> i & 1:
+            out ^= op[i]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _zeros_tables(nbytes: int) -> List[np.ndarray]:
+    """``_zeros_op(nbytes)`` as four 256-entry tables, one per state byte."""
+    op = _zeros_op(nbytes)
+    v = np.arange(256, dtype=np.uint32)
+    tables = []
+    for byte in range(4):
+        t = np.zeros(256, np.uint32)
+        for bit in range(8):
+            t ^= np.where(v >> bit & 1, np.uint32(op[8 * byte + bit]), np.uint32(0))
+        tables.append(t)
+    return tables
+
+
+def _shift(state, nbytes: int):
+    """``state`` (uint32 array) as if ``nbytes`` zero bytes followed."""
+    t = _zeros_tables(nbytes)
+    return t[0][state & 0xFF] ^ t[1][(state >> 8) & 0xFF] ^ t[2][(state >> 16) & 0xFF] \
+        ^ t[3][state >> 24]
+
+
+def _raw_crc(buf: np.ndarray, state: int) -> int:
+    """The reflected CRC-32C register after feeding ``buf`` (uint8) from
+    ``state``, with no final inversion."""
+    n = buf.size
+    if n < _SMALL_BYTES:
+        for b in buf.tolist():
+            state = _CRC_TABLE[(state ^ b) & 0xFF] ^ (state >> 8)
+        return state
+    lanes = 1 << min(_MAX_LANES.bit_length() - 1, (n // (4 * _MIN_LANE_WORDS)).bit_length() - 1)
+    words = n // (4 * lanes)
+    main = lanes * words * 4
+    # Lane k holds bytes [4 k words, 4 (k + 1) words); all start from 0 but
+    # the first, which starts from ``state``.
+    grid = buf[:main].view("<u4").reshape(lanes, words)
+    crc = np.zeros(lanes, np.uint32)
+    crc[0] = state
+    x, lo, a, b = (np.empty(lanes, np.uint32) for _ in range(4))
+    for j in range(words):
+        np.bitwise_xor(crc, grid[:, j], out=x)
+        np.bitwise_and(x, 0xFFFF, out=lo)
+        np.right_shift(x, 16, out=x)
+        _LO.take(lo, out=a)
+        _HI.take(x, out=b)
+        np.bitwise_xor(a, b, out=crc)
+    # Fold neighbours: crc(a || b) = shift(crc(a), len(b)) ^ crc_0(b).
+    span = words * 4
+    while crc.size > 1:
+        crc = _shift(crc[0::2], span) ^ crc[1::2]
+        span *= 2
+    state = int(crc[0])
+    if main == n:
+        return state
+    return int(_shift(np.uint32(state), n - main)) ^ _raw_crc(buf[main:], 0)
+
+
+def crc32c(data) -> int:
+    """CRC-32C (Castagnoli) of ``data`` (bytes-like or a uint8 array)."""
+    buf = np.frombuffer(data, np.uint8) if not isinstance(data, np.ndarray) else data
+    return _raw_crc(buf.reshape(-1).view(np.uint8), 0xFFFFFFFF) ^ 0xFFFFFFFF
+
+
+def masked_crc32c(data) -> int:
     crc = crc32c(data)
     return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
 
@@ -58,9 +151,9 @@ class TFRecordWriter:
     def write(self, payload: bytes) -> None:
         header = struct.pack("<Q", len(payload))
         self._f.write(header)
-        self._f.write(struct.pack("<I", _masked_crc(header)))
+        self._f.write(struct.pack("<I", masked_crc32c(header)))
         self._f.write(payload)
-        self._f.write(struct.pack("<I", _masked_crc(payload)))
+        self._f.write(struct.pack("<I", masked_crc32c(payload)))
 
     def flush(self) -> None:
         self._f.flush()
@@ -95,9 +188,9 @@ class TFRecordReader:
                 if len(payload) < length or len(pcrc) < 4:
                     raise IOError(f"truncated TFRecord in {self.path}")
                 if self.check_crc:
-                    if struct.unpack("<I", hcrc)[0] != _masked_crc(header):
+                    if struct.unpack("<I", hcrc)[0] != masked_crc32c(header):
                         raise IOError("header crc mismatch")
-                    if struct.unpack("<I", pcrc)[0] != _masked_crc(payload):
+                    if struct.unpack("<I", pcrc)[0] != masked_crc32c(payload):
                         raise IOError("payload crc mismatch")
                 yield payload
 

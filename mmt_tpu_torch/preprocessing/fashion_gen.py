@@ -2,9 +2,9 @@
 
 The port's copy of ``mmt_tpu/preprocessing/fashion_gen.py``, without
 pandas: ``build_metadata`` and ``build_retrieval`` read and write their CSVs
-with ``csv`` as pandas' ``read_csv`` / ``to_csv(index=False)`` would for
-text columns (the same bytes for the same inputs; see ``build_metadata``
-for the one difference).
+with ``csv``, typing each column as pandas' ``read_csv`` infers it and
+writing it back as ``to_csv(index=False)`` does (the same bytes for the
+same inputs).
 
 Parity: ``preprocessing/create_fashion_gen_split.py`` (paired records
 from \\x01-separated info files + extracted images) and
@@ -39,6 +39,7 @@ import collections
 import csv
 import json
 import os
+import re
 
 from mmt_tpu_torch.data.tfrecord import TFRecordWriter
 from mmt_tpu_torch.preprocessing.records import get_txt_info, image_example
@@ -48,6 +49,13 @@ _NA_STRINGS = frozenset([
     "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND", "1.#QNAN",
     "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null"])
 _ADDED_COLUMNS = ["image_id", "text_index", "image_index", "gt", "gt_image_index"]
+_ID_COLUMNS = ("image_prod_id", "prod_img_id", "text_prod_id")  # read as text
+# The cells pandas' C parser reads as int64 and as float64.
+_INT = re.compile(r"\s*[+-]?\d+\s*")
+_FLOAT = re.compile(r"\s*[+-]?(?:(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?|inf|infinity)\s*",
+                    re.IGNORECASE)
+_BOOLS = {"True": True, "TRUE": True, "true": True,
+          "False": False, "FALSE": False, "false": False}
 
 
 def _read_csv(path):
@@ -59,6 +67,44 @@ def _read_csv(path):
         rows = [dict(zip(header, (None if v in _NA_STRINGS else v for v in cells)))
                 for cells in reader if cells]
     return header, rows
+
+
+def _infer_column(cells):
+    """(kind, values) of a column of cells (None where pandas reads NaN) as
+    ``read_csv`` types it: "int" (every cell an int64, or a uint64), "float"
+    (every cell a number, or an int with NaN cells, or every cell NaN; NaN
+    stays None), "bool" or "text" (the cells as read).  A decimal with more
+    than 15 significant digits may round otherwise than pandas' parser."""
+    present = [c for c in cells if c is not None]
+    if present and all(_INT.fullmatch(c) for c in present):
+        ints = [int(c) for c in present]
+        if not (all(-2 ** 63 <= v < 2 ** 63 for v in ints) or all(0 <= v < 2 ** 64 for v in ints)):
+            return "text", cells  # pandas keeps such a column as objects
+        if len(present) == len(cells):
+            return "int", [int(c) for c in cells]
+    if all(_FLOAT.fullmatch(c) for c in present):
+        return "float", [None if c is None else float(c) for c in cells]
+    if all(c in _BOOLS for c in present):
+        return "bool", [None if c is None else _BOOLS[c] for c in cells]
+    return "text", cells
+
+
+def _type_columns(rows, columns):
+    """Replaces the cells of ``columns`` in ``rows`` by their typed values;
+    returns {column: kind}."""
+    kinds = {}
+    for c in columns:
+        kinds[c], values = _infer_column([r.get(c) for r in rows])
+        for r, v in zip(rows, values):
+            r[c] = v
+    return kinds
+
+
+def _csv_cell(value) -> str:
+    """``to_csv``'s text of a value: NaN empty, floats by ``repr``."""
+    if value is None:
+        return ""
+    return repr(value) if isinstance(value, float) else str(value)
 
 
 def _category_codes(values):
@@ -89,6 +135,7 @@ def build_retrieval(
 ):
     txt_info = get_txt_info(txt_info_path, description_key="original_description")
     _, rows = _read_csv(candidates_csv)
+    _type_columns(rows, ["desc"])
     out_dir = os.path.join(eval_data_dir, task)
     os.makedirs(out_dir, exist_ok=True)
     record_path = os.path.join(out_dir, f"fashion_gen.{task}.valid.recordio-00000-of-00001")
@@ -97,10 +144,11 @@ def build_retrieval(
             image_id = row["image_id"]
             string_dict = dict(txt_info[image_id])
             # The candidate CSV's description may differ slightly from the
-            # info file; the CSV's text is authoritative for scoring (a NaN
-            # cell reads "nan", as ``str`` of pandas' NaN).
+            # info file; the CSV's text is authoritative for scoring (``str``
+            # of pandas' value: a NaN cell reads "nan", a numeric column's
+            # cells as numbers).
             desc = row["desc"]
-            string_dict["description"] = ("nan" if desc is None else desc).encode()
+            string_dict["description"] = ("nan" if desc is None else str(desc)).encode()
             with open(os.path.join(images_dir, f"{image_id}.{image_ext}"), "rb") as f:
                 im = f.read()
             w.write(
@@ -128,8 +176,8 @@ def build_retrieval(
 
 def build_metadata(pairs_csv, task, output_csv):
     """Builds the i2t/t2i candidate CSV from a raw Fashion-BERT/Kaleido-BERT
-    pool file (metadata-notebook parity); returns its rows (dicts, None
-    where the CSV has an empty cell).
+    pool file (metadata-notebook parity); returns its rows (dicts of the
+    typed values, None where the CSV has an empty cell).
 
     Parity: ``preprocessing/create_fashion_gen_metadata.ipynb`` (cells
     5-11).  Input columns: ``image_prod_id``, ``prod_img_id``,
@@ -153,12 +201,14 @@ def build_metadata(pairs_csv, task, output_csv):
     own product in the pool) is row-duplicated by the merge, as
     upstream.  Output keeps every input column plus the added ones, so
     it feeds ``build_retrieval`` (which needs image_id/desc/indices)
-    directly.  The one difference from the JAX package's pandas version:
-    columns other than the three ids are kept as the text read, where
-    pandas would parse an all-numeric column as numbers and write them
-    back in its own format (e.g. ``1.50`` as ``1.5``).
+    directly.  Every column but the three ids is typed as ``read_csv``
+    types it (``_infer_column``) and written back as ``to_csv`` writes it:
+    a numeric column with an empty cell is float64 (``0.50`` and ``3``
+    come back as ``0.5`` and ``3.0``), and for i2t its NaN cells are filled
+    with ``-1.0``, other columns' with ``-1``.
     """
     header, rows = _read_csv(pairs_csv)
+    kinds = _type_columns(rows, [c for c in header if c not in _ID_COLUMNS])
     for r in rows:
         parts = (r["image_prod_id"], r["prod_img_id"])
         r["image_id"] = None if None in parts else "_".join(parts)
@@ -174,7 +224,8 @@ def build_metadata(pairs_csv, task, output_csv):
     out = [{**r, "gt_image_index": g} for r in rows
            for g in gt_images.get(r["text_index"], [None])]
     if task == "i2t":
-        out = [{k: -1 if v is None else v for k, v in r.items()} for r in out]
+        out = [{k: (-1.0 if kinds.get(k) == "float" else -1) if v is None else v
+                for k, v in r.items()} for r in out]
     # A t2i text without its gt makes pandas' merged column float.
     as_float = task == "t2i" and any(r["gt_image_index"] is None for r in out)
     columns = header + [c for c in _ADDED_COLUMNS if c not in header]
@@ -182,7 +233,7 @@ def build_metadata(pairs_csv, task, output_csv):
         writer = csv.writer(f, lineterminator="\n")
         writer.writerow(columns)
         for r in out:
-            cells = ["" if r[c] is None else r[c] for c in columns]
+            cells = [_csv_cell(r[c]) for c in columns]
             if as_float and r["gt_image_index"] is not None:
                 cells[columns.index("gt_image_index")] = repr(float(r["gt_image_index"]))
             writer.writerow(cells)

@@ -464,10 +464,12 @@ def test_cli_refuses_what_is_not_ported(records, tmp_path):
         main(base + ["--params_override=runtime.num_pipeline_stages=2"])
     with pytest.raises(NotImplementedError, match="ZeRO"):
         main(base + ["--params_override=runtime.zero_sharded_optimizer=true"])
+    # A TF checkpoint directory whose ``checkpoint`` file names a prefix
+    # without its .index (TF and ViT warm starts are ported).
     tf_ckpt = tmp_path / "tf"
     tf_ckpt.mkdir()
     (tf_ckpt / "checkpoint").write_text('model_checkpoint_path: "ckpt-1"\n')
-    with pytest.raises(NotImplementedError, match="TF checkpoint"):
+    with pytest.raises(FileNotFoundError, match="ckpt-1"):
         main(base + ["--lenient_warm_start", f"--params_override=task.init_checkpoint={tf_ckpt}"])
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         main(base + [f"--params_override=task.init_checkpoint={tmp_path / 'missing'}"])

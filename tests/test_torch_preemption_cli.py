@@ -154,6 +154,39 @@ def test_sigterm_exits_0_and_the_rerun_resumes_bit_equal(tmp_path):
     for key in ("mu", "nu"):
         for name in opt_want[key]:
             assert torch.equal(opt_got[key][name], opt_want[key][name]), (key, name)
+    assert (chip_smoke.stream_snapshot(cut, STEPS)
+            == chip_smoke.stream_snapshot(tmp_path / "whole", STEPS))
+
+
+def test_chip_smoke_resume_bound():
+    """The card's resume bound per tensor: 4 x the spread of two
+    uninterrupted runs + 2 fp32 spacings + 2^-7 x the summed learning rates
+    per element.  A bias grown from zero by six updates (~2e-7) passes one
+    bfloat16 spacing of one step's gradient (1.6e-4 of its norm, which the
+    card's uninterrupted runs show; above the fp32 floor alone) and fails
+    a resume's other batches or count (1e-1); a large tensor fails 1e-6."""
+    import chip_smoke
+
+    gen = torch.Generator().manual_seed(0)
+    lr_sum = 2e-7
+    whole = {"bias": torch.tensor([1.98e-7, -1.98e-7]),
+             "weight": 0.02 * torch.randn(256, 256, generator=gen)}
+    pair = [whole, dict(whole)]
+
+    def moved(name, rel):
+        return {**whole, name: whole[name] * (1 + rel)}
+
+    flip = moved("bias", 1.6e-4)
+    assert not chip_smoke.resume_errors(flip, pair, lr_sum)["failing"]
+    assert list(chip_smoke.resume_errors(flip, pair, 0.0)["failing"]) == ["bias"]
+    assert list(chip_smoke.resume_errors(moved("bias", 1e-1), pair, lr_sum)["failing"]) == ["bias"]
+    assert list(chip_smoke.resume_errors(moved("weight", 1e-6), pair, lr_sum)["failing"]) \
+        == ["weight"]
+    assert not chip_smoke.resume_errors(moved("weight", 1e-7), pair, lr_sum)["failing"]
+    # A run-to-run spread widens the bound by 4x itself.
+    spread = [whole, moved("weight", 1e-6)]
+    assert not chip_smoke.resume_errors(moved("weight", 3e-6), spread, lr_sum)["failing"]
+    assert chip_smoke.resume_errors(moved("weight", 6e-6), spread, lr_sum)["tensors_failing"] == 1
 
 
 def test_sigterm_to_the_process_group_with_loader_processes(tmp_path):

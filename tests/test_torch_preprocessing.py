@@ -204,6 +204,57 @@ class TestFashionGenMetadata:
         fashion_gen.build_metadata(str(path), task, str(got_path))
         assert got_path.read_bytes() == want_path.read_bytes()
 
+    @pytest.mark.parametrize("task", ["i2t", "t2i"])
+    def test_numeric_extra_columns_vs_jax(self, tmp_path, task):
+        """Extra columns typed as pandas' ``read_csv`` types them: a float
+        column with an empty cell (JAX: ``0.5``, ``-1.0`` for i2t or empty
+        for t2i, ``3.0``), an int column with padded cells, an all-empty
+        column, booleans, exponents and infinities, an int beyond int64 (kept
+        as text) and a numeric ``desc``."""
+        header = ["image_prod_id", "prod_img_id", "text_prod_id", "desc", "score", "rank",
+                  "empty", "flag", "exp", "huge"]
+        rows = [("p1", "0", "p1", "1.50", "0.50", " 7", "", "true", "1e3", "99999999999999999999"),
+                ("p1", "0", "p2", "2", "", "+4", "", "False", "-inf", "1"),
+                ("p2", "1", "p2", "3", "3", "007", "", "TRUE", ".5", "2")]
+        path = tmp_path / "raw.csv"
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f, lineterminator="\n")
+            w.writerow(header)
+            w.writerows(rows)
+        want_path, got_path = tmp_path / "jax.csv", tmp_path / "port.csv"
+        want = jax_fashion_gen.build_metadata(str(path), task, str(want_path))
+        got = fashion_gen.build_metadata(str(path), task, str(got_path))
+        assert got_path.read_bytes() == want_path.read_bytes()
+        lines = got_path.read_text().splitlines()
+        assert [line.split(",")[4] for line in lines[1:]] == \
+            ["0.5", "-1.0" if task == "i2t" else "", "3.0"]
+        assert [r["score"] for r in got][::2] == want["score"].tolist()[::2]
+
+    def test_numeric_desc_feeds_retrieval_as_jax(self, tmp_path):
+        """A candidates CSV whose ``desc`` cells are all numbers: the records'
+        descriptions are ``str`` of pandas' values (``1.50`` -> ``1.5``)."""
+        (tmp_path / "cands.csv").write_text(
+            "image_id,desc,image_index,text_index,gt_image_index\n"
+            "a_0,1.50,0,0,0\na_0,2,0,1,-1\nb_0,,1,0,0\n")
+        info = tmp_path / "valid_info.txt"
+        info.write_text("".join("\x01".join([p, f"{p}_0", "cat", "1", "sub", "2", "info"]) + "\n"
+                                for p in ("a", "b")))
+        img_dir = tmp_path / "imgs"
+        img_dir.mkdir()
+        rng = np.random.default_rng(5)
+        for name in ("a_0", "b_0"):
+            (img_dir / f"{name}.png").write_bytes(png_bytes(rng))
+        out = tmp_path / "eval"
+        out.mkdir()
+        argv = ["retrieval", f"--txt_info={info}", f"--images_dir={img_dir}",
+                f"--candidates_csv={tmp_path / 'cands.csv'}", "--task=t2i",
+                f"--eval_data_dir={out}"]
+        _same_files(out, lambda: jax_fashion_gen.main(argv), lambda: fashion_gen.main(argv))
+        meta = json.loads((out / "t2i" / "input_meta_data").read_text())
+        descs = [parse_example(p)["description"][0]
+                 for p in TFRecordReader(meta["val_input_path"])]
+        assert descs == [b"1.5", b"2.0", b"nan"]
+
     def test_pool_shape_and_gt_rules(self, tmp_path):
         i2t = pd.DataFrame(fashion_gen.build_metadata(
             raw_pairs(tmp_path, "i2t"), "i2t", str(tmp_path / "i.csv")))
