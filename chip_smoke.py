@@ -97,8 +97,28 @@ Phases, each printed as one JSON line:
    2-example micro-batch at S=4096, kernels against dense attention, remat
    on, hidden and attention dropout 0.1 from the same seeds: relative
    Frobenius error within TRAIN_GRAD_BOUND.
+17. sequence_shard: the kernels' offset mode shard by shard in one process
+   (n = 4): the flagship forward in the all-gather form (4 calls of 1024
+   rows against all 4096 keys at ``q_start = r 1024``) and the ring form (16
+   calls of 1024 x 1024 at ``(q_start, k_start)``, combined by
+   ``ops.sharded_attention.ring_combine``); the windowed micro-batch (B=8,
+   w=512, g=198, rate 0.1) in the ring form, forward and backward against
+   the global lse.  Every call against the plain version with the same
+   offsets (the bounds of phases 3 and 8; rows with no live key must be
+   o = 0, lse = -inf); the assembled outputs against the unsharded kernel
+   on real rows, the ring's gradients against the unsharded backward kernel
+   on the same lse and delta, and end to end against the unsharded
+   backward on a float32 output's delta (dRel within DREL_E2E_REL_BOUND,
+   the unsharded kernel's own distance reported beside it); examples 4..7
+   at ``batch_start`` 4 bit-equal
+   to the unsharded call's rows.  Then one full-width WIT step (global batch
+   512 as 8 micro-batches of 64) through the data-parallel step with ZeRO-1
+   inside a one-rank nccl group: the all-reduce leaves the gradients bit
+   for bit, and the parameters and moments equal the replicated AdamW's on
+   those gradients.  ms per shard call against the unsharded call, the
+   phase's seconds.  One card: no collective crosses cards.
 
-17. probe_split: the far / structured split schedule as two probe passes
+18. probe_split: the far / structured split schedule as two probe passes
    (``probes.split_probe``): each pass and their logsumexp combine against
    the plain versions and the one-pass kernel at the check lengths (the o /
    lse bounds of phase 3), then the probe's entry point at the retrieval
@@ -106,16 +126,16 @@ Phases, each printed as one JSON line:
    forward kernel, ``csrc/rel_attention_fwd.cu``), the share of far
    tiles; each pass also against its bound and against
    ``scaled_dot_product_attention`` handed the bias and the class mask.
-18. probe_op_cost: every variant of the op-cost probe
+19. probe_op_cost: every variant of the op-cost probe
    (``probes.op_cost_probe``) against its plain version at the retrieval
    shape (and, inside the probe's entry point, at B=1, H=2, S=512), then
    the entry point's timings at the retrieval shape: ms per variant and
    the delta against the baseline.
-19. probe_hopper: every primitive probe of ``probes.hopper_probe`` (wgmma,
+20. probe_hopper: every primitive probe of ``probes.hopper_probe`` (wgmma,
    TMA load / store, cp.async ring, ldmatrix.trans + stmatrix, cluster
    shared memory, 227 KB shared memory, setmaxnreg, red.v4.f32) against its
    plain version; any status other than OK fails the run.
-20. predict_cli: synthetic Flickr30k-style records (16 images x 40 captions
+21. predict_cli: synthetic Flickr30k-style records (16 images x 40 captions
    = 640 pairs, PNG images, a generated vocab, an ``input_meta_data`` JSON
    with ``max_seq_length`` 256), a seeded random checkpoint of the
    full-width model of configs/exp_yamls/finetune/flickr30k/
@@ -129,7 +149,7 @@ Phases, each printed as one JSON line:
    plain version at this path's shape (B=128, S=256, the first batch's
    lengths, no dropout; the o / lse bounds of phase 3); pairs/s of the whole call, of the host part (records ->
    batches) and of the device part (batches -> scores).
-21. int8: the flagship model of phase main in dynamic int8
+22. int8: the flagship model of phase main in dynamic int8
    (``quantize="int8_dynamic"``: the 72 projection and FFN layers as
    ``ops.quant.Int8Linear``, the float state dict loaded unchanged) against
    the same weights in bf16, at the retrieval shape (S=4096, batch 32, the
@@ -140,7 +160,7 @@ Phases, each printed as one JSON line:
    forward, and one full-shape ``Int8Linear`` call's int32 accumulator
    (``torch._int_mm``) bit-equal to the exact float64 product, with both
    products' times beside the bf16 matmul's.
-22. export: the predict CLI's serving export at full width (the records,
+23. export: the predict CLI's serving export at full width (the records,
    config and seeded checkpoint of phase predict_cli): ``cli.predict.main``
    with ``--export_serving_artifact`` (a static batch of 128: the config's
    attention is the fused op) and again with ``--export_bucket_sizes="1,
@@ -153,7 +173,7 @@ Phases, each printed as one JSON line:
    same examples the scores must lie within 4 bf16 spacings (equality is
    expected), the artifact within 1% of the parameters' bytes, and the
    process must launch the forward kernel 12 times per fused call.
-23. finetune: Flickr30k ITM finetuning at full width through
+24. finetune: Flickr30k ITM finetuning at full width through
    ``mmt_tpu_torch.cli.train.main`` in train_and_eval: seeded paired records
    (512 for training, 4 steps' worth at 128 records a step, and 128 for
    validation; 224 x 224 PNG images, 5 captions of 8-24 words each), a
@@ -184,17 +204,17 @@ Phases, each printed as one JSON line:
    command run again must resume at k, finish, and end within the resume
    bound above; k, the seconds from the signal to the exit and the exit
    codes are reported.
-24. finetune_profile: one B=512 training step under the profiler (device
+25. finetune_profile: one B=512 training step under the profiler (device
    time by kernel group, idle share, the forward and backward kernels per
    call), and the two kernels at B=512, S=256 with the records' lengths and
    dropout 0.1: against their plain versions (the bounds of phases 3 and 8),
    alone, against SDPA handed the bias mask, and against the bound.
-25. finetune_reference: the classification model's per-tensor gradients on
+26. finetune_reference: the classification model's per-tensor gradients on
    2 examples of the records (positives weighted 2, attention dropout 0.1
    from the same seeds) with the kernels, with dense attention and with
    dense attention in float32: the kernels' relative error against float32
    may exceed dense attention's by at most TRAIN_GRAD_BOUND.
-26. continuous: ``cli.train.main --mode=continuous_train_and_eval`` on the
+27. continuous: ``cli.train.main --mode=continuous_train_and_eval`` on the
    finetune yaml at CONT_STEPS steps a round, watching a pretraining
    directory that holds the seeded WIT checkpoint at step 0; once the first
    ``continuous_results.jsonl`` line is written, a helper thread saves a
@@ -204,12 +224,12 @@ Phases, each printed as one JSON line:
    ``cls_accuracy``, ``cls_loss`` and ``auc``, the finetune phase's
    ``count_restored`` in each round, and 12 forward launches per step and
    per eval batch and 12 backward launches per step.
-27. checkpoint: ``CheckpointManager.save`` of the WIT pretraining model and
+28. checkpoint: ``CheckpointManager.save`` of the WIT pretraining model and
    its AdamW state, synchronous and asynchronous in turns (sync, async,
    async, sync): the bytes, the ms the caller is blocked and the ms until
    the checkpoint is durable; the restored tensors bit-equal to the saved
    ones.
-28. grad_accum: one WIT pretraining step of 8 micro-batches of 64 (S=256,
+29. grad_accum: one WIT pretraining step of 8 micro-batches of 64 (S=256,
    dropout 0.1, the same parameters, batch and seeds) with float32,
    bfloat16, and again bfloat16 with every micro-batch's float32 gradient
    recorded as the backward leaves it: that step's summed gradient equal,
@@ -219,7 +239,7 @@ Phases, each printed as one JSON line:
    relative (the same forward); the worst tensor and the card's peak
    memory of each run, 12 launches of each kernel per micro-batch.
 
-29. pretrain_records: WIT pretraining from records through
+30. pretrain_records: WIT pretraining from records through
    ``mmt_tpu_torch.cli.train.main --experiment=mmt/pretraining`` in
    train_and_eval: seeded WIT-style records (8 files of 512 for training,
    512 for validation; smooth PNG images at 256 x 192, 192 x 256 and
@@ -240,14 +260,14 @@ Phases, each printed as one JSON line:
    per validation batch and 12 backward launches per micro-batch.  Then a
    profile of the loader's per-record work (``loader_profile``) and
    validation alone (records -> metrics).
-30. pretrain_records_profile: one optimizer step of a 4096-row batch of
+31. pretrain_records_profile: one optimizer step of a 4096-row batch of
    the records (``profile_batch``) on the card under the profiler (device
    time by kernel group, idle share, the kernels per call) and the host's
    share of the runs' steady steps; the forward and backward kernels at a
    micro-batch's lengths (B=64, rate 0.1) and the forward at a validation
    batch's (B=256, rate 0) against their plain versions (the bounds of
    phases 3 and 8), SDPA and the bound.
-31. pretrain_records_reference: a micro-batch of 64 rows of the records,
+32. pretrain_records_reference: a micro-batch of 64 rows of the records,
    kernels against dense attention: the loss within LOSS_REL_BOUND, the
    gradients by train_reference's rule, or, for a tensor outside it,
    finetune_reference's float32 rule; then one MLM + MPP + ITM batch at MPP
@@ -256,7 +276,7 @@ Phases, each printed as one JSON line:
    the two modes against each other and against dense attention (ITM
    within 4 bf16 spacings, MLM and MPP within SEQUENCE_REL_BOUND of their
    norm).
-32. warm_start: TF object checkpoints through ``cli.train.main`` at full
+33. warm_start: TF object checkpoints through ``cli.train.main`` at full
    width, written by this script's bundle writer (``write_tf_bundle``; the
    card's machine has no TF) and read by ``train/tf_bundle.py``.  A seeded
    ViT-B/16 (``seeded_vit``: conv patch kernel [16, 16, 3, 768], position
@@ -327,6 +347,12 @@ GRAD_REL_BOUND = 2e-2
 # of a rare id (an image corner, a part id) fails too; rows that are 0 in
 # the plain version (ids no pair has) must be 0.
 DREL_REL_BOUND, DREL_ROW_BOUND = 1e-4, 1e-3
+# End to end (each side's delta from its own bf16 output), dRel also
+# carries the rounding of the output that delta is summed from: phase
+# sequence_shard holds the ring's dRel to DREL_E2E_REL_BOUND x max |dRel|
+# of the unsharded backward on a float32 output's delta, and reports the
+# unsharded kernel's own distance from it beside it.
+DREL_E2E_REL_BOUND = 5e-3
 # The kernels' names in profiler traces (rel_attention_fwd.cu,
 # rel_attention_bwd.cu).
 FWD_KERNEL = "rel_attention_fwd_kernel"
@@ -1006,15 +1032,16 @@ def launch_counts():
 
     fwd, bwd = fa.relative_attention_forward, fa.relative_attention_backward
     return {"fwd": fwd.launches, "fwd_window": fwd.launches_window,
-            "bwd": bwd.launches, "bwd_window": bwd.launches_window}
+            "fwd_offset": fwd.launches_offset, "bwd": bwd.launches,
+            "bwd_window": bwd.launches_window, "bwd_offset": bwd.launches_offset}
 
 
 def reset_launch_counts() -> None:
     from mmt_tpu_torch.ops import fused_attention as fa
 
     fwd, bwd = fa.relative_attention_forward, fa.relative_attention_backward
-    fwd.launches = fwd.launches_window = 0
-    bwd.launches = bwd.launches_window = 0
+    fwd.launches = fwd.launches_window = fwd.launches_offset = 0
+    bwd.launches = bwd.launches_window = bwd.launches_offset = 0
 
 
 def phase_train():
@@ -1050,7 +1077,7 @@ def phase_train():
     launches = {k: counts[k] for k in ("fwd", "bwd")}
     layers = cfg.task.model.encoder.mmt.num_hidden_layers
     expected = layers * micro_per_step * TRAIN_STEPS
-    if set(launches.values()) != {expected} or any(counts[k] for k in counts if "window" in k):
+    if set(launches.values()) != {expected} or any(counts[k] for k in counts if k not in launches):
         raise AssertionError(f"launches {counts}, expected {expected} of each dense kernel")
     if len(summaries) != TRAIN_STEPS or not all(
             math.isfinite(v) for s in summaries for v in s.values()):
@@ -1364,7 +1391,7 @@ def phase_train_window():
     layers = cfg.task.model.encoder.mmt.num_hidden_layers
     micro_batches = micro_per_step * WINDOW_STEPS
     expected = {"fwd": 0, "fwd_window": 2 * layers * micro_batches, "bwd": 0,
-                "bwd_window": layers * micro_batches}
+                "bwd_window": layers * micro_batches, "fwd_offset": 0, "bwd_offset": 0}
     if counts != expected:
         raise AssertionError(f"launches {counts}, expected {expected}")
     if len(summaries) != WINDOW_STEPS or not all(
@@ -2522,7 +2549,8 @@ def phase_finetune(root: Path):
         raise AssertionError(f"count_restored {restored}, expected [{len(restorable)}]")
     eval_batches = 2 * math.ceil(FT_VAL_RECORDS / (FT_EVAL_BATCH // (FT_RATIO + 1)))
     expected = {"fwd": layers * (FT_STEPS + eval_batches), "fwd_window": 0,
-                "bwd": layers * FT_STEPS, "bwd_window": 0}
+                "bwd": layers * FT_STEPS, "bwd_window": 0, "fwd_offset": 0,
+                "bwd_offset": 0}
     if counts != expected:
         raise AssertionError(f"finetune launches {counts}, expected {expected} "
                              f"({layers} per step and per eval batch)")
@@ -2877,7 +2905,8 @@ def phase_continuous(root: Path, expected_restored: int):
     layers = pre_cfg.task.model.encoder.mmt.num_hidden_layers
     eval_batches = math.ceil(FT_VAL_RECORDS / (FT_EVAL_BATCH // (FT_RATIO + 1)))
     expected = {"fwd": layers * 2 * (CONT_STEPS + eval_batches), "fwd_window": 0,
-                "bwd": layers * 2 * CONT_STEPS, "bwd_window": 0}
+                "bwd": layers * 2 * CONT_STEPS, "bwd_window": 0, "fwd_offset": 0,
+                "bwd_offset": 0}
     emit({"phase": "continuous", "steps_per_round": CONT_STEPS, "global_batch": FT_GLOBAL,
           "timeout_s": CONT_TIMEOUT_S, "poll_s": CONT_POLL_S, "run_seconds": run_s,
           **timeline, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -3057,7 +3086,8 @@ def phase_grad_accum():
                              f"micro-batches' gradients at {unequal[:5]}")
     if not (loss_rel <= GA_LOSS_REL_BOUND and errors[worst] <= GA_GRAD_REL_BOUND):
         raise AssertionError(f"bf16 accumulation: loss {loss_rel}, {worst} {errors[worst]}")
-    if counts != {"fwd": expected, "fwd_window": 0, "bwd": expected, "bwd_window": 0}:
+    if counts != {"fwd": expected, "fwd_window": 0, "bwd": expected, "bwd_window": 0,
+                  "fwd_offset": 0, "bwd_offset": 0}:
         raise AssertionError(f"grad_accum launches {counts}, expected {expected} each")
     return counts
 
@@ -3251,7 +3281,8 @@ def run_records_cli(root: Path, num_workers: int, layers: int) -> dict:
     counts = launch_counts()
     micro = TRAIN_GLOBAL // TRAIN_MICRO
     expected = {"fwd": layers * (micro * steps + PR_EVAL_STEPS), "fwd_window": 0,
-                "bwd": layers * micro * steps, "bwd_window": 0}
+                "bwd": layers * micro * steps, "bwd_window": 0, "fwd_offset": 0,
+                "bwd_offset": 0}
     if counts != expected:
         raise AssertionError(f"records run ({num_workers} workers): launches {counts}, "
                              f"expected {expected}")
@@ -3905,7 +3936,8 @@ def phase_warm_start(root: Path):
     layers = VIT_LAYERS  # the yaml's encoder has as many as the ViT
     micro = VIT_GLOBAL // TRAIN_MICRO
     expected = {"fwd": layers * (micro * VIT_STEPS + 1), "fwd_window": 0,
-                "bwd": layers * micro * VIT_STEPS, "bwd_window": 0}
+                "bwd": layers * micro * VIT_STEPS, "bwd_window": 0, "fwd_offset": 0,
+                "bwd_offset": 0}
     if vit_counts != expected:
         raise AssertionError(f"from-ViT launches {vit_counts}, expected {expected}")
     vit_result = {"read": read_rate(call), "image_tensors": len(image),
@@ -3945,7 +3977,8 @@ def phase_warm_start(root: Path):
              for n in ("tf", "port")]
     eval_batches = math.ceil(FT_VAL_RECORDS / (FT_EVAL_BATCH // (FT_RATIO + 1)))
     ft_expected = {"fwd": layers * (WS_FT_STEPS + eval_batches), "fwd_window": 0,
-                   "bwd": layers * WS_FT_STEPS, "bwd_window": 0}
+                   "bwd": layers * WS_FT_STEPS, "bwd_window": 0, "fwd_offset": 0,
+                   "bwd_offset": 0}
     if differ or tf_call["count"] != port_call["count"] or first[0] != first[1] \
             or tf_call["count"] != len(port_call["after"]):
         raise AssertionError(f"TF MMT warm start against the port's checkpoint: {len(differ)} "
@@ -3997,6 +4030,499 @@ def phase_warm_start(root: Path):
 
 
 
+# ------------------------------------------------ sequence_shard (offsets)
+
+SHARDS = 4
+SHARD_SEED = 4242
+# One optimizer step of WIT pretraining at full width on a one-rank nccl
+# group: global batch 512 as 8 micro-batches of 64.
+DP_GLOBAL = 512
+
+
+def chunk_pairs(geo, lengths, q_start, seq_q, k_start, seq_k) -> int:
+    """Real (query, key) pairs of a shard call that the pattern allows."""
+    qp = torch.arange(q_start, q_start + seq_q)
+    kp = torch.arange(k_start, k_start + seq_k)
+    from mmt_tpu_torch.ops.fused_attention import window_allowed
+
+    allowed = window_allowed(geo, qp[:, None], kp[None, :]) if geo.window else None
+    total = 0
+    for n in lengths:
+        real = (qp[:, None] < n) & (kp[None, :] < n)
+        total += int((real & allowed).sum() if allowed is not None else real.sum())
+    return total
+
+
+def chunk_work(geo, lengths, q_start, seq_q, k_start, seq_k, backward=False):
+    """(FLOPs, bytes) of one shard call: its allowed real pairs and real
+    rows; its real rows of q (and do, lse, delta) and real keys of k and v
+    read once, its outputs written once."""
+    real_q = float(sum(max(0, min(n, q_start + seq_q) - q_start) for n in lengths))
+    real_k = float(sum(max(0, min(n, k_start + seq_k) - k_start) for n in lengths))
+    pairs = chunk_pairs(geo, lengths, q_start, seq_q, k_start, seq_k)
+    row, batch = HEADS * HEAD_DIM * 2, len(lengths)
+    table = REL_VOCAB * HEADS * HEAD_DIM * 4 + batch * 4
+    if not backward:
+        flops = 4 * pairs * HEAD_DIM * HEADS + 2 * real_q * REL_VOCAB * HEAD_DIM * HEADS
+        nbytes = ((real_q + 2 * real_k) * row + batch * seq_q * (row + HEADS * 4) + table)
+        return flops, nbytes
+    flops = 10 * pairs * HEAD_DIM * HEADS + 6 * real_q * REL_VOCAB * HEAD_DIM * HEADS
+    nbytes = (2 * real_q * row + 2 * real_q * HEADS * 4 + 2 * real_k * row + table
+              + batch * (seq_q + 2 * seq_k) * row)
+    return flops, nbytes
+
+
+def chunk_bias(q, table, geo, lengths, q_start, k_start, seq_k):
+    """``materialised_bias`` of one shard call's rows and keys."""
+    from mmt_tpu_torch.ops import fused_attention as fa
+
+    seq_q = q.shape[1]
+    ids = torch.from_numpy(fa.relative_att_ids_at(geo, q_start, seq_q, k_start, seq_k)
+                           ).to(q.device).long()
+    valid = ids < table.shape[0]
+    qp = torch.arange(q_start, q_start + seq_q, device=q.device)
+    kp = torch.arange(k_start, k_start + seq_k, device=q.device)
+    window = (torch.where(fa.window_allowed(geo, qp[:, None], kp[None, :]), 0.0, fa.NEG_INF)
+              if geo.window > 0 else 0.0)
+    masks = []
+    for b in range(q.shape[0]):
+        qr = torch.einsum("qhd,vhd->hqv", q[b].float(), table.to(q.dtype).float())
+        bias = torch.gather(qr, -1, torch.where(valid, ids, 0).expand(HEADS, -1, -1))
+        bias = torch.where(valid, bias, 0.0) / math.sqrt(HEAD_DIM)
+        pad = (qp[:, None] < lengths[b]) != (kp[None, :] < lengths[b])
+        masks.append((bias + pad.float() * fa.NEG_INF + window).to(q.dtype))
+    return torch.stack(masks)
+
+
+def sdpa_chunk_ms(q, k, v, mask, iters, backward=False):
+    """SDPA on one shard call's rows and keys, handed its bias as a mask:
+    the forward's time, or forward+backward minus forward."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(backward) for t in (q, k, v))
+    fwd = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), iters)
+    if not backward:
+        return fwd
+    do = torch.randn_like(qt)
+    both = cuda_ms(lambda: torch.autograd.grad(sdpa(qt, kt, vt, attn_mask=mask), (qt, kt, vt),
+                                               do), iters)
+    return both - fwd
+
+
+def positions(start, size):
+    return torch.arange(start, start + size, device="cuda")
+
+
+def check_shard_forward(args, o, lse, q_start, k_start, rate=0.0, seed=None):
+    """One shard call against the plain version with the same offsets, on
+    the rows with a live key in the chunk; rows without one must be o = 0,
+    lse = -inf.  Returns the max abs errors of o and lse."""
+    from mmt_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, table, geo, lengths = args
+    o_ref, lse_ref = fa.relative_attention_plain(q, k, v, table, geo, lengths, rate, seed,
+                                                 q_start, k_start)
+    qp, kp = positions(q_start, q.shape[1]), positions(k_start, k.shape[1])
+    empty = fa.empty_rows(geo, lengths, qp, kp)
+    live = (qp[None] < lengths[:, None]) & ~empty
+    if not (torch.all(o[empty] == 0) and torch.all(lse.transpose(1, 2)[empty] == -math.inf)):
+        raise AssertionError(f"shard ({q_start}, {k_start}): rows with no live key are not "
+                             f"o = 0, lse = -inf")
+    if not live.any():
+        return 0.0, 0.0
+    err_o = (o.float() - o_ref.float())[live].abs().max().item()
+    err_lse = (lse - lse_ref).transpose(1, 2)[live].abs().max().item()
+    if not (err_o <= O_BOUND and err_lse <= LSE_BOUND):
+        raise AssertionError(f"shard ({q_start}, {k_start}) disagrees with plain: o {err_o} "
+                             f"lse {err_lse}")
+    return err_o, err_lse
+
+
+def assembled_errors(o, lse, o_ref, lse_ref, lens):
+    err_o = max((o[b, :n].float() - o_ref[b, :n].float()).abs().max().item()
+                for b, n in enumerate(lens))
+    err_lse = max((lse[b, :, :n] - lse_ref[b, :, :n]).abs().max().item()
+                  for b, n in enumerate(lens))
+    if not (err_o <= O_BOUND and err_lse <= LSE_BOUND):
+        raise AssertionError(f"assembled shards disagree with the unsharded kernel: o {err_o} "
+                             f"lse {err_lse}")
+    return err_o, err_lse
+
+
+def rel_error(got, want, rows=None):
+    """(max abs error, its ratio to max |want|) over ``rows``."""
+    got, want = got.float(), want.float()
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    if got.numel() == 0:
+        return 0.0, 0.0
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite gradient from the backward kernel")
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    return err, (err / scale if scale > 0 else (0.0 if err == 0 else math.inf))
+
+
+def shard_flagship(n):
+    """The flagship forward shard by shard: the all-gather form (n calls of
+    S / n rows against all S keys) and the ring form (n x n calls of S / n
+    x S / n, combined by ``ring_combine``)."""
+    from mmt_tpu_torch.ops import fused_attention as fa
+    from mmt_tpu_torch.ops import sharded_attention as sa
+
+    lens = np.random.default_rng(40).integers(SEQ_LEN // 2, SEQ_LEN + 1, BATCH).tolist()
+    q, k, v, table, geo, lengths = attention_inputs(lens, seed=41)
+    s = SEQ_LEN // n
+    qs, ks, vs = ([c.contiguous() for c in t.split(s, 1)] for t in (q, k, v))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ag = [sa.all_gather_local_forward(qs[r], k, v, table, geo, lengths, r * s) for r in range(n)]
+    parts = [[] for _ in range(n)]
+    ring = [sa.ring_local_forward(qs[r], sa.OneProcessRing(r, ks, vs), table, geo, lengths, r * s,
+                                  parts=parts[r]) for r in range(n)]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # Offset launches: the n all-gather calls (fewer query rows than keys)
+    # and every ring call but the (0, 0) pair, which is a dense call.
+    if counts["fwd_offset"] != n * n + n - 1 or counts["fwd"] != 1:
+        raise AssertionError(f"flagship shards: launches {counts}")
+    worst = [0.0, 0.0]
+    for r in range(n):
+        for err in [check_shard_forward((qs[r], k, v, table, geo, lengths), *ag[r], r * s, 0),
+                    *(check_shard_forward((qs[r], ks[c // s], vs[c // s], table, geo, lengths),
+                                          o_i, lse_i, r * s, c) for c, o_i, lse_i in parts[r])]:
+            worst = [max(a, b) for a, b in zip(worst, err)]
+    del parts
+    o_u, lse_u = fa.relative_attention_forward(q, k, v, table, geo, lengths)
+    err_ag = assembled_errors(torch.cat([o for o, _ in ag], 1), torch.cat([l for _, l in ag], 2),
+                              o_u, lse_u, lens)
+    err_ring = assembled_errors(torch.cat([o for o, _ in ring], 1),
+                                torch.cat([l for _, l in ring], 2), o_u, lse_u, lens)
+    del ag, ring, o_u, lse_u
+
+    ag_call = lambda r: sa.all_gather_local_forward(qs[r], k, v, table, geo, lengths, r * s)  # noqa: E731
+    ring_calls = [(r, sa.ring_chunk(r, i, n)) for r in range(n) for i in range(n)]
+    times = {
+        "unsharded_ms": cuda_ms(lambda: fa.relative_attention_forward(q, k, v, table, geo,
+                                                                      lengths), 10),
+        "all_gather_ms_per_call": cuda_ms(lambda: [ag_call(r) for r in range(n)], 5) / n,
+        "ring_ms_per_call": cuda_ms(lambda: [fa.relative_attention_forward(
+            qs[r], ks[c], vs[c], table, geo, lengths, q_start=r * s, k_start=c * s)
+            for r, c in ring_calls], 5) / len(ring_calls),
+        "ring_with_combine_ms_per_call": cuda_ms(lambda: [sa.ring_local_forward(
+            qs[r], sa.OneProcessRing(r, ks, vs), table, geo, lengths, r * s)
+            for r in range(n)], 3) / len(ring_calls),
+        "all_gather_shard1_plain_ms": cuda_ms(lambda: fa.relative_attention_plain(
+            qs[1], k, v, table, geo, lengths, q_start=s), 1),
+    }
+    mask = chunk_bias(qs[1], table, geo, lengths, s, 0, SEQ_LEN)
+    times["all_gather_shard1_library_ms"] = sdpa_chunk_ms(qs[1], k, v, mask, 5)
+    del mask
+    torch.cuda.empty_cache()
+    flops, nbytes = chunk_work(geo, lens, s, s, 0, SEQ_LEN)
+    bound, by = bound_ms(flops, nbytes)
+    shard1_ms = cuda_ms(lambda: ag_call(1), 10)
+    return {"shape": [BATCH, SEQ_LEN, HEADS, HEAD_DIM], "shards": n, "lengths_mean": np.mean(lens),
+            "launches": counts, "max_abs_err_o_per_call": worst[0],
+            "max_abs_err_lse_per_call": worst[1], "all_gather_vs_unsharded": err_ag,
+            "ring_vs_unsharded": err_ring, **times, "all_gather_shard1_ms": shard1_ms,
+            "all_gather_shard1_bound_ms": bound, "all_gather_shard1_bound_by": by,
+            "all_gather_shard1_flops": flops, "all_gather_shard1_bytes": nbytes}, counts
+
+
+def shard_window(n):
+    """The windowed training micro-batch (B=8, S=4096, w=512, g=198, rate
+    0.1) in the ring form, forward and backward against the global lse,
+    every call against the plain version, the assembled gradients against
+    the unsharded kernel's; and a data shard (examples 4..7 at batch_start
+    4) bit-equal to the unsharded call's rows."""
+    from mmt_tpu_torch.ops import fused_attention as fa
+    from mmt_tpu_torch.ops import sharded_attention as sa
+
+    q, k, v, table, geo, lengths = window_attention_inputs(seed=50)
+    lens = lengths.tolist()
+    rate, seed = DROPOUT, SHARD_SEED
+    do = torch.from_numpy(np.random.default_rng(51).standard_normal(q.shape, np.float32))
+    do = do.cuda().to(torch.bfloat16)
+    s = WINDOW_SEQ // n
+    qs, ks, vs, dos = ([c.contiguous() for c in t.split(s, 1)] for t in (q, k, v, do))
+    dk = [torch.zeros(c.shape, dtype=torch.float32, device="cuda") for c in ks]
+    dv = [torch.zeros(c.shape, dtype=torch.float32, device="cuda") for c in vs]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    f_parts, b_parts = [[] for _ in range(n)], [[] for _ in range(n)]
+    outs = [sa.ring_local_forward(qs[r], sa.OneProcessRing(r, ks, vs), table, geo, lengths,
+                                  r * s, 0, rate, seed, parts=f_parts[r]) for r in range(n)]
+    grads = [sa.ring_local_backward(qs[r], sa.OneProcessRing(r, ks, vs, dk, dv), dos[r],
+                                    outs[r][0], outs[r][1], table, geo, lengths, r * s, 0, rate,
+                                    seed, parts=b_parts[r]) for r in range(n)]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if (counts["fwd_offset"] != n * n - 1 or counts["fwd_window"] != 1
+            or counts["bwd_offset"] != n * n - 1 or counts["bwd_window"] != 1):
+        raise AssertionError(f"windowed shards: launches {counts}")
+    worst = {"o": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0, "drel": 0.0}
+    worst_abs = {"dq": 0.0, "dk": 0.0, "dv": 0.0, "drel": 0.0}
+    for r in range(n):
+        out_r, lse_r = outs[r]
+        delta = torch.einsum("bshd,bshd->bhs", dos[r].float(), out_r.float()).contiguous()
+        for (c, o_i, lse_i), (_, dq_i, dk_c, dv_c, drel_i) in zip(f_parts[r], b_parts[r]):
+            cargs = (qs[r], ks[c // s], vs[c // s], table, geo, lengths)
+            e = check_shard_forward(cargs, o_i, lse_i, r * s, c, rate, seed)
+            worst["o"], worst["lse"] = max(worst["o"], e[0]), max(worst["lse"], e[1])
+            want = fa.relative_attention_backward_plain(
+                qs[r], ks[c // s], vs[c // s], dos[r], lse_r, delta, table, geo, lengths, rate,
+                seed, r * s, c)
+            real_q = positions(r * s, s)[None] < lengths[:, None]
+            real_k = positions(c, s)[None] < lengths[:, None]
+            for name, got, ref, rows in (("dq", dq_i, want[0], real_q), ("dk", dk_c, want[1], real_k),
+                                         ("dv", dv_c, want[2], real_k), ("drel", drel_i, want[3], None)):
+                abs_err, err = rel_error(got, ref, rows)
+                bound = DREL_REL_BOUND if name == "drel" else GRAD_REL_BOUND
+                if not err <= bound:
+                    raise AssertionError(f"ring backward shard ({r * s}, {c}): {name} {err} > {bound}")
+                worst[name] = max(worst[name], err)
+                worst_abs[name] = max(worst_abs[name], abs_err)
+    del f_parts, b_parts
+
+    o_u, lse_u = fa.relative_attention_forward(q, k, v, table, geo, lengths, "cuda", rate, seed)
+    o_r, lse_r = torch.cat([o for o, _ in outs], 1), torch.cat([l for _, l in outs], 2)
+    err_fwd = assembled_errors(o_r, lse_r, o_u, lse_u, lens)
+    # The backward's inputs are (q, k, v, do, lse, delta): the unsharded
+    # kernel takes the ring's lse and delta, so that the two backward
+    # schedules are compared on the same inputs (dRel within DREL_REL_BOUND).
+    # End to end, each side's delta comes from its own bf16 output, and dRel
+    # (a sum of nearly cancelling dS terms) follows delta's rounding.  The
+    # witness: both sides against the unsharded backward with delta from a
+    # float32 output (the plain forward in float32), the unsharded kernel's
+    # own distance beside the ring's; the ring's dRel is held to
+    # DREL_E2E_REL_BOUND there.
+    delta_r = torch.einsum("bshd,bshd->bhs", do.float(), o_r.float()).contiguous()
+    g_u = fa.relative_attention_backward(q, k, v, do, lse_r, delta_r, table, geo, lengths,
+                                         "cuda", rate, seed)
+    delta_u = torch.einsum("bshd,bshd->bhs", do.float(), o_u.float()).contiguous()
+    g_own = fa.relative_attention_backward(q, k, v, do, lse_u, delta_u, table, geo, lengths,
+                                           "cuda", rate, seed)
+    o_32, _ = fa.relative_attention_plain(q.float(), k.float(), v.float(), table, geo, lengths,
+                                          rate, seed)
+    delta_32 = torch.einsum("bshd,bshd->bhs", do.float(), o_32).contiguous()
+    del o_32
+    g_32 = fa.relative_attention_backward(q, k, v, do, lse_u, delta_32, table, geo, lengths,
+                                          "cuda", rate, seed)
+    dq = torch.cat([g for g, _ in grads], 1).to(q.dtype)
+    ring_grads = (dq, torch.cat(dk, 1).to(k.dtype), torch.cat(dv, 1).to(v.dtype),
+                  sum(d for _, d in grads))
+    real = positions(0, WINDOW_SEQ)[None] < lengths[:, None]
+    assembled, own_stats, f32_delta = {}, {}, {"ring": {}, "unsharded": {}}
+    for name, got, want, own, ref in zip(("dq", "dk", "dv", "drel"), ring_grads, g_u, g_own,
+                                         g_32):
+        rows = None if name == "drel" else real
+        assembled[name] = rel_error(got, want, rows)[1]
+        own_stats[name] = rel_error(got, own, rows)[1]
+        f32_delta["ring"][name] = rel_error(got, ref, rows)[1]
+        f32_delta["unsharded"][name] = rel_error(own, ref, rows)[1]
+        bound = DREL_REL_BOUND if name == "drel" else GRAD_REL_BOUND
+        if not assembled[name] <= bound:
+            raise AssertionError(f"ring gradients against the unsharded kernel: {name} "
+                                 f"{assembled[name]} > {bound}")
+        bound = DREL_E2E_REL_BOUND if name == "drel" else GRAD_REL_BOUND
+        if not f32_delta["ring"][name] <= bound:
+            raise AssertionError(f"ring gradients against the unsharded backward on a float32 "
+                                 f"delta: {name} {f32_delta['ring'][name]} > {bound} (the "
+                                 f"unsharded kernel on its bf16 delta: "
+                                 f"{f32_delta['unsharded'][name]})")
+        if name != "drel" and not own_stats[name] <= GRAD_REL_BOUND:
+            raise AssertionError(f"ring gradients against the unsharded forward and backward: "
+                                 f"{name} {own_stats[name]} > {GRAD_REL_BOUND}")
+    del g_own, g_32, ring_grads
+    # A data shard: examples 4.. at batch_start 4 drop what the whole call drops.
+    half = WINDOW_MICRO // 2
+    o_h, lse_h = fa.relative_attention_forward(
+        q[half:], k[half:], v[half:], table, geo, lengths[half:], "cuda", rate, seed,
+        batch_start=half)
+    o_0, _ = fa.relative_attention_forward(q[half:], k[half:], v[half:], table, geo,
+                                           lengths[half:], "cuda", rate, seed)
+    if not (torch.equal(o_h, o_u[half:]) and torch.equal(lse_h, lse_u[half:])):
+        raise AssertionError("a data shard at batch_start differs from the unsharded call")
+    if torch.equal(o_0, o_u[half:]):
+        raise AssertionError("batch_start changed no dropout mask")
+    del o_h, lse_h, o_0, g_u, outs, grads
+
+    calls = [(r, sa.ring_chunk(r, i, n)) for r in range(n) for i in range(n)]
+    lse_parts = list(lse_r.split(s, 2))
+    deltas = [torch.einsum("bshd,bshd->bhs", dos[r].float(), c.float()).contiguous()
+              for r, c in enumerate(o_r.split(s, 1))]
+    times = {
+        "unsharded_fwd_ms": cuda_ms(lambda: fa.relative_attention_forward(
+            q, k, v, table, geo, lengths, "cuda", rate, seed), 10),
+        "unsharded_bwd_ms": cuda_ms(lambda: fa.relative_attention_backward(
+            q, k, v, do, lse_u, delta_u, table, geo, lengths, "cuda", rate, seed), 5),
+        "ring_fwd_ms_per_call": cuda_ms(lambda: [fa.relative_attention_forward(
+            qs[r], ks[c], vs[c], table, geo, lengths, "cuda", rate, seed, q_start=r * s,
+            k_start=c * s) for r, c in calls], 5) / len(calls),
+        "ring_bwd_ms_per_call": cuda_ms(lambda: [fa.relative_attention_backward(
+            qs[r], ks[c], vs[c], dos[r], lse_parts[r], deltas[r], table, geo, lengths, "cuda",
+            rate, seed, q_start=r * s, k_start=c * s) for r, c in calls], 3) / len(calls),
+        "diagonal_bwd_plain_ms": cuda_ms(lambda: fa.relative_attention_backward_plain(
+            qs[1], ks[1], vs[1], dos[1], lse_parts[1], deltas[1], table, geo, lengths, rate,
+            seed, s, s), 1),
+        "diagonal_bwd_ms": cuda_ms(lambda: fa.relative_attention_backward(
+            qs[1], ks[1], vs[1], dos[1], lse_parts[1], deltas[1], table, geo, lengths, "cuda",
+            rate, seed, q_start=s, k_start=s), 10),
+    }
+    mask = chunk_bias(qs[1], table, geo, lengths, s, s, s)
+    times["diagonal_bwd_library_ms"] = sdpa_chunk_ms(qs[1], ks[1], vs[1], mask, 5, backward=True)
+    del mask
+    torch.cuda.empty_cache()
+    flops, nbytes = chunk_work(geo, lens, s, s, s, s, backward=True)
+    bound, by = bound_ms(flops, nbytes)
+    return {"shape": [WINDOW_MICRO, WINDOW_SEQ, HEADS, HEAD_DIM], "window": WINDOW,
+            "num_global": WINDOW_NUM_GLOBAL, "rate": rate, "launches": counts,
+            "per_call": worst, "per_call_max_abs_err": worst_abs,
+            "assembled_fwd_vs_unsharded": err_fwd,
+            "assembled_grads_rel_vs_unsharded": assembled,
+            "assembled_grads_rel_vs_unsharded_own_statistics": own_stats,
+            "grads_rel_vs_unsharded_on_float32_delta": f32_delta,
+            "drel_e2e_bound_rel": DREL_E2E_REL_BOUND, "data_shard_bit_equal": True,
+            **times, "diagonal_bwd_bound_ms": bound, "diagonal_bwd_bound_by": by,
+            "diagonal_bwd_flops": flops, "diagonal_bwd_bytes": nbytes}, counts
+
+
+def data_parallel_world1():
+    """One optimizer step of the WIT pretraining model at full width through
+    the data-parallel step with ZeRO-1 inside a one-rank nccl group: the
+    gradients' all-reduce must leave them bit for bit, and the ZeRO-1 update
+    must give the replicated AdamW's parameters and moments bit for bit on
+    the same gradients."""
+    import copy
+    import os
+
+    import torch.distributed as dist
+
+    from mmt_tpu_torch.models import DropoutRngs
+    from mmt_tpu_torch.parallel import launch, mesh as pm, zero
+    from mmt_tpu_torch.train import tasks as tasks_lib
+    from mmt_tpu_torch.train.optimizer import create_optimizer
+    from mmt_tpu_torch.train.train_state import TrainState
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(launch.free_port()))
+    t0 = time.perf_counter()
+    device = pm.init_distributed("cuda")
+    backend = dist.get_backend()
+    mesh = pm.create_mesh(0, 1)
+    cfg = _wit_experiment({}, TRAIN_SEQ, DP_GLOBAL, TRAIN_MICRO, "pallas", DROPOUT, DROPOUT, 1)
+    task = tasks_lib.PretrainingTask(cfg.task, cfg.trainer, device=device, seed=0)
+    optimizer = zero.shard_opt_state(
+        mesh, create_optimizer(cfg.trainer.optimizer_config, 1, task.model))
+    reference = copy.deepcopy(task.model)
+    ref_optimizer = create_optimizer(cfg.trainer.optimizer_config, 1, reference)
+    recorded = {}
+    all_reduce = tasks_lib.DataParallel.gradients
+
+    def recording(self, params):
+        recorded["before"] = [p.grad.clone() for p in params]
+        all_reduce(self, params)
+        recorded["after"] = [p.grad.clone() for p in params]
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    batch = synthetic_pretrain_batch(cfg.task.train_data, cfg.task.model.encoder.mmt.vocab_size,
+                                     DP_GLOBAL, gen)
+    step = task.make_train_step(TRAIN_MICRO, mesh=mesh)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    tasks_lib.DataParallel.gradients = recording
+    try:
+        t_step = time.perf_counter()
+        _, metrics = step(TrainState.create(task.model, optimizer), batch,
+                          DropoutRngs.for_step(2, 0, device))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t_step
+    finally:
+        tasks_lib.DataParallel.gradients = all_reduce
+    counts = launch_counts()
+    layers = cfg.task.model.encoder.mmt.num_hidden_layers
+    expected = layers * DP_GLOBAL // TRAIN_MICRO
+    if counts["fwd"] != expected or counts["bwd"] != expected:
+        raise AssertionError(f"data-parallel step: launches {counts}, expected {expected}")
+    if not all(torch.equal(a, b) for a, b in zip(recorded["before"], recorded["after"])):
+        raise AssertionError("the one-rank all-reduce changed a gradient")
+    ref_params = [p for p in reference.parameters() if p.requires_grad]
+    for p, g in zip(ref_params, recorded["after"]):
+        p.grad = g
+    ref_optimizer.step()
+    mismatched = [n for (n, p), r in zip(task.model.named_parameters(), reference.parameters())
+                  if not torch.equal(p, r)]
+    state, ref_state = optimizer.state_dict(), ref_optimizer.state_dict()
+    moments = [n for key in ("mu", "nu") for n in state[key]
+               if not torch.equal(state[key][n], ref_state[key][n])]
+    if mismatched or moments:
+        raise AssertionError(f"ZeRO-1 step differs from the replicated AdamW: parameters "
+                             f"{mismatched[:3]}, moments {moments[:3]}")
+    # (the batch has no MPP targets: mpp_accuracy's count is 0)
+    losses = {k: float(t) / float(c) for k, (t, c) in metrics.items() if float(c) > 0}
+    if not all(math.isfinite(x) for x in losses.values()):
+        raise AssertionError(f"non-finite metrics {losses}")
+    sharded = sum(1 for n in optimizer.slices)
+    dist.destroy_process_group()
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        os.environ.pop(key, None)
+    del task, reference, optimizer, ref_optimizer, recorded
+    torch.cuda.empty_cache()
+    return {"backend": backend, "world_size": 1, "global_batch": DP_GLOBAL,
+            "micro_batch": TRAIN_MICRO, "step_seconds": step_s,
+            "seconds": time.perf_counter() - t0, "metrics": losses, "launches": counts,
+            "zero1_sharded_parameters": sharded, "all_reduce_bit_identity": True,
+            "parameters_and_moments_bit_equal_to_replicated": True,
+            "note": "one rank on one card: this shows the nccl group, the all-reduce and the "
+                    "ZeRO-1 path on the card; no collective across cards ran"}, counts
+
+
+def phase_sequence_shard():
+    """Sequence-sharded attention shard by shard on the one card (n = 4):
+    the kernels' offset mode at the flagship forward and the windowed
+    training micro-batch, and the data-parallel step on a one-rank nccl
+    group.  Returns the offset kernels' ``kernels`` entries and the dense
+    kernels' launches of the data-parallel step."""
+    t0 = time.perf_counter()
+    flagship, f_counts = shard_flagship(SHARDS)
+    window, w_counts = shard_window(SHARDS)
+    dp, dp_counts = data_parallel_world1()
+    seconds = time.perf_counter() - t0
+    emit({"phase": "sequence_shard", "shards": SHARDS, "flagship": flagship, "window": window,
+          "data_parallel": dp, "seconds": seconds})
+    fwd_entry = {
+        "name": "rel_attention_fwd_offset",
+        "route": "cuda",
+        "source": "mmt_tpu_torch/csrc/rel_attention_fwd.cu",
+        "replaces": "mmt_tpu/ops/pallas_attention.py:1593 (_fwd_kernel, K1, with the qoff "
+                    "offsets of sequence_sharded_pallas_attention :3246 and "
+                    "ring_sequence_sharded_pallas_attention :3331)",
+        "launches": f_counts["fwd_offset"] + w_counts["fwd_offset"],
+        "max_abs_err": max(flagship["max_abs_err_o_per_call"], window["per_call"]["o"]),
+        "ms": flagship["all_gather_shard1_ms"],
+        "plain_ms": flagship["all_gather_shard1_plain_ms"],
+        "bound_ms": flagship["all_gather_shard1_bound_ms"],
+        "bound_by": flagship["all_gather_shard1_bound_by"],
+        "library_ms": flagship["all_gather_shard1_library_ms"],
+    }
+    bwd_entry = {
+        "name": "rel_attention_bwd_offset",
+        "route": "cuda",
+        "source": "mmt_tpu_torch/csrc/rel_attention_bwd.cu",
+        "replaces": "mmt_tpu/ops/pallas_attention.py:2521 (_bwd_fused_list_kernel, K4) and "
+                    ":2249 (_bwd_fused_kernel, K3) with the qoff offsets of the ring's "
+                    "backward :3419",
+        "launches": w_counts["bwd_offset"],
+        "max_abs_err": max(window["per_call_max_abs_err"].values()),
+        "ms": window["diagonal_bwd_ms"],
+        "plain_ms": window["diagonal_bwd_plain_ms"],
+        "bound_ms": window["diagonal_bwd_bound_ms"],
+        "bound_by": window["diagonal_bwd_bound_by"],
+        "library_ms": window["diagonal_bwd_library_ms"],
+    }
+    return fwd_entry, bwd_entry, {"fwd": dp_counts["fwd"], "bwd": dp_counts["bwd"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4046,6 +4572,9 @@ def main() -> int:
     del task
     torch.cuda.empty_cache()
     phase_train_window_reference()
+    off_entry, off_bwd_entry, dp_launches = phase_sequence_shard()
+    entry["launches"] += dp_launches["fwd"]
+    bwd_entry["launches"] += dp_launches["bwd"]
     probe_entries = [*phase_probe_split(), *phase_probe_op_cost(), *phase_probe_hopper()]
     entry["launches"] += phase_predict_cli()
     entry["launches"] += phase_int8()
@@ -4079,7 +4608,8 @@ def main() -> int:
         entry["launches"] += ws_launches["fwd"]
         bwd_entry["launches"] += ws_launches["bwd"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    kernels = {"kernels": [entry, bwd_entry, win_entry, win_bwd_entry, *probe_entries]}
+    kernels = {"kernels": [entry, bwd_entry, win_entry, win_bwd_entry, off_entry, off_bwd_entry,
+                           *probe_entries]}
     print(json.dumps(kernels), flush=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.jsonl").write_text("\n".join(_lines + [json.dumps(kernels)]) + "\n")

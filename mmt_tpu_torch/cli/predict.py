@@ -15,9 +15,18 @@ Usage:
 ``--init_checkpoint`` is a directory written by
 ``mmt_tpu_torch.train.checkpoint.CheckpointManager``.  The model runs on
 ``--device`` (default ``cuda``; without a GPU that raises, it does not
-carry on on the CPU).  One device: the JAX CLI's multi-device batch
-rounding and mesh have no counterpart yet.  A yaml ``--config_file`` needs
-pyyaml; one written as JSON text loads without it.
+carry on on the CPU).  A yaml ``--config_file`` needs pyyaml; one written as
+JSON text loads without it.
+
+Several processes (``torchrun --nproc_per_node=N -m mmt_tpu_torch.cli.predict
+...``; ``nccl`` on the card, ``gloo`` with ``--device=cpu``) split the
+scoring over their ranks, as the JAX CLI shards it over its devices: the
+batch is rounded up to a multiple of the number of ranks
+(``mmt_tpu/cli/predict.py:100-110``; the loader pads the last batch with
+``valid`` 0 rows), every rank reads every batch and scores its own rows,
+and the scores are gathered in input order.  Rank 0 alone writes
+``results.csv`` and ``recall.json`` (and a serving artifact), the same
+bytes as one process writes.
 
 ``--export_serving_artifact=F`` restores the checkpoint, writes the scoring
 computation as a ``torch.export`` artifact to F (``eval/export.py``; a
@@ -118,11 +127,13 @@ def main(argv=None):
     from mmt_tpu_torch.configs.base import from_yaml_file, parse_params_override
     from mmt_tpu_torch.data.loaders import MmtRetrievalLoader
     from mmt_tpu_torch.device import resolve_device
-    from mmt_tpu_torch.eval.predict import predict, write_results
+    from mmt_tpu_torch.eval.predict import predict, sharded_inference_step, write_results
+    from mmt_tpu_torch.parallel.mesh import create_mesh, init_distributed, launched
     from mmt_tpu_torch.train.checkpoint import CheckpointManager
     from mmt_tpu_torch.train.tasks import ClassificationTask
 
-    device = resolve_device(args.device)
+    device = init_distributed(args.device) if launched() else resolve_device(args.device)
+    mesh = create_mesh()
     cfg = get_experiment_config("mmt/classification")
     for path in args.config_file:
         cfg = from_yaml_file(cfg, path, strict=True)
@@ -132,8 +143,14 @@ def main(argv=None):
     with open(args.input_meta_data_path) as f:
         meta = json.load(f)
 
+    # Sharded scoring needs batch % ranks == 0: round up rather than fail.
+    batch_size = args.predict_global_batch_size
+    if batch_size % mesh.num_data:
+        batch_size = -(-batch_size // mesh.num_data) * mesh.num_data
+        logging.info("rounded predict batch %d -> %d (%d ranks)",
+                     args.predict_global_batch_size, batch_size, mesh.num_data)
     data_cfg = build_retrieval_data_config(
-        cfg.task.train_data, meta, args.predict_split, args.predict_global_batch_size
+        cfg.task.train_data, meta, args.predict_split, batch_size
     )
     # Retrieval scoring uses the classification model at the meta seq len.
     cfg = dataclasses.replace(cfg, task=dataclasses.replace(cfg.task, train_data=data_cfg))
@@ -144,6 +161,8 @@ def main(argv=None):
     logging.info("restored checkpoint from %s", args.init_checkpoint)
 
     loader = MmtRetrievalLoader(data_cfg)
+    if args.export_serving_artifact and not mesh.is_chief:
+        return
     if args.export_serving_artifact:
         from mmt_tpu_torch.eval import export
 
@@ -162,7 +181,15 @@ def main(argv=None):
                      len(blob), args.export_serving_artifact)
         return
 
-    results = predict(task.make_inference_step(), loader.load())
+    step = task.make_inference_step()
+    if mesh.distributed:
+        step = sharded_inference_step(step, mesh)
+        logging.info("sharding predict over %d ranks", mesh.num_data)
+    results = predict(step, loader.load())
+    if not mesh.is_chief:
+        for _ in results:  # every rank takes part in every batch's gather
+            pass
+        return
     recall = write_results(results, args.test_output_dir)
     print(json.dumps(recall, indent=2))
 

@@ -65,9 +65,28 @@ What runs:
     checkpoint into this form.)
   The warm start logs ``count_restored``, the tensors it filled.
 
-Everything else raises NotImplementedError naming what is missing:
-pipeline, model-parallel or ZeRO runtimes, and ``grad_accum_dtype`` values
-other than float32 and bfloat16.
+Several processes (one per card; ``torchrun --nproc_per_node=N -m
+mmt_tpu_torch.cli.train ...``, or any launcher that sets ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``) train
+data-parallel over ``runtime.num_data_parallel`` x
+``runtime.num_model_parallel`` ranks (``parallel/mesh.py``; ``nccl`` on the
+card, ``gloo`` with ``--device=cpu``).  Parameters are replicated over the
+model axis, as the JAX CLI replicates them, and the global batch is split
+over the data axis: each rank loads ``global_batch_size / num_data``
+examples from its own file shard (``base_shard`` = its data rank), and the
+step is the one-process step on the global batch (``train/tasks.py``).
+``runtime.zero_sharded_optimizer`` shards the AdamW moments over the data
+ranks (``parallel/zero.py``).  Rank 0 writes ``params.yaml``, the
+summaries, the checkpoints and the best export; a preemption signal to any
+rank checkpoints every rank at the same step.  Validation needs
+``trainer.validation_steps > 0`` (every rank runs the same number of
+collectives) and gathers the labels, weights and probabilities step-major,
+as the JAX CLI does.
+
+Everything else raises NotImplementedError naming what is missing: the
+pipeline runtime (``num_pipeline_stages > 1``), continuous finetuning in
+several processes, and ``grad_accum_dtype`` values other than float32 and
+bfloat16.
 """
 
 from __future__ import annotations
@@ -139,9 +158,9 @@ def _check_ported(args, cfg) -> None:
         # An empty pattern matches no file, and a repeating stream would
         # then wait for a record forever.
         raise ValueError("task.train_data.input_path is empty: name the training records")
-    rt = cfg.runtime
-    if rt.num_pipeline_stages > 1 or rt.num_model_parallel > 1 or rt.zero_sharded_optimizer:
-        raise NotImplementedError("pipeline, model-parallel and ZeRO runtimes are not ported yet")
+    if cfg.runtime.num_pipeline_stages > 1:
+        raise NotImplementedError("num_pipeline_stages > 1: the pipeline runtime is not "
+                                  "ported yet")
     if cfg.trainer.grad_accum_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(f"trainer.grad_accum_dtype={cfg.trainer.grad_accum_dtype!r}: "
                                   f"the port accumulates in float32 or bfloat16")
@@ -197,23 +216,50 @@ def warm_start(task, path: str, strict: bool = True) -> int:
     return restored
 
 
-def make_eval_fn(task, val_cfg, validation_steps: int, device):
+def _gather_step_major(mesh, arrays) -> np.ndarray:
+    """Each rank's per-step arrays -> every rank's, flattened step-major
+    (each step's rows rank-major), as ``mmt_tpu/cli/train.py:335-357``
+    orders them."""
+    from mmt_tpu_torch.parallel.mesh import all_gather_rows
+
+    gathered = all_gather_rows(mesh, np.stack(arrays))  # [ranks, steps, rows]
+    return gathered.transpose(1, 0, 2).reshape(-1)
+
+
+def make_eval_fn(task, val_cfg, validation_steps: int, device, mesh=None):
     """state -> validation metrics: the metric pairs summed over
     ``validation_steps`` batches (-1: the whole split) and, for
     classification, ``auc``, the AUC-PR of the probabilities against the
-    labels and their weights."""
+    labels and their weights.  With a distributed ``mesh`` each data rank
+    reads its own shard of the split (cycled, so that every rank runs
+    ``validation_steps`` > 0 batches of ``global / num_data`` rows), the
+    metric pairs are the global batches', and the (label, probability,
+    weight) triples are gathered step-major."""
+    import itertools
+
     from mmt_tpu_torch.data.loaders import MmtClassificationLoader, MmtPretrainLoader
     from mmt_tpu_torch.eval.metrics_host import auc_pr
+    from mmt_tpu_torch.parallel.mesh import local_batch_size
     from mmt_tpu_torch.train.tasks import PretrainingTask, batch_to_device
 
     pretraining = isinstance(task, PretrainingTask)
     loader = (MmtPretrainLoader if pretraining else MmtClassificationLoader)(val_cfg)
-    eval_step = task.make_eval_step()
+    multi = mesh is not None and mesh.distributed
+    if multi and validation_steps <= 0:
+        raise ValueError("several processes need trainer.validation_steps > 0 (every rank "
+                         "must run the same number of collectives)")
+    eval_step = task.make_eval_step(mesh=mesh if multi else None)
+
+    def batches():
+        if not multi:
+            return loader.load()
+        local = local_batch_size(mesh, val_cfg.global_batch_size)
+        return itertools.cycle(loader.load(mesh.data_rank, mesh.num_data, batch_size=local))
 
     def eval_fn(state):
         sums = {}
         probs, labels, weights = [], [], []
-        for i, batch in enumerate(loader.load()):
+        for i, batch in enumerate(batches()):
             if validation_steps > 0 and i >= validation_steps:
                 break
             metrics = eval_step(batch_to_device(batch, device))
@@ -227,18 +273,25 @@ def make_eval_fn(task, val_cfg, validation_steps: int, device):
                 sums[name] = (prev[0] + float(total), prev[1] + float(count))
         result = {n: (t / c if c else 0.0) for n, (t, c) in sums.items()}
         if probs:
-            result["auc"] = auc_pr(np.concatenate(labels), np.concatenate(probs),
-                                   np.concatenate(weights))
+            if multi:
+                labels, probs, weights = (_gather_step_major(mesh, a)
+                                          for a in (labels, probs, weights))
+            else:
+                labels, probs, weights = (np.concatenate(a) for a in (labels, probs, weights))
+            result["auc"] = auc_pr(labels, probs, weights)
         return result
 
     return eval_fn
 
 
-def train_batches(loader_cls, data_cfg):
-    """The training batches: a checkpointable ``TrainStream`` behind
-    ``ResumablePrefixed`` with ``num_workers`` 0, else the worker
-    processes' round-robin stream (no ``state()``), its first batch pulled
-    either way; returns (iterator, the worker stream or None, to close)."""
+def train_batches(loader_cls, data_cfg, shard: int = 0, num_shards: int = 1,
+                  batch_size=None):
+    """The training batches of file shard ``shard`` of ``num_shards``
+    (``batch_size`` rows each, default the global batch): a checkpointable
+    ``TrainStream`` behind ``ResumablePrefixed`` with ``num_workers`` 0,
+    else the worker processes' round-robin stream (no ``state()``), its
+    first batch pulled either way; returns (iterator, the worker stream or
+    None, to close)."""
     import itertools
     import time
 
@@ -247,11 +300,13 @@ def train_batches(loader_cls, data_cfg):
 
     t0 = time.perf_counter()
     if data_cfg.num_workers <= 0:
-        stream, workers = ResumablePrefixed(loader_cls(data_cfg).stream()), None
+        stream = ResumablePrefixed(loader_cls(data_cfg).stream(shard, num_shards, batch_size))
+        workers = None
         stream.prime()
     else:
-        workers = multiprocess_batches(LoaderShard(loader_cls, data_cfg),
-                                       num_workers=data_cfg.num_workers)
+        workers = multiprocess_batches(LoaderShard(loader_cls, data_cfg, batch_size),
+                                       num_workers=data_cfg.num_workers, base_shard=shard,
+                                       total_shards=num_shards)
         stream = itertools.chain([next(workers)], workers)
     logging.info("first batch after %.3f s (%d loader processes)",
                  time.perf_counter() - t0, data_cfg.num_workers)
@@ -279,38 +334,54 @@ def main(argv=None):
     from mmt_tpu_torch.data.dummy import dummy_pretrain_batches
     from mmt_tpu_torch.data.loaders import MmtClassificationLoader, MmtPretrainLoader
     from mmt_tpu_torch.device import resolve_device
+    from mmt_tpu_torch.parallel.mesh import (
+        create_mesh,
+        init_distributed,
+        launched,
+        local_batch_size,
+    )
     from mmt_tpu_torch.train.tasks import ClassificationTask, PretrainingTask
 
-    device = resolve_device(args.device)
+    if launched():  # one rank of several processes: its device and group
+        device = init_distributed(args.device)
+    else:
+        device = resolve_device(args.device)
+    mesh = create_mesh(cfg.runtime.num_data_parallel, cfg.runtime.num_model_parallel)
+    if mesh.distributed and args.mode == "continuous_train_and_eval":
+        raise NotImplementedError("continuous_train_and_eval runs in one process")
+    logging.info("mesh: %d data x %d model ranks (rank %d)", mesh.num_data, mesh.num_model,
+                 mesh.rank)
     os.makedirs(args.model_dir, exist_ok=True)
-    if args.mode in ("train", "train_and_eval"):
+    if args.mode in ("train", "train_and_eval") and mesh.is_chief:
         with open(os.path.join(args.model_dir, "params.yaml"), "w") as f:
             json.dump(to_dict(cfg), f, indent=2, sort_keys=True)
 
     data_cfg = cfg.task.train_data
     pretraining = isinstance(cfg.task, PretrainingTaskConfig)
+    local = local_batch_size(mesh, data_cfg.global_batch_size)
     # The first batch is pulled before the model is built, as the JAX
     # package does; ResumablePrefixed keeps the stream's snapshot right.
     if pretraining and data_cfg.input_path == "dummy":
-        train_iter, workers = dummy_pretrain_batches(data_cfg), None
+        train_iter, workers = dummy_pretrain_batches(data_cfg, batch_size=local), None
     else:
         train_iter, workers = train_batches(
-            MmtPretrainLoader if pretraining else MmtClassificationLoader, data_cfg)
+            MmtPretrainLoader if pretraining else MmtClassificationLoader, data_cfg,
+            mesh.data_rank, mesh.num_data, local)
     try:
         if pretraining:
             task = PretrainingTask(cfg.task, cfg.trainer, device=device, seed=args.seed)
             train_step = task.make_train_step(cfg.trainer.micro_batch_size,
-                                              cfg.trainer.grad_accum_dtype)
+                                              cfg.trainer.grad_accum_dtype, mesh=mesh)
         else:
             task = ClassificationTask(cfg.task, cfg.trainer, device=device, seed=args.seed)
-            train_step = task.make_train_step()
-        return _run(args, cfg, task, train_step, train_iter, device)
+            train_step = task.make_train_step(mesh=mesh)
+        return _run(args, cfg, task, train_step, train_iter, device, mesh)
     finally:
         if workers is not None:
             workers.close()  # stops the loader processes
 
 
-def _run(args, cfg, task, train_step, train_iter, device):
+def _run(args, cfg, task, train_step, train_iter, device, mesh):
     from mmt_tpu_torch.train.checkpoint import CheckpointManager
     from mmt_tpu_torch.train.loop import run_training
     from mmt_tpu_torch.train.optimizer import create_optimizer
@@ -327,7 +398,7 @@ def _run(args, cfg, task, train_step, train_iter, device):
     eval_fn = None
     if args.mode != "train" and _has_validation(cfg):
         eval_fn = make_eval_fn(task, cfg.task.validation_data, cfg.trainer.validation_steps,
-                               device)
+                               device, mesh)
     place_batch = lambda b: batch_to_device(b, device)  # noqa: E731
 
     if continuous:
@@ -350,6 +421,10 @@ def _run(args, cfg, task, train_step, train_iter, device):
 
     optimizer = create_optimizer(cfg.trainer.optimizer_config, cfg.trainer.train_steps,
                                  task.model)
+    if cfg.runtime.zero_sharded_optimizer:
+        from mmt_tpu_torch.parallel.zero import shard_opt_state
+
+        shard_opt_state(mesh, optimizer)
     state = TrainState.create(task.model, optimizer)
 
     if args.mode == "eval":

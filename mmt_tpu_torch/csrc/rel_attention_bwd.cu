@@ -36,7 +36,10 @@
 // Only tiles with real queries and real keys run (the TPU kernels' exact
 // pad-tile skip), and with the window only live tiles; dk/dv rows past the
 // length come out 0, and dq rows past it receive no add (the caller zeroes
-// the buffer).
+// the buffer).  Offsets as in rel_attention_fwd.cu: q, do, lse, delta and
+// dq hold the global rows [q_start, q_start + S_q), k, v, dk and dv the
+// global keys [k_start, k_start + S_k); with a chunk of keys and the global
+// lse (the ring schedule) the outputs are that chunk's terms.
 //
 // Design (grid: 64-key block, head, example; one warpgroup of 128 threads,
 // two blocks per SM).  K, V and R_h are copied once into 128-byte-swizzled
@@ -179,7 +182,9 @@ struct BwdArgs {
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   float* drel;               // [B, H, 64, D] fp32, zeroed by the caller
-  int S, H;
+  int Sq, Sk;             // rows of q (do, dq) and of k (v, dk, dv)
+  int q_start, k_start;   // global positions of q's row 0 and k's key 0
+  int H;
   Geometry geo;
   float scale;
   Dropout dr;
@@ -226,40 +231,46 @@ __global__ void __launch_bounds__(kThreads, 2) rel_attention_bwd_kernel(BwdArgs 
   int* s_kpos = reinterpret_cast<int*>(smem + M::kpos);
   const uint8_t* s_ids = smem + M::ids;
 
+  // k0: the block's first key, local; gk0: global.  Query tiles are global.
   const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const int gk0 = a.k_start + k0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int S = a.S, H = a.H;
+  const int Sq = a.Sq, Sk = a.Sk, H = a.H;
   const Geometry& geo = a.geo;
-  const int L = max(0, min(a.lengths[b], S));
+  const int L = max(0, a.lengths[b]);
+  // Ends of the real rows of q and of the real keys of k (global).
+  const int Lq = min(L, a.q_start + Sq), Lk = min(L, a.k_start + Sk);
   const size_t row_stride = static_cast<size_t>(H) * D;
-  const size_t head0 = static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * D;
-  const size_t stat0 = (static_cast<size_t>(b) * H + h) * S;
+  const size_t head_q = static_cast<size_t>(b) * Sq * row_stride + static_cast<size_t>(h) * D;
+  const size_t head_k = static_cast<size_t>(b) * Sk * row_stride + static_cast<size_t>(h) * D;
+  const size_t stat0 = (static_cast<size_t>(b) * H + h) * Sq;
 
-  if (k0 >= L) {  // padded keys: dk = dv = 0, no dq or dRel contribution
-    zero_rows<D>(a.dk + head0, k0, S, row_stride);
-    zero_rows<D>(a.dv + head0, k0, S, row_stride);
+  const bool has_rel = a.rel != nullptr && geo.vocab > 0;
+  const LiveTiles live = live_tiles<kWindow>(gk0, Lq, geo, a.q_start / kT);
+  const int n_tiles = live.count();
+  // Padded keys, or no live query tile in q: dk = dv = 0, no dq or dRel.
+  if (gk0 >= Lk || n_tiles == 0) {
+    zero_rows<D>(a.dk + head_k, k0, Sk, row_stride);
+    zero_rows<D>(a.dv + head_k, k0, Sk, row_stride);
     return;
   }
 
-  const bool has_rel = a.rel != nullptr && geo.vocab > 0;
-  const LiveTiles live = live_tiles<kWindow>(k0, L, geo);  // holds k0's own tile
-  const int n_tiles = live.count();
-
-  // One query tile's stage: Q, dO, lse, delta.
-  auto load_stage = [&](int stage, int q0) {
-    const size_t off = head0 + static_cast<size_t>(q0) * row_stride;
-    copy_tile<D>(base + (stage ? M::q1 : M::q0), a.q + off, S - q0, row_stride);
-    copy_tile<D>(base + (stage ? M::do1 : M::do0), a.dout + off, S - q0, row_stride);
+  // One query tile's stage: Q, dO, lse, delta (gq0: the tile's global row).
+  auto load_stage = [&](int stage, int gq0) {
+    const int q0 = gq0 - a.q_start;
+    const size_t off = head_q + static_cast<size_t>(q0) * row_stride;
+    copy_tile<D>(base + (stage ? M::q1 : M::q0), a.q + off, Sq - q0, row_stride);
+    copy_tile<D>(base + (stage ? M::do1 : M::do0), a.dout + off, Sq - q0, row_stride);
     const int r = tid & (kT - 1), i = q0 + r;
     const float* src = (tid < kT ? a.lse : a.delta) + stat0;
     cp_async4(base + M::stats + ((tid < kT ? 0 : 2) + stage) * kT * 4 + r * 4,
-              i < S ? src + i : src, i < S);
+              i < Sq ? src + i : src, i < Sq);
   };
 
-  copy_tile<D>(base + M::k, a.k + head0 + static_cast<size_t>(k0) * row_stride, S - k0,
+  copy_tile<D>(base + M::k, a.k + head_k + static_cast<size_t>(k0) * row_stride, Sk - k0,
                row_stride);
-  copy_tile<D>(base + M::v, a.v + head0 + static_cast<size_t>(k0) * row_stride, S - k0,
+  copy_tile<D>(base + M::v, a.v + head_k + static_cast<size_t>(k0) * row_stride, Sk - k0,
                row_stride);
   if (has_rel) copy_tile<D>(base + M::r, a.rel + static_cast<size_t>(h) * kT * D, kT, D);
   load_stage(0, live.tile(0) * kT);
@@ -269,7 +280,7 @@ __global__ void __launch_bounds__(kThreads, 2) rel_attention_bwd_kernel(BwdArgs 
   // the index split as key code jy * W + jx minus a per-row query code.
   const int P = max(geo.patch_per_row, 1), W = 2 * P - 1;
   if (tid < kT) {
-    const int j = k0 + tid, jy = j / P;
+    const int j = gk0 + tid, jy = j / P;
     s_kpos[tid] = jy * W + (j - jy * P);
   }
   if (has_rel && geo.image_len > 0)
@@ -336,7 +347,7 @@ __global__ void __launch_bounds__(kThreads, 2) rel_attention_bwd_kernel(BwdArgs 
       qcode[hr] = iy * W + (i - iy * P) - (P - 1) * (W + 1);
       hrow[hr] = hash_row(seed_b, h, i);
     }
-    const int tile_id = has_rel ? uniform_tile_id(q0, k0, geo) : kVP;
+    const int tile_id = has_rel ? uniform_tile_id(q0, gk0, geo) : kVP;
 
     // Once per pair, with no branch between elements: logit, p, dropout,
     // dS; P K and dS to shared memory (bf16, rows = queries), dS also as
@@ -368,7 +379,7 @@ __global__ void __launch_bounds__(kThreads, 2) rel_attention_bwd_kernel(BwdArgs 
           const int rr = r_lo + hr * 8;
           const int i = q0 + rr;
           const int c = n * 8 + t * 2 + (e & 1);
-          const int j = k0 + c;
+          const int j = gk0 + c;
           float x = acc[4 * n + e];
           if constexpr (kUniform) {
             x += bias_r[hr];
@@ -382,12 +393,12 @@ __global__ void __launch_bounds__(kThreads, 2) rel_attention_bwd_kernel(BwdArgs 
             ids |= static_cast<uint32_t>(id) << (8 * e);
           }
           x *= a.scale;
-          if ((i < L) != (j < L)) x += kMaskBias;
+          if ((i < Lq) != (j < Lk)) x += kMaskBias;
           if (kWindow && !window_allowed(i, j, geo)) x += kMaskBias;
           const float p = __expf(x - lse_r[hr]);
           float keep = 1.f;
           if constexpr (kDropout) keep = keep_of(a.dr, hrow[hr], j);
-          const bool real = i < L && j < L;
+          const bool real = i < Lq && j < Lk;
           // dp * keep rounded on its own (no FMA with delta), so that the
           // dense and windowed instantiations give the same dS bit for bit.
           const float ds = real ? p * (__fmul_rn(dp[4 * n + e], keep) - delta_r[hr]) : 0.f;
@@ -504,12 +515,12 @@ __global__ void __launch_bounds__(kThreads, 2) rel_attention_bwd_kernel(BwdArgs 
     }
     wg_commit();
     wg_wait_all();  // and the dV / dK products
-    red_rows<D>(a.dq + head0, row_stride, q0, L, dq_acc, a.scale);
+    red_rows<D>(a.dq + head_q, row_stride, q0 - a.q_start, Lq - a.q_start, dq_acc, a.scale);
     __syncthreads();  // this stage, P K, dS, hi / lo are free for the next tile
   }
 
-  store_rows<D>(a.dk + head0, row_stride, k0, S, dk_acc, a.scale);
-  store_rows<D>(a.dv + head0, row_stride, k0, S, dv_acc, 1.f);
+  store_rows<D>(a.dk + head_k, row_stride, k0, Sk, dk_acc, a.scale);
+  store_rows<D>(a.dv + head_k, row_stride, k0, Sk, dv_acc, 1.f);
   if (has_rel)  // rows v >= V are 0: dSV has no such column
     red_rows<D>(a.drel + (static_cast<size_t>(b) * H + h) * kT * D, D, 0, geo.vocab, drel_acc,
                 a.scale);
@@ -539,23 +550,26 @@ LaunchFn pick(bool drop, bool window) {
 
 }  // namespace
 
-// q, k, v, do, dk, dv: bf16 [B, S, H, D] contiguous; dq: fp32 [B, S, H, D],
-// zeroed by the caller (rows past the length stay 0); lse, delta: fp32
-// [B, H, S]; rel: bf16 [H, 64, D] (rows >= V zero) or null; lengths: int32
-// [B]; drel: fp32 [B, H, 64, D], zeroed by the caller (null without rel).
-// Window and dropout arguments as in mmt_rel_attention_fwd.  Launches one
+// q, do: bf16 [B, S_q, H, D], k, v, dk, dv: bf16 [B, S_k, H, D], contiguous;
+// dq: fp32 [B, S_q, H, D], zeroed by the caller (rows past the length stay
+// 0); lse, delta: fp32 [B, H, S_q]; rel: bf16 [H, 64, D] (rows >= V zero) or
+// null; lengths: int32 [B] (global); drel: fp32 [B, H, 64, D], zeroed by the
+// caller (null without rel).  Offsets, window and dropout arguments as in
+// mmt_rel_attention_fwd.  Launches one
 // kernel on `stream`, allocates nothing and returns the CUDA error code.
 extern "C" int mmt_rel_attention_bwd(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* delta,
                                      const void* rel, const void* lengths, void* dq, void* dk,
-                                     void* dv, void* drel, int batch, int seq_len,
-                                     int num_heads, int head_dim, int vocab, int image_len,
+                                     void* dv, void* drel, int batch, int seq_q, int seq_k,
+                                     int q_start, int k_start, int num_heads, int head_dim,
+                                     int vocab, int image_len,
                                      int patch_per_row, int core_layers, int text_max_distance,
                                      int image_part_id, int text_part_id, int window,
                                      int num_global, float scale, int dropout_threshold,
                                      float keep_scale, int seed, int batch_start, void* stream) {
   if (vocab < 0 || vocab > kVP || dropout_threshold < 0 || dropout_threshold > (1 << 24) ||
-      window < 0 || (window > 0 && num_global <= 0))
+      window < 0 || (window > 0 && num_global <= 0) || q_start < 0 || k_start < 0 ||
+      q_start % kT || k_start % kT || seq_q <= 0 || seq_k <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rel != nullptr && vocab > 0 && drel == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -574,16 +588,20 @@ extern "C" int mmt_rel_attention_bwd(const void* q, const void* k, const void* v
   a.dk = static_cast<__nv_bfloat16*>(dk);
   a.dv = static_cast<__nv_bfloat16*>(dv);
   a.drel = static_cast<float*>(drel);
-  a.S = seq_len;
+  a.Sq = seq_q;
+  a.Sk = seq_k;
+  a.q_start = q_start;
+  a.k_start = k_start;
   a.H = num_heads;
-  if (window > seq_len) window = seq_len;  // the same pattern; keeps r0 + w from overflowing
+  // The same pattern; keeps r0 + w from overflowing.
+  window = min(window, max(q_start + seq_q, k_start + seq_k));
   a.geo = Geometry{image_len,     patch_per_row, core_layers,     text_max_distance,
                    image_part_id, text_part_id,  rel ? vocab : 0, window,
                    num_global};
   a.scale = scale;
   a.dr = Dropout{static_cast<uint32_t>(dropout_threshold), keep_scale,
                  static_cast<uint32_t>(seed), static_cast<uint32_t>(batch_start)};
-  const dim3 grid((seq_len + kT - 1) / kT, num_heads, batch);
+  const dim3 grid((seq_k + kT - 1) / kT, num_heads, batch);
   const bool drop = dropout_threshold > 0;
   LaunchFn fn;
   if (head_dim == 64) {

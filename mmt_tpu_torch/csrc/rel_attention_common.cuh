@@ -40,7 +40,7 @@ struct Dropout {
   uint32_t threshold;
   float keep_scale;
   uint32_t seed;         // the call's int32 seed, as uint32
-  uint32_t batch_start;  // global index of example 0
+  uint32_t batch_start;  // global index of the call's example 0
 };
 
 __device__ __forceinline__ int relative_id(int i, int j, const Geometry& g) {
@@ -79,30 +79,35 @@ __device__ __forceinline__ bool window_allowed(int i, int j, const Geometry& g) 
 }
 
 // The 64-wide tiles that one block of 64 rows starting at r0 visits on the
-// other axis: tiles [0, head), then [band_lo, band_hi), all below
-// ceil(L / 64).  The pattern is symmetric in (i, j), so the same rule gives
-// a query block's key tiles and a key block's query tiles.  Dense: every
-// tile below the length.  Windowed: every tile when the block meets the
-// global prefix (r0 < g); else the global tiles [0, ceil(g / 64)) and the
-// band [floor((r0 - w) / 64), floor((r0 + 63 + w) / 64)], a tile in both
-// visited once.  A tile left out holds no allowed pair
-// (_window_tile_contributes), and every real row keeps its diagonal tile,
-// so the skip is exact.  Tiles come in ascending order, so at a window
-// >= S the windowed kernels visit the dense kernels' tiles in their order.
+// other axis, as global tile indexes: tiles [first, head), then [band_lo,
+// band_hi), all in [first, ceil(L / 64)), where `first` is the first tile
+// of the other axis's chunk (its global start / 64; 0 without offsets) and
+// L the end of its real positions.  The pattern is symmetric in (i, j), so
+// the same rule gives a query block's key tiles and a key block's query
+// tiles.  Dense: every tile of that range.  Windowed: every tile when the
+// block meets the global prefix (r0 < g); else the global tiles [first,
+// ceil(g / 64)) and the band [floor((r0 - w) / 64), floor((r0 + 63 + w) /
+// 64)], a tile in both visited once.  A tile left out holds no allowed pair
+// (_window_tile_contributes), so the skip is exact; without offsets every
+// real row keeps its diagonal tile.  Tiles come in ascending order, so at a
+// window >= S the windowed kernels visit the dense kernels' tiles in their
+// order.
 struct LiveTiles {
-  int head, band_lo, band_hi;
-  __device__ __forceinline__ int count() const { return head + band_hi - band_lo; }
-  __device__ __forceinline__ int tile(int n) const { return n < head ? n : band_lo + n - head; }
+  int first, head, band_lo, band_hi;
+  __device__ __forceinline__ int count() const { return head - first + band_hi - band_lo; }
+  __device__ __forceinline__ int tile(int n) const {
+    return n < head - first ? first + n : band_lo + n - (head - first);
+  }
 };
 
 template <bool kWindow>
-__device__ __forceinline__ LiveTiles live_tiles(int r0, int L, const Geometry& g) {
+__device__ __forceinline__ LiveTiles live_tiles(int r0, int L, const Geometry& g, int first) {
   const int n = (L + 63) / 64;
-  if (!kWindow || r0 < g.num_global) return {n, n, n};
-  const int head = min((g.num_global + 63) / 64, n);
+  if (!kWindow || r0 < g.num_global) return {first, max(first, n), n, n};
+  const int head = max(first, min((g.num_global + 63) / 64, n));
   const int lo = max(max(r0 - g.window, 0) / 64, head);
   const int hi = min((r0 + 63 + g.window) / 64 + 1, n);
-  return {head, lo, max(lo, hi)};
+  return {first, head, lo, max(lo, hi)};
 }
 
 // Per-example seed: seed + b * -1771729351 in 32-bit wrap-around.

@@ -24,7 +24,17 @@
 // the bf16 rounding for p.v, so lse is unchanged by dropout.  The dropout is
 // a template argument: at rate 0 the kernel is the one without dropout.
 // Only key tiles with k0 < L_b run (the TPU kernel's exact pad-tile skip);
-// a query tile with q0 >= L_b writes o = 0 and lse = -inf.  The window is a
+// a query tile with q0 >= L_b writes o = 0 and lse = -inf.
+// Offsets (the sequence-sharded schedules, pallas_attention.py's `qoff`):
+// q holds the global rows [q_start, q_start + S_q) and k, v the global keys
+// [k_start, k_start + S_k), S_q != S_k allowed, both starts multiples of
+// 64; every position the kernel derives (ids, image codes, the length and
+// window terms, the dropout hash) is global, the lengths are global, keys
+// past the chunk count as padding, and the dropout's example index is
+// batch_start + b.  A real row with no live key in the chunk (no live tile,
+// or only pairs carrying a -10000 term: its largest base-2 logit below
+// kEmptyRow2) writes o = 0 and lse = -inf, so that a logsumexp combine over
+// chunks ignores it.  The window is a
 // template argument too: the windowed variant visits only the block's live
 // key tiles (LiveTiles in rel_attention_common.cuh, the block's own
 // `_window_tile_contributes`; no static list) and adds the window term; at
@@ -115,6 +125,9 @@ constexpr int kWG = 2;  // warpgroups per block, 64 query rows each
 constexpr int kBlockThreads = kWG * kThreads;
 constexpr int kBlockRows = kWG * kT;
 constexpr int kStages = 2;  // K / V tiles in the TMA ring
+// A row whose largest base-2 logit is below this has only pairs with a
+// -10000 term: no live key.
+constexpr float kEmptyRow2 = 0.5f * kMaskBias * kLog2e;
 
 // ------------------------------------------------------ TMA and mbarrier
 
@@ -162,7 +175,9 @@ struct FwdArgs {
   const int* lengths;
   __nv_bfloat16* o;
   float* lse;
-  int S, H;
+  int Sq, Sk;             // rows of q and of k / v
+  int q_start, k_start;   // global positions of q's row 0 and k's key 0
+  int H;
   Geometry geo;
   float scale;
   Dropout dr;
@@ -193,14 +208,17 @@ struct Smem {
 // when the tile lies wholly inside the band |i - j| <= window (at window
 // >= S no tile is cut, so the windowed kernel then does the dense one's
 // arithmetic).
-__device__ __forceinline__ bool window_cuts(int q0, int k0, int S, const Geometry& g) {
+// Global positions; q_end / k_end are the chunks' ends.
+__device__ __forceinline__ bool window_cuts(int q0, int k0, int q_end, int k_end,
+                                           const Geometry& g) {
   if (q0 + kT <= g.num_global || k0 + kT <= g.num_global) return false;
-  return min(k0 + kT, S) - 1 - q0 > g.window || min(q0 + kT, S) - 1 - k0 > g.window;
+  return min(k0 + kT, k_end) - 1 - q0 > g.window || min(q0 + kT, q_end) - 1 - k0 > g.window;
 }
 
 // Whether `tile` is one of a LiveTiles sweep's tiles.
 __device__ __forceinline__ bool holds(const LiveTiles& live, int tile) {
-  return tile < live.head || (tile >= live.band_lo && tile < live.band_hi);
+  return (tile >= live.first && tile < live.head) ||
+         (tile >= live.band_lo && tile < live.band_hi);
 }
 
 template <int D, bool kDropout, bool kWindow>
@@ -219,46 +237,52 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
 
   const int tid = threadIdx.x, wg = tid / kThreads, warp = (tid / 32) % 4, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  // Local rows b0, q0 of q; global rows gb0, gq0 (positions, ids, masks).
   const int b0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
   const int q0 = b0 + wg * kT;  // this warpgroup's 64 rows
+  const int gb0 = a.q_start + b0, gq0 = a.q_start + q0;
   float* s_qr = reinterpret_cast<float*>(smem + M::qr) + wg * kT * LDF;
-  const int S = a.S, H = a.H;
+  const int Sq = a.Sq, H = a.H;
   const Geometry& geo = a.geo;
-  const int L = max(0, min(a.lengths[b], S));
+  const int L = max(0, a.lengths[b]);
+  // Ends of the real rows of q and of the real keys of k (global).
+  const int Lq = min(L, a.q_start + Sq), Lk = min(L, a.k_start + a.Sk);
   const size_t row_stride = static_cast<size_t>(H) * D;
-  const size_t head0 = static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * D;
-  float* lse_bh = a.lse + (static_cast<size_t>(b) * H + h) * S;
+  const size_t head0 = static_cast<size_t>(b) * Sq * row_stride + static_cast<size_t>(h) * D;
+  float* lse_bh = a.lse + (static_cast<size_t>(b) * H + h) * Sq;
 
-  const bool active = q0 < L;
+  const bool active = gq0 < Lq;
   if (!active) {  // every key tile is skipped: o = 0, lse = -inf
     for (int idx = tid % kThreads; idx < kT * (D / 8); idx += kThreads) {
       const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-      if (q0 + r < S)
+      if (q0 + r < Sq)
         *reinterpret_cast<uint4*>(a.o + head0 + static_cast<size_t>(q0 + r) * row_stride + c) =
             make_uint4(0u, 0u, 0u, 0u);
     }
     for (int r = tid % kThreads; r < kT; r += kThreads)
-      if (q0 + r < S) lse_bh[q0 + r] = -INFINITY;
+      if (q0 + r < Sq) lse_bh[q0 + r] = -INFINITY;
   }
-  if (b0 >= L) return;  // the whole block is past the length
+  if (gb0 >= Lq) return;  // the whole block is past the length
 
   const bool has_rel = a.rel != nullptr && geo.vocab > 0;
   // The block's key tiles: the union of its warpgroups' live tiles (one
   // head, one band); each warpgroup computes only its own.
-  const LiveTiles mine = live_tiles<kWindow>(q0, L, geo);  // holds q0's own tile
-  LiveTiles live = live_tiles<kWindow>(b0, L, geo);
-  if (b0 + kBlockRows - kT < L)
-    live.band_hi = max(live.band_hi, live_tiles<kWindow>(b0 + kBlockRows - kT, L, geo).band_hi);
+  const int first = a.k_start / kT;
+  const LiveTiles mine = live_tiles<kWindow>(gq0, Lk, geo, first);
+  LiveTiles live = live_tiles<kWindow>(gb0, Lk, geo, first);
+  if (gb0 + kBlockRows - kT < Lq)
+    live.band_hi =
+        max(live.band_hi, live_tiles<kWindow>(gb0 + kBlockRows - kT, Lk, geo, first).band_hi);
   const int n_tiles = live.count();
   // The K / V ring: thread 0 fills a stage by TMA (rows past S read as 0)
   // once every warp has released it; each warp waits for the stage's
   // copy, uses it, and releases it, so the two warpgroups need not keep in
   // step.
   const uint32_t full = base + M::full, empty = base + M::empty;
-  auto load_kv = [&](int stage, int k0) {
+  auto load_kv = [&](int stage, int k0) {  // k0: global
     mbar_expect_tx(full + 8 * stage, 2 * M::TB);
-    tma_load(base + M::k(stage), &tm_k, full + 8 * stage, h * D, k0, b);
-    tma_load(base + M::v(stage), &tm_v, full + 8 * stage, h * D, k0, b);
+    tma_load(base + M::k(stage), &tm_k, full + 8 * stage, h * D, k0 - a.k_start, b);
+    tma_load(base + M::v(stage), &tm_v, full + 8 * stage, h * D, k0 - a.k_start, b);
   };
   if (tid == 0) {
     for (int st = 0; st < kStages; ++st) {
@@ -274,7 +298,7 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
   for (int w = 0; w < kWG; ++w)
     copy_tile<D, kBlockThreads>(base + M::q(w),
                                 a.q + head0 + static_cast<size_t>(b0 + w * kT) * row_stride,
-                                S - b0 - w * kT, row_stride);
+                                Sq - b0 - w * kT, row_stride);
   if (has_rel)
     copy_tile<D, kBlockThreads>(base + M::r, a.rel + static_cast<size_t>(h) * kT * D, kT, D);
   cp_async_commit();
@@ -284,7 +308,7 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
   // block with image rows reads the tables.
   const int il = has_rel ? geo.image_len : 0;
   const int P = max(geo.patch_per_row, 1), W = 2 * P - 1;
-  if (b0 < il) {
+  if (gb0 < il) {
     for (int j = tid; j < il; j += kBlockThreads) {
       const int jy = j / P;
       s_kpos[j] = static_cast<int16_t>(jy * W + (j - jy * P));
@@ -302,7 +326,7 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
   uint32_t hrow[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int i = q0 + r_lo + hr * 8, iy = i / P;
+    const int i = gq0 + r_lo + hr * 8, iy = i / P;
     qcode[hr] = iy * W + (i - iy * P) - (P - 1) * (W + 1);
     hrow[hr] = hash_row(seed_b, h, i);
   }
@@ -356,7 +380,7 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
       wg_wait_all();
 
       // Logits in base 2: one FMA per pair, the bias decided once per tile.
-      const int tile_id = has_rel ? uniform_tile_id(q0, k0, geo) : kVP;
+      const int tile_id = has_rel ? uniform_tile_id(gq0, k0, geo) : kVP;
       if (tile_id >= 0) {
         float bias[2] = {0.f, 0.f};
         if (tile_id < geo.vocab) {
@@ -376,7 +400,7 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
             s[e] = __fmaf_rn(s[e], c2, s_qr[rr * LDF + id_of(e)]);
           }
         };
-        auto row_of = [&](int e) { return q0 + r_lo + ((e >> 1) & 1) * 8; };
+        auto row_of = [&](int e) { return gq0 + r_lo + ((e >> 1) & 1) * 8; };
         auto col_of = [&](int e) { return k0 + (e >> 2) * 8 + t * 2 + (e & 1); };
         int kp[16];  // key codes of this lane's 16 columns (image keys only)
         if (k0 < il) {
@@ -390,9 +414,9 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
         auto band = [&](int e) {
           return min(band_id(col_of(e) - row_of(e), geo.text_max_distance), kVP);
         };
-        if (q0 + kT <= il && k0 + kT <= il) {  // the image corner
+        if (gq0 + kT <= il && k0 + kT <= il) {  // the image corner
           add_bias(image);
-        } else if (q0 >= il && k0 >= il) {  // the text band
+        } else if (gq0 >= il && k0 >= il) {  // the text band
           add_bias(band);
         } else {  // a tile across the image's edge
           const int text_part = min(geo.text_part_id, kVP), image_part = min(geo.image_part_id, kVP);
@@ -402,17 +426,17 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
           });
         }
       }
-      if (q0 + kT > L || k0 + kT > L) {  // the tile holds the length
+      if (gq0 + kT > L || k0 + kT > Lk) {  // the tile holds the length or the chunk's end
 #pragma unroll
         for (int e = 0; e < 32; ++e) {
-          const int i = q0 + r_lo + ((e >> 1) & 1) * 8, j = k0 + (e >> 2) * 8 + t * 2 + (e & 1);
-          if ((i < L) != (j < L)) s[e] += mask2;
+          const int i = gq0 + r_lo + ((e >> 1) & 1) * 8, j = k0 + (e >> 2) * 8 + t * 2 + (e & 1);
+          if ((i < L) != (j < Lk)) s[e] += mask2;
         }
       }
-      if (kWindow && window_cuts(q0, k0, S, geo)) {
+      if (kWindow && window_cuts(gq0, k0, a.q_start + Sq, a.k_start + a.Sk, geo)) {
 #pragma unroll
         for (int e = 0; e < 32; ++e) {
-          const int i = q0 + r_lo + ((e >> 1) & 1) * 8, j = k0 + (e >> 2) * 8 + t * 2 + (e & 1);
+          const int i = gq0 + r_lo + ((e >> 1) & 1) * 8, j = k0 + (e >> 2) * 8 + t * 2 + (e & 1);
           if (!window_allowed(i, j, geo)) s[e] += mask2;
         }
       }
@@ -478,16 +502,18 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
     float l = l_run[hr];
     l += __shfl_xor_sync(0xFFFFFFFFu, l, 1);
     l += __shfl_xor_sync(0xFFFFFFFFu, l, 2);
-    const int i = q0 + r_lo + hr * 8;
-    if (i >= S) continue;
+    const int i = q0 + r_lo + hr * 8;  // local row
+    if (i >= Sq) continue;
+    // No live key (no tile, or only masked pairs): o = 0, lse = -inf.
+    const bool empty = m_run[hr] < kEmptyRow2;
     if (l == 0.f) l = 1.f;
-    const float inv = 1.f / l;
+    const float inv = empty ? 0.f : 1.f / l;
     __nv_bfloat16* orow = a.o + head0 + static_cast<size_t>(i) * row_stride + t * 2;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd)
       *reinterpret_cast<uint32_t*>(orow + nd * 8) =
           pack_bf16(o_acc[4 * nd + 2 * hr] * inv, o_acc[4 * nd + 2 * hr + 1] * inv);
-    if (t == 0) lse_bh[i] = (m_run[hr] + log2f(l)) * kLn2;
+    if (t == 0) lse_bh[i] = empty ? -INFINITY : (m_run[hr] + log2f(l)) * kLn2;
   }
 }
 
@@ -550,8 +576,10 @@ LaunchFn pick(bool drop, bool window) {
 
 }  // namespace
 
-// q, k, v, o: bf16 [B, S, H, D] contiguous; rel: bf16 [H, 64, D] contiguous
-// (rows >= V zero) or null; lengths: int32 [B]; lse: fp32 [B, H, S].
+// q, o: bf16 [B, S_q, H, D], k, v: bf16 [B, S_k, H, D], contiguous; rel:
+// bf16 [H, 64, D] contiguous (rows >= V zero) or null; lengths: int32 [B]
+// (global); lse: fp32 [B, H, S_q].  q_start, k_start: the global positions
+// of q's row 0 and k's key 0, multiples of 64 (0 without sharding).
 // dropout_threshold = round(rate * 2^24) (0: no dropout), keep_scale =
 // float32(1 / (1 - rate)), seed: the call's int32 seed, batch_start: global
 // index of example 0.  window > 0 selects the sliding-window pattern with
@@ -560,18 +588,21 @@ LaunchFn pick(bool drop, bool window) {
 // Launches on `stream`, allocates nothing, returns the CUDA error code.
 extern "C" int mmt_rel_attention_fwd(const void* q, const void* k, const void* v, const void* rel,
                                      const void* lengths, void* o, void* lse, int batch,
-                                     int seq_len, int num_heads, int head_dim, int vocab,
+                                     int seq_q, int seq_k, int q_start, int k_start,
+                                     int num_heads, int head_dim, int vocab,
                                      int image_len, int patch_per_row, int core_layers,
                                      int text_max_distance, int image_part_id, int text_part_id,
                                      int window, int num_global, float scale,
                                      int dropout_threshold, float keep_scale, int seed,
                                      int batch_start, void* stream) {
   if (vocab < 0 || vocab > kVP || dropout_threshold < 0 || dropout_threshold > (1 << 24) ||
-      window < 0 || (window > 0 && num_global <= 0))
+      window < 0 || (window > 0 && num_global <= 0) || q_start < 0 || k_start < 0 ||
+      q_start % kT || k_start % kT || seq_q <= 0 || seq_k <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rel != nullptr && image_len > 0 && patch_per_row > kMaxPatchPerRow)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (window > seq_len) window = seq_len;  // the same pattern; keeps r0 + w from overflowing
+  // The same pattern; keeps r0 + w from overflowing.
+  window = min(window, max(q_start + seq_q, k_start + seq_k));
   FwdArgs a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
@@ -580,7 +611,10 @@ extern "C" int mmt_rel_attention_fwd(const void* q, const void* k, const void* v
   a.lengths = static_cast<const int*>(lengths);
   a.o = static_cast<__nv_bfloat16*>(o);
   a.lse = static_cast<float*>(lse);
-  a.S = seq_len;
+  a.Sq = seq_q;
+  a.Sk = seq_k;
+  a.q_start = q_start;
+  a.k_start = k_start;
   a.H = num_heads;
   a.geo = Geometry{image_len,     patch_per_row, core_layers,     text_max_distance,
                    image_part_id, text_part_id,  rel ? vocab : 0, window,
@@ -588,7 +622,7 @@ extern "C" int mmt_rel_attention_fwd(const void* q, const void* k, const void* v
   a.scale = scale;
   a.dr = Dropout{static_cast<uint32_t>(dropout_threshold), keep_scale,
                  static_cast<uint32_t>(seed), static_cast<uint32_t>(batch_start)};
-  const dim3 grid((seq_len + kBlockRows - 1) / kBlockRows, num_heads, batch);
+  const dim3 grid((seq_q + kBlockRows - 1) / kBlockRows, num_heads, batch);
   const bool drop = dropout_threshold > 0;
   LaunchFn fn;
   if (head_dim == 64) {
@@ -599,8 +633,8 @@ extern "C" int mmt_rel_attention_fwd(const void* q, const void* k, const void* v
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap tm_k, tm_v;
-  cudaError_t err = make_kv_map(&tm_k, k, batch, seq_len, num_heads, head_dim);
-  if (err == cudaSuccess) err = make_kv_map(&tm_v, v, batch, seq_len, num_heads, head_dim);
+  cudaError_t err = make_kv_map(&tm_k, k, batch, seq_k, num_heads, head_dim);
+  if (err == cudaSuccess) err = make_kv_map(&tm_v, v, batch, seq_k, num_heads, head_dim);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(fn(grid, static_cast<cudaStream_t>(stream), tm_k, tm_v, a));
 }

@@ -62,6 +62,20 @@ def make_inference_step(model, device="cuda") -> Callable[[Mapping], torch.Tenso
     return step
 
 
+def sharded_inference_step(step: Callable[[Mapping], torch.Tensor], mesh
+                           ) -> Callable[[Mapping], torch.Tensor]:
+    """An inference step over a data-parallel ``mesh``: each rank scores
+    its rows of the batch (``parallel.mesh.data_slice``) with ``step`` and
+    the scores of every rank are gathered, in the batch's order."""
+    from mmt_tpu_torch.parallel.mesh import all_gather_rows, data_slice
+
+    def sharded(batch: Mapping) -> torch.Tensor:
+        scores = step(data_slice(mesh, {k: np.asarray(v) for k, v in batch.items()}))
+        return torch.from_numpy(all_gather_rows(mesh, scores.cpu().numpy()).reshape(-1))
+
+    return sharded
+
+
 def predict(model: Union[torch.nn.Module, Callable], batches: Iterable[Mapping],
             device="cuda") -> Iterator[RawResult]:
     """Yields RawResult rows for every valid example in every batch.

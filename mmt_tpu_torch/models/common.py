@@ -14,7 +14,9 @@
   models start in ``eval()``, as ``deterministic`` defaults to True.
   Each transformer layer call draws all of its randomness from two seeds
   (``LayerSeeds``) taken before it runs, so that a recomputed layer
-  (remat) replays the same masks.
+  (remat) replays the same masks.  A data-parallel rank draws each mask
+  over its whole global micro-batch (``batch_rows``) and keeps its own
+  rows, so its masks are the one-process step's rows.
 """
 
 from __future__ import annotations
@@ -34,10 +36,14 @@ class LayerSeeds(NamedTuple):
     """The randomness of one transformer layer call: the int32 seed of the
     in-kernel attention dropout and the seed of a generator, on the layer's
     device, for its two hidden-dropout masks.  A layer called again with
-    the same seeds draws the same masks."""
+    the same seeds draws the same masks.  ``batch_start`` and
+    ``batch_rows`` place the call's rows in its global micro-batch, as
+    ``DropoutRngs``'s do."""
 
     attention: int
     hidden: int
+    batch_start: int = 0
+    batch_rows: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -54,6 +60,13 @@ class DropoutRngs:
 
     host: Optional[torch.Generator] = None
     device: Optional[torch.Generator] = None
+    # Where the batch's rows lie in its global micro-batch: a data-parallel
+    # rank's rows are [batch_start, batch_start + B) of batch_rows.  The
+    # attention dropout hashes each row's global index; the other masks are
+    # drawn over all batch_rows rows (the batch's own rows when None) and
+    # sliced, so every rank keeps the one-process step's mask rows.
+    batch_start: int = 0
+    batch_rows: Optional[int] = None
 
     @classmethod
     def for_step(cls, seed: int, step: int, device) -> "DropoutRngs":
@@ -68,9 +81,25 @@ class DropoutRngs:
         """An int32 seed from the host stream."""
         return int(torch.randint(-(1 << 31), 1 << 31, (), generator=self.host))
 
+    def split(self, k: int) -> list:
+        """k streams, one per micro-batch of a step (JAX's
+        ``random.split(rng, k)``), drawn from this one's host stream; itself
+        when k is 1.  Every data-parallel rank splits alike, so micro-batch m
+        draws the same seeds on every rank."""
+        if k == 1:
+            return [self]
+        out = []
+        for _ in range(k):
+            host, dev = (int(x) for x in torch.randint(0, 1 << 62, (2,), generator=self.host))
+            out.append(DropoutRngs(
+                host=torch.Generator().manual_seed(host),
+                device=(torch.Generator(self.device.device).manual_seed(dev)
+                        if self.device is not None else None)))
+        return out
+
     def layer_seeds(self) -> LayerSeeds:
         """The seeds of one transformer layer call."""
-        return LayerSeeds(self.seed(), self.seed())
+        return LayerSeeds(self.seed(), self.seed(), self.batch_start, self.batch_rows)
 
     def dropout(self, x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
         """Flax ``nn.Dropout``: zero each element with probability ``rate``
@@ -78,7 +107,12 @@ class DropoutRngs:
         training or at rate 0."""
         if not training or rate == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.device, device=x.device) >= rate
+        if self.batch_rows is None:
+            keep = torch.rand(x.shape, generator=self.device, device=x.device)
+        else:
+            keep = torch.rand((self.batch_rows, *x.shape[1:]), generator=self.device,
+                              device=x.device)[self.batch_start:self.batch_start + x.shape[0]]
+        keep = keep >= rate
         return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

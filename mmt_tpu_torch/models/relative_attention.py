@@ -101,9 +101,11 @@ class RelativeAttention(nn.Module):
         self.output = linear(hidden_size, hidden_size, device=device)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[int] = None, batch_start: int = 0) -> torch.Tensor:
         """``dropout_seed``: the int32 seed of the attention dropout, used in
-        ``train()`` mode at a rate > 0 (required there)."""
+        ``train()`` mode at a rate > 0 (required there); ``batch_start``:
+        the global index of the batch's first example, which its hash
+        takes."""
         if self.quantize != "none" and self.training:
             raise ValueError(
                 "quantize='int8_dynamic' is an inference-only path "
@@ -118,10 +120,11 @@ class RelativeAttention(nn.Module):
             rate, seed = self.attention_dropout, dropout_seed
         if self.attention_impl == "pallas":
             ctx = relative_attention(q, k, v, self.relative_emb_table, self.geometry, lengths,
-                                     rate, seed, device=x.device.type)
+                                     rate, seed, device=x.device.type, batch_start=batch_start)
         else:
             ctx, _ = relative_attention_plain(
-                q, k, v, self.relative_emb_table, self.geometry, lengths, rate, seed)
+                q, k, v, self.relative_emb_table, self.geometry, lengths, rate, seed,
+                batch_start=batch_start)
         return dense(ctx.reshape(batch, seq_len, -1), self.output, self.dtype)
 
 
@@ -164,10 +167,12 @@ class RelativeTransformerLayer(nn.Module):
         (drawn here from torch's default CPU generator when None)."""
         if self.training and seeds is None:
             seeds = DropoutRngs().layer_seeds()
-        hidden = DropoutRngs()
+        hidden, attention_seed, batch_start = DropoutRngs(), None, 0
+        if seeds is not None:
+            hidden = DropoutRngs(batch_start=seeds.batch_start, batch_rows=seeds.batch_rows)
+            attention_seed, batch_start = seeds.attention, seeds.batch_start
         if self.training and self.hidden_dropout > 0.0:
             hidden.device = torch.Generator(device=x.device).manual_seed(seeds.hidden)
-        attention_seed = seeds.attention if seeds is not None else None
 
         def drop(h):
             return hidden.dropout(h, self.hidden_dropout, self.training)
@@ -175,9 +180,9 @@ class RelativeTransformerLayer(nn.Module):
         if self.use_pre_activation_order:
             x = x + drop(self.attention(
                 layer_norm(x, self.attention_layer_norm).to(self.dtype), lengths,
-                attention_seed))
+                attention_seed, batch_start))
             return x + drop(self._ffn(layer_norm(x, self.ffn_layer_norm).to(self.dtype)))
-        x = layer_norm(x + drop(self.attention(x, lengths, attention_seed)),
+        x = layer_norm(x + drop(self.attention(x, lengths, attention_seed, batch_start)),
                        self.attention_layer_norm)
         return layer_norm(x + drop(self._ffn(x.to(self.dtype))), self.ffn_layer_norm)
 

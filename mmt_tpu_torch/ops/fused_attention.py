@@ -37,10 +37,12 @@ Public pieces:
   tensors they return the plain versions.  The forward launcher goes
   through the registered torch op ``mmt_tpu_torch::rel_attention_fwd``
   (with a fake version, so that ``torch.export`` can trace a model that
-  calls it).  Each launcher counts its kernel launches, dense and windowed
-  apart:
-  ``relative_attention_forward.launches`` / ``.launches_window`` and
-  ``relative_attention_backward.launches`` / ``.launches_window``.
+  calls it).  Each launcher counts its kernel launches, dense, windowed and
+  sequence-sharded (a nonzero ``q_start`` or ``k_start``, or fewer query
+  rows than keys) apart; a call whose only offset is ``batch_start`` runs
+  the ordinary schedule and counts as dense or windowed:
+  ``relative_attention_forward.launches`` / ``.launches_window`` /
+  ``.launches_offset`` and ``relative_attention_backward``'s three.
 * ``relative_attention_plain`` / ``relative_attention_backward_plain``
   are the plain PyTorch versions: dense formulas over the materialised id
   map and pattern mask, chunked over the batch.
@@ -51,6 +53,20 @@ Public pieces:
   dropout hash.
 * ``allowed_real_pairs`` counts the pairs a batch's attention computes
   (the kernels' bounds are written in it).
+* ``relative_att_ids_at`` and ``empty_rows`` are a chunk's ids and its
+  rows without a live key (the offset mode below).
+
+Offsets (the sequence-sharded schedules, ``ops/sharded_attention.py``):
+every function takes ``q_start`` and ``k_start``, the global positions of
+its first query row and first key (``pallas_attention.py``'s ``qoff``), and
+``batch_start``, the global index of its first example.  q covers rows
+``[q_start, q_start + S_q)`` and k, v keys ``[k_start, k_start + S_k)``
+with ``S_q != S_k`` allowed; the ids, the length and window terms and the
+dropout hash use the global positions, and ``lengths`` are global.  A real
+row with no live key in the chunk (every key past its length, or every
+pair outside the window) gets o = 0 and lse = -inf, so that a logsumexp
+combine over chunks ignores it.  The kernels take offsets that are
+multiples of 64 (their tiles).
 
 Rows with ``i >= lengths[b]`` are unspecified in the forward: the kernel
 skips key tiles past the length and writes o = 0 / lse = -inf for query
@@ -72,7 +88,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from mmt_tpu_torch.features.attention_mask import make_att_mask_from_length
 from mmt_tpu_torch.features.relative_position import (
     MmtRelativePositionGenerator,
     RelativePositionGenerator,
@@ -90,6 +105,9 @@ TILE = 64
 # (pallas_attention.py:_prepare), P <= 22 at 512.
 MAX_PATCH_PER_ROW = 32
 KERNEL_HEAD_DIMS = (32, 64)
+# A row whose largest base-2 logit lies below this carries a -10000 term on
+# every pair it saw: it has no live key (o = 0, lse = -inf).
+EMPTY_ROW_LOGIT2 = 0.5 * NEG_INF * math.log2(math.e)
 # Logit elements per chunk of the plain versions (1 GiB of float32).
 _PLAIN_CHUNK_ELEMENTS = 1 << 28
 
@@ -148,6 +166,11 @@ def relative_att_ids(geometry: RelGeometry, seq_len: int) -> np.ndarray:
     return gen.make_relative_att_ids(seq_len, batch_size=1)[0]
 
 
+@functools.lru_cache(maxsize=4)
+def _id_map(geometry: RelGeometry, size: int) -> np.ndarray:
+    return relative_att_ids(geometry, size)
+
+
 def _check_pattern(geometry: Optional[RelGeometry], rel_table) -> None:
     """The JAX validation of the pattern (``pallas_attention.py:3226-3230``)."""
     if (geometry is not None and geometry.window > 0
@@ -167,13 +190,29 @@ def window_allowed(geometry: RelGeometry, i_pos, j_pos):
     return (i_pos < g) | (j_pos < g) | ((j_pos - i_pos).abs() <= geometry.window)
 
 
-def _window_term(geometry: Optional[RelGeometry], seq_len: int, device):
-    """<float32>[S, S]: 0 on allowed pairs, -10000 elsewhere; None when dense."""
+def _positions(start: int, size: int, device) -> torch.Tensor:
+    return torch.arange(start, start + size, device=device)
+
+
+def _window_term(geometry: Optional[RelGeometry], q_pos: torch.Tensor, k_pos: torch.Tensor):
+    """<float32>[S_q, S_k]: 0 on allowed pairs, -10000 elsewhere; None when dense."""
     if not _windowed(geometry):
         return None
-    pos = torch.arange(seq_len, device=device)
-    allowed = window_allowed(geometry, pos[:, None], pos[None, :])
+    allowed = window_allowed(geometry, q_pos[:, None], k_pos[None, :])
     return torch.where(allowed, 0.0, NEG_INF)
+
+
+def empty_rows(geometry, lengths, q_pos, k_pos) -> torch.Tensor:
+    """<bool>[b, S_q]: real query rows with no live key among ``k_pos``
+    (every key past the length, or every pair outside the window)."""
+    lengths = lengths.to(q_pos.device)[:, None]
+    real_k = k_pos[None, :] < lengths
+    if _windowed(geometry):
+        allowed = window_allowed(geometry, q_pos[:, None], k_pos[None, :])
+        live = (real_k.float() @ allowed.float().T) > 0
+    else:
+        live = real_k.any(-1, keepdim=True)
+    return (q_pos[None, :] < lengths) & ~live
 
 
 def allowed_real_pairs(geometry: Optional[RelGeometry], lengths) -> int:
@@ -191,21 +230,23 @@ def allowed_real_pairs(geometry: Optional[RelGeometry], lengths) -> int:
     return total
 
 
-def live_tiles(r0: int, length: int, geometry: Optional[RelGeometry]) -> list:
+def live_tiles(r0: int, length: int, geometry: Optional[RelGeometry], start: int = 0) -> list:
     """The 64-wide tiles on the other axis that a block of 64 rows from
-    ``r0`` visits, in ascending order (csrc ``LiveTiles``): every tile
-    below the length when dense or when the block meets the global prefix;
-    else the global tiles and the band ``[floor((r0 - w) / 64),
-    floor((r0 + 63 + w) / 64)]``, a tile in both visited once.  The pattern
-    is symmetric, so this is a query block's key tiles and a key block's
-    query tiles alike."""
-    n = -(-length // TILE)
+    ``r0`` visits, in ascending order (csrc ``LiveTiles``), as global tile
+    indexes in ``[start // 64, ceil(length / 64))`` (``start``: the first
+    position of the other axis's chunk, a multiple of 64; ``length``: the
+    end of its real positions): every such tile when dense or when the
+    block meets the global prefix; else the global tiles and the band
+    ``[floor((r0 - w) / 64), floor((r0 + 63 + w) / 64)]``, a tile in both
+    visited once.  The pattern is symmetric, so this is a query block's key
+    tiles and a key block's query tiles alike."""
+    first, n = start // TILE, -(-length // TILE)
     if not _windowed(geometry) or r0 < geometry.num_global:
-        return list(range(n))
+        return list(range(first, n))
     head = min(-(-geometry.num_global // TILE), n)
-    lo = max(max(r0 - geometry.window, 0) // TILE, head)
+    lo = max(max(r0 - geometry.window, 0) // TILE, head, first)
     hi = min((r0 + TILE - 1 + geometry.window) // TILE + 1, n)
-    return list(range(head)) + list(range(lo, max(lo, hi)))
+    return list(range(first, head)) + list(range(lo, max(lo, hi)))
 
 
 # ------------------------------------------------------------ dropout hash
@@ -264,15 +305,28 @@ def dropout_tile(seed, batch_idx, head, q_base, k_base, shape, rate: float) -> t
     return dropout_keep(example_seed(seed, batch_idx), head, i_pos, j_pos, rate)
 
 
-def _dropout_block(seed, batch_ids: torch.Tensor, num_heads: int, seq_len: int,
-                   rate: float) -> torch.Tensor:
-    """[b, H, S, S] keep factors for the examples ``batch_ids``."""
+def _dropout_block(seed, batch_ids: torch.Tensor, num_heads: int, q_pos: torch.Tensor,
+                   k_pos: torch.Tensor, rate: float) -> torch.Tensor:
+    """[b, H, S_q, S_k] keep factors for the (global) examples ``batch_ids``."""
     dev = batch_ids.device
-    pos = torch.arange(seq_len, dtype=torch.int64, device=dev)
     heads = torch.arange(num_heads, dtype=torch.int64, device=dev)
     seeds = example_seed(seed, batch_ids.to(torch.int64))
     return dropout_keep(seeds[:, None, None, None], heads[None, :, None, None],
-                        pos[:, None], pos[None, :], rate)
+                        q_pos.long()[:, None], k_pos.long()[None, :], rate)
+
+
+def _check_offsets(q_start: int, k_start: int, batch_start: int) -> None:
+    if min(q_start, k_start, batch_start) < 0:
+        raise ValueError(f"offsets must be >= 0, got q_start={q_start}, k_start={k_start}, "
+                         f"batch_start={batch_start}")
+
+
+def _check_tile_offsets(q_start: int, k_start: int, batch_start: int) -> None:
+    """The kernels' offsets: q_start and k_start multiples of the tile."""
+    _check_offsets(q_start, k_start, batch_start)
+    if q_start % TILE or k_start % TILE:
+        raise ValueError(f"the kernels take q_start and k_start in multiples of {TILE}, "
+                         f"got {q_start}, {k_start}")
 
 
 def _check_dropout(rate: float, seed) -> None:
@@ -288,18 +342,39 @@ def _check_dropout(rate: float, seed) -> None:
 # ------------------------------------------------------- plain versions
 
 
-def _plain_ids(geometry, rel_table, seq_len, device):
+def relative_att_ids_at(geometry: RelGeometry, q_start: int, seq_q: int, k_start: int,
+                        seq_k: int) -> np.ndarray:
+    """<int32>[S_q, S_k] ids of the global rows [q_start, q_start + S_q)
+    against the global keys [k_start, k_start + S_k) (a read-only view of
+    a cached map when the chunk starts at 0 and is square)."""
+    ids = _id_map(geometry, max(q_start + seq_q, k_start + seq_k))
+    if q_start or k_start or seq_q != seq_k:
+        ids = np.ascontiguousarray(ids[q_start:q_start + seq_q, k_start:k_start + seq_k])
+    return ids
+
+
+def _plain_ids(geometry, rel_table, q_start, seq_q, k_start, seq_k, device):
+    """The chunk's ids as a tensor on ``device``, or None without a bias."""
     if rel_table is None or geometry is None:
         return None
-    return torch.from_numpy(relative_att_ids(geometry, seq_len)).to(device)
+    return torch.from_numpy(relative_att_ids_at(geometry, q_start, seq_q, k_start, seq_k)
+                            ).to(device)
 
 
-def _masked_logits(q, k, rel_table, ids, lengths, window_term=None):
+def _length_mask(lengths, q_pos, k_pos):
+    """<bool>[b, S_q, S_k]: whether the pair is on one side of the length
+    (both real or both padding; ``make_att_mask_from_length``)."""
+    lengths = lengths.to(q_pos.device)[:, None]
+    return (q_pos[None, :] < lengths)[:, :, None] == (k_pos[None, :] < lengths)[:, None, :]
+
+
+def _masked_logits(q, k, rel_table, ids, lengths, window_term=None, q_pos=None, k_pos=None):
     """Scaled logits + the length mask, then the window term (the order of
     ``_apply_window_mask``: after the scale and the length mask)."""
-    seq_len = q.shape[1]
+    if q_pos is None:
+        q_pos = k_pos = torch.arange(q.shape[1], device=q.device)
     logits = relative_attention_scores(q, k, rel_table, ids)
-    mask = make_att_mask_from_length(seq_len, lengths)
+    mask = _length_mask(lengths, q_pos, k_pos)
     logits = logits + (1.0 - mask[:, None].float()) * NEG_INF
     if window_term is not None:
         logits = logits + window_term
@@ -315,8 +390,11 @@ def relative_attention_plain(
     lengths: torch.Tensor,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    q_start: int = 0,
+    k_start: int = 0,
+    batch_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense masked relative attention -> (o [B,S,H,D] q.dtype, lse [B,H,S] fp32).
+    """Dense masked relative attention -> (o [B,S_q,H,D] q.dtype, lse [B,H,S_q] fp32).
 
     Logits, the -10000 length mask, the -10000 window term (when
     ``geometry.window > 0``), softmax and lse are float32.  The
@@ -324,14 +402,21 @@ def relative_attention_plain(
     probabilities after the softmax; the probabilities are then rounded
     to the compute dtype before ``p . v`` (summed in float32), as the
     kernel does.  The batch is processed in chunks of at most 1 GiB of
-    logits.  Differentiable by autograd.
+    logits.  Differentiable by autograd.  ``q_start``, ``k_start`` and
+    ``batch_start`` place q, k and the batch in the global sequence and
+    batch (module docstring); a real row with no live key in k gives o =
+    0 and lse = -inf.
     """
     _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
-    batch, seq_len, num_heads, _ = q.shape
-    ids = _plain_ids(geometry, rel_table, seq_len, q.device)
-    window = _window_term(geometry, seq_len, q.device)
-    chunk = max(1, _PLAIN_CHUNK_ELEMENTS // (num_heads * seq_len * seq_len))
+    _check_offsets(q_start, k_start, batch_start)
+    batch, seq_q, num_heads, _ = q.shape
+    seq_k = k.shape[1]
+    q_pos, k_pos = _positions(q_start, seq_q, q.device), _positions(k_start, seq_k, q.device)
+    ids = _plain_ids(geometry, rel_table, q_start, seq_q, k_start, seq_k, q.device)
+    window = _window_term(geometry, q_pos, k_pos)
+    offsets = bool(q_start or k_start or seq_q != seq_k)
+    chunk = max(1, _PLAIN_CHUNK_ELEMENTS // (num_heads * seq_q * seq_k))
     if torch.compiler.is_exporting():
         # A traced batch may be symbolic: one chunk, whatever its size.
         chunks = [slice(None)]
@@ -340,18 +425,24 @@ def relative_attention_plain(
     outs, lses = [], []
     for sl in chunks:
         b0 = sl.start or 0
-        logits = _masked_logits(q[sl], k[sl], rel_table, ids, lengths[sl], window)
-        lses.append(torch.logsumexp(logits, dim=-1))
+        logits = _masked_logits(q[sl], k[sl], rel_table, ids, lengths[sl], window, q_pos, k_pos)
+        lse = torch.logsumexp(logits, dim=-1)
         probs = torch.softmax(logits, dim=-1)
         del logits
         if dropout_rate > 0.0:
-            rows = torch.arange(b0, b0 + probs.shape[0], device=q.device)
-            probs = probs * _dropout_block(dropout_seed, rows, num_heads, seq_len,
+            rows = torch.arange(batch_start + b0, batch_start + b0 + probs.shape[0],
+                                device=q.device)
+            probs = probs * _dropout_block(dropout_seed, rows, num_heads, q_pos, k_pos,
                                            dropout_rate)
         probs = probs.to(q.dtype)
-        outs.append(
-            torch.einsum("bhqk,bkhd->bqhd", probs.float(), v[sl].float()).to(q.dtype)
-        )
+        o = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v[sl].float()).to(q.dtype)
+        if offsets:  # rows whose chunk holds no live key contribute nothing
+            empty = empty_rows(geometry, lengths[sl], q_pos, k_pos)
+            o = torch.where(empty[:, :, None, None], torch.zeros((), dtype=o.dtype,
+                                                                 device=o.device), o)
+            lse = torch.where(empty[:, None, :], -math.inf, lse)
+        outs.append(o)
+        lses.append(lse)
     return torch.cat(outs), torch.cat(lses)
 
 
@@ -367,8 +458,12 @@ def relative_attention_backward_plain(
     lengths: torch.Tensor,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    q_start: int = 0,
+    k_start: int = 0,
+    batch_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """Dense backward -> (dq, dk, dv in q.dtype, drel [V,H,D] in the table's dtype or None).
+    """Dense backward -> (dq [B,S_q,H,D], dk, dv [B,S_k,H,D] in q.dtype, drel
+    [V,H,D] in the table's dtype or None).
 
     With s the scaled, masked logits (length mask and window term, as in
     the forward), P = exp(s - lse), K the dropout keep
@@ -385,43 +480,49 @@ def relative_attention_backward_plain(
     in the forward).  Pairs the window disallows need no term of their
     own: their -10000 drives P to exactly 0, as in JAX.  ``lse`` below -1e38 (a row with no live key tile)
     is clamped to 3e38, as the kernels do.  Chunked over the batch like
-    the forward.
+    the forward.  Offsets as in ``relative_attention_plain``: with a chunk
+    of keys and the global ``lse`` (the ring schedule), these are the
+    chunk's terms of the gradients.
 
     Args:
-      q, k, v, do: <float>[B, S, H, D].
-      lse, delta: <float32>[B, H, S].
+      q, do: <float>[B, S_q, H, D]; k, v: <float>[B, S_k, H, D].
+      lse, delta: <float32>[B, H, S_q].
       rel_table: <float>[V, H, D] or None.
     """
     _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
-    batch, seq_len, num_heads, head_dim = q.shape
+    _check_offsets(q_start, k_start, batch_start)
+    batch, seq_q, num_heads, head_dim = q.shape
+    seq_k = k.shape[1]
     scale = 1.0 / math.sqrt(head_dim)
-    ids = _plain_ids(geometry, rel_table, seq_len, q.device)
-    window = _window_term(geometry, seq_len, q.device)
+    q_pos, k_pos = _positions(q_start, seq_q, q.device), _positions(k_start, seq_k, q.device)
+    ids = _plain_ids(geometry, rel_table, q_start, seq_q, k_start, seq_k, q.device)
+    window = _window_term(geometry, q_pos, k_pos)
     use_rel = ids is not None
     if use_rel:
         vocab = rel_table.shape[0]
         r = rel_table.to(q.dtype).float()
         safe_ids = torch.where(ids < vocab, ids.long(), vocab)  # column V collects OOV ids
         drel = torch.zeros(vocab, num_heads, head_dim, dtype=torch.float32, device=q.device)
-    chunk = max(1, _PLAIN_CHUNK_ELEMENTS // (num_heads * seq_len * seq_len))
-    pos = torch.arange(seq_len, device=q.device)
+    chunk = max(1, _PLAIN_CHUNK_ELEMENTS // (num_heads * seq_q * seq_k))
     dqs, dks, dvs = [], [], []
     for b0 in range(0, batch, chunk):
         sl = slice(b0, b0 + chunk)
         qf, kf, vf, dof = (t[sl].float() for t in (q, k, v, do))
         s = _masked_logits(q[sl], k[sl], rel_table if use_rel else None, ids, lengths[sl],
-                           window)
+                           window, q_pos, k_pos)
         lse_c = lse[sl].float()
         lse_c = torch.where(lse_c < -1e38, torch.full_like(lse_c, 3e38), lse_c)
         p = torch.exp(s - lse_c[..., None])
         del s
-        real = pos[None, :] < lengths[sl].to(q.device)[:, None]  # [b, S]
-        pair = (real[:, :, None] & real[:, None, :])[:, None]  # [b, 1, S, S]
+        lengths_c = lengths[sl].to(q.device)[:, None]
+        real_q, real_k = q_pos[None, :] < lengths_c, k_pos[None, :] < lengths_c  # [b, S]
+        pair = (real_q[:, :, None] & real_k[:, None, :])[:, None]  # [b, 1, S_q, S_k]
         dp = torch.einsum("bihd,bjhd->bhij", dof, vf)
         if dropout_rate > 0.0:
-            rows = torch.arange(b0, b0 + p.shape[0], device=q.device)
-            keep = _dropout_block(dropout_seed, rows, num_heads, seq_len, dropout_rate)
+            rows = torch.arange(batch_start + b0, batch_start + b0 + p.shape[0],
+                                device=q.device)
+            keep = _dropout_block(dropout_seed, rows, num_heads, q_pos, k_pos, dropout_rate)
             dp = dp * keep
             p_v = p * keep
             del keep
@@ -506,14 +607,15 @@ def _tile_pair_ids(geometry: RelGeometry, i_pos: torch.Tensor, j_pos: torch.Tens
                        torch.where(j < il, geometry.image_part_id, band))
 
 
-def _window_cuts(q0: int, k0: int, seq_len: int, geometry: RelGeometry) -> bool:
-    """Whether the window term can change a pair of the tile below
-    ``seq_len`` (csrc ``window_cuts``): not when every row or every key is
-    global, nor when the tile lies wholly inside the band."""
+def _window_cuts(q0: int, k0: int, q_end: int, k_end: int, geometry: RelGeometry) -> bool:
+    """Whether the window term can change a pair of the tile below the
+    chunks' ends ``q_end`` / ``k_end`` (csrc ``window_cuts``): not when
+    every row or every key is global, nor when the tile lies wholly inside
+    the band."""
     g, w = geometry.num_global, geometry.window
     if q0 + TILE <= g or k0 + TILE <= g:
         return False
-    return min(k0 + TILE, seq_len) - 1 - q0 > w or min(q0 + TILE, seq_len) - 1 - k0 > w
+    return min(k0 + TILE, k_end) - 1 - q0 > w or min(q0 + TILE, q_end) - 1 - k0 > w
 
 
 def relative_attention_forward_tiled(
@@ -525,27 +627,36 @@ def relative_attention_forward_tiled(
     lengths: torch.Tensor,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    q_start: int = 0,
+    k_start: int = 0,
+    batch_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's schedule in plain PyTorch (float32, small
     shapes): the function of ``relative_attention_plain``, computed as
     ``csrc/rel_attention_fwd.cu`` decomposes it.
 
-    For each example and each 64-row query block below its length, qr =
+    For each example and each 64-row query block with a real row, qr =
     q . R^T (times scale * log2(e)) once, then the block's live key tiles
-    (``live_tiles``) in order.  Per tile: s2 = q . k^T * scale * log2(e) plus
-    the bias, decided once per tile: one id for the whole tile
-    (``uniform_tile_id``) adds one column of qr per row, or nothing when the
-    id is out of vocabulary; else each pair's id (``_tile_pair_ids``).  The
-    length term (-10000 in base 2) only on tiles that hold the length, the
-    window term only on tiles the band edge cuts; then the online softmax
-    in base 2, the dropout keep factor after the row sum, p rounded to the
-    compute dtype before p . v.  Returns (o in q.dtype, lse [B, H, S]
-    float32 in natural log); query blocks past the length give o = 0 and
-    lse = -inf, as the kernel writes them.
+    (``live_tiles``, in the key chunk) in order.  Per tile: s2 = q . k^T *
+    scale * log2(e) plus the bias, decided once per tile: one id for the
+    whole tile (``uniform_tile_id``) adds one column of qr per row, or
+    nothing when the id is out of vocabulary; else each pair's id
+    (``_tile_pair_ids``).  The length term (-10000 in base 2; keys past the
+    chunk count as padding) only on tiles that hold the length or the
+    chunk's end, the window term only on tiles the band edge cuts; then the
+    online softmax in base 2, the dropout keep factor after the row sum, p
+    rounded to the compute dtype before p . v.  Positions, ids, masks and
+    the hash are global (``q_start``, ``k_start``, ``batch_start``; multiples
+    of 64 for the first two).  Returns (o in q.dtype, lse [B, H, S_q]
+    float32 in natural log); query blocks past the length, and rows whose
+    best logit carries a -10000 term (no live key: ``EMPTY_ROW_LOGIT2``),
+    give o = 0 and lse = -inf, as the kernel writes them.
     """
     _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
-    batch, seq_len, num_heads, head_dim = q.shape
+    _check_tile_offsets(q_start, k_start, batch_start)
+    batch, seq_q, num_heads, head_dim = q.shape
+    seq_k = k.shape[1]
     c2 = math.log2(math.e) / math.sqrt(head_dim)
     mask2 = NEG_INF * math.log2(math.e)
     use_rel = rel_table is not None and geometry is not None
@@ -556,21 +667,23 @@ def relative_attention_forward_tiled(
     windowed = _windowed(geometry)
     qf, kf, vf = (t.float() for t in (q, k, v))
     o = torch.zeros_like(qf)
-    lse = torch.full((batch, num_heads, seq_len), -math.inf, device=q.device)
+    lse = torch.full((batch, num_heads, seq_q), -math.inf, device=q.device)
     heads = torch.arange(num_heads, dtype=torch.int64, device=q.device)
+    q_end, k_end = q_start + seq_q, k_start + seq_k
     for b in range(batch):
         length = int(lengths[b])
-        for q0 in range(0, length, TILE):
-            qs = slice(q0, min(q0 + TILE, seq_len))
-            i_pos = torch.arange(qs.start, qs.stop, device=q.device)
+        key_end = min(length, k_end)  # keys past the chunk count as padding
+        for q0 in range(q_start, min(length, q_end), TILE):
+            qs = slice(q0 - q_start, min(q0 - q_start + TILE, seq_q))
+            i_pos = torch.arange(q0, q0 + qs.stop - qs.start, device=q.device)
             qr = torch.einsum("ihd,vhd->hiv", qf[b, qs], r) * c2 if use_rel else None
             m = torch.full((num_heads, len(i_pos)), -math.inf, device=q.device)
             l = torch.zeros_like(m)
             acc = torch.zeros(num_heads, len(i_pos), head_dim, device=q.device)
-            for tile in live_tiles(q0, length, geometry):
+            for tile in live_tiles(q0, key_end, geometry, k_start):
                 k0 = tile * TILE
-                ks = slice(k0, min(k0 + TILE, seq_len))
-                j_pos = torch.arange(ks.start, ks.stop, device=q.device)
+                ks = slice(k0 - k_start, min(k0 - k_start + TILE, seq_k))
+                j_pos = torch.arange(k0, k0 + ks.stop - ks.start, device=q.device)
                 s = torch.einsum("ihd,jhd->hij", qf[b, qs], kf[b, ks]) * c2
                 tile_id = uniform_tile_id(q0, k0, geo) if use_rel else MAX_KERNEL_VOCAB
                 if tile_id >= 0:
@@ -582,10 +695,10 @@ def relative_attention_forward_tiled(
                     gathered = torch.gather(
                         qr, 2, torch.where(in_vocab, ids, 0).expand(num_heads, -1, -1))
                     s = s + torch.where(in_vocab, gathered, 0.0)
-                if q0 + TILE > length or k0 + TILE > length:
-                    pad = (i_pos[:, None] < length) != (j_pos[None, :] < length)
+                if q0 + TILE > length or k0 + TILE > key_end:
+                    pad = (i_pos[:, None] < length) != (j_pos[None, :] < key_end)
                     s = s + pad.float() * mask2
-                if windowed and _window_cuts(q0, k0, seq_len, geometry):
+                if windowed and _window_cuts(q0, k0, q_end, k_end, geometry):
                     allowed = window_allowed(geometry, i_pos[:, None], j_pos[None, :])
                     s = s + torch.where(allowed, 0.0, mask2)
                 m_new = torch.maximum(m, s.amax(-1))
@@ -594,12 +707,15 @@ def relative_attention_forward_tiled(
                 l = l * alpha + p.sum(-1)
                 m = m_new
                 if dropout_rate > 0.0:
-                    p = p * dropout_keep(example_seed(dropout_seed, b), heads[:, None, None],
-                                         i_pos[:, None], j_pos[None, :], dropout_rate)
+                    p = p * dropout_keep(example_seed(dropout_seed, batch_start + b),
+                                         heads[:, None, None], i_pos[:, None], j_pos[None, :],
+                                         dropout_rate)
                 pv = torch.einsum("hij,jhd->hid", p.to(q.dtype).float(), vf[b, ks])
                 acc = acc * alpha[..., None] + pv
-            o[b, qs] = (acc / l[..., None]).permute(1, 0, 2)
-            lse[b, :, qs] = (m + torch.log2(l)) * math.log(2.0)
+            empty = m < EMPTY_ROW_LOGIT2  # no tile, or only masked pairs
+            l = torch.where(empty, 1.0, l)
+            o[b, qs] = torch.where(empty[..., None], 0.0, acc / l[..., None]).permute(1, 0, 2)
+            lse[b, :, qs] = torch.where(empty, -math.inf, (m + torch.log2(l)) * math.log(2.0))
     return o.to(q.dtype), lse
 
 
@@ -615,29 +731,37 @@ def relative_attention_backward_tiled(
     lengths: torch.Tensor,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    q_start: int = 0,
+    k_start: int = 0,
+    batch_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The backward kernel's schedule in plain PyTorch (float32, small
     shapes): the function of ``relative_attention_backward_plain``,
     computed as ``csrc/rel_attention_bwd.cu`` decomposes it.
 
-    For each example and each 64-key block below its length, the block's
-    live query tiles (``live_tiles``) are swept in order; each (query tile,
-    key block) pair computes s, p, the dropout keep factor K and dS
-    once, adds ``(p K)^T . do`` to dv and ``dS^T . q`` to dk, adds its dq
-    contribution ``dS . k + dSV_tile . R_h`` to the query rows, and adds
-    ``dSV_tile^T . q_tile`` to dRel, with ``dSV_tile[i, v]`` the tile's
-    per-row id histogram of dS.  Returns (dq, dk, dv in q.dtype, drel
-    [V, H, D] in the table's dtype or None), zero past each length.
+    For each example and each 64-key block with a real key, the block's
+    live query tiles (``live_tiles``, in the query chunk) are swept in
+    order; each (query tile, key block) pair computes s, p, the dropout keep
+    factor K and dS once, adds ``(p K)^T . do`` to dv and ``dS^T . q`` to
+    dk, adds its dq contribution ``dS . k + dSV_tile . R_h`` to the query
+    rows, and adds ``dSV_tile^T . q_tile`` to dRel, with ``dSV_tile[i, v]``
+    the tile's per-row id histogram of dS.  Offsets as in
+    ``relative_attention_forward_tiled``.  Returns (dq, dk, dv in q.dtype,
+    drel [V, H, D] in the table's dtype or None), zero past each length.
     """
     _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
-    batch, seq_len, num_heads, head_dim = q.shape
+    _check_tile_offsets(q_start, k_start, batch_start)
+    batch, seq_q, num_heads, head_dim = q.shape
+    seq_k = k.shape[1]
     scale = 1.0 / math.sqrt(head_dim)
-    ids = _plain_ids(geometry, rel_table, seq_len, q.device)
-    window = _window_term(geometry, seq_len, q.device)
+    q_pos, k_pos = _positions(q_start, seq_q, q.device), _positions(k_start, seq_k, q.device)
+    ids = _plain_ids(geometry, rel_table, q_start, seq_q, k_start, seq_k, q.device)
+    window = _window_term(geometry, q_pos, k_pos)
     use_rel = ids is not None
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
-    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     if use_rel:
         vocab = rel_table.shape[0]
         r = rel_table.to(q.dtype).float()
@@ -646,12 +770,13 @@ def relative_attention_backward_tiled(
     heads = torch.arange(num_heads, dtype=torch.int64, device=q.device)
     for b in range(batch):
         length = int(lengths[b])
-        for k0 in range(0, length, TILE):
-            ks = slice(k0, min(k0 + TILE, seq_len))
-            j_pos = torch.arange(ks.start, ks.stop, device=q.device)
-            for tile in live_tiles(k0, length, geometry):
-                qs = slice(tile * TILE, min((tile + 1) * TILE, seq_len))
-                i_pos = torch.arange(qs.start, qs.stop, device=q.device)
+        q_real, k_real = min(length, q_start + seq_q), min(length, k_start + seq_k)
+        for k0 in range(k_start, k_real, TILE):
+            ks = slice(k0 - k_start, min(k0 - k_start + TILE, seq_k))
+            j_pos = k_pos[ks]
+            for tile in live_tiles(k0, q_real, geometry, q_start):
+                qs = slice(tile * TILE - q_start, min(tile * TILE - q_start + TILE, seq_q))
+                i_pos = q_pos[qs]
                 s = torch.einsum("ihd,jhd->hij", qf[b, qs], kf[b, ks])
                 if use_rel:
                     qr = torch.einsum("ihd,vhd->hiv", qf[b, qs], r)
@@ -661,15 +786,16 @@ def relative_attention_backward_tiled(
                         qr, 2, torch.where(in_vocab, tile_ids, 0).expand(num_heads, -1, -1))
                     s = s + torch.where(in_vocab, gathered, 0.0)
                 s = s * scale
-                real_i, real_j = i_pos < length, j_pos < length
+                real_i, real_j = i_pos < q_real, j_pos < k_real
                 s = s + (real_i[:, None] != real_j[None, :]).float() * NEG_INF
                 if window is not None:
                     s = s + window[qs, ks]
                 lse_t = lse[b, :, qs].float()
                 lse_t = torch.where(lse_t < -1e38, torch.full_like(lse_t, 3e38), lse_t)
                 p = torch.exp(s - lse_t[..., None])
-                keep = (dropout_keep(example_seed(dropout_seed, b), heads[:, None, None],
-                                     i_pos[:, None], j_pos[None, :], dropout_rate)
+                keep = (dropout_keep(example_seed(dropout_seed, batch_start + b),
+                                     heads[:, None, None], i_pos[:, None], j_pos[None, :],
+                                     dropout_rate)
                         if dropout_rate > 0.0 else torch.ones((), device=q.device))
                 real = real_i[:, None] & real_j[None, :]
                 dp = torch.einsum("ihd,jhd->hij", dof[b, qs], vf[b, ks]) * keep
@@ -698,7 +824,7 @@ def _error_string(lib, err: int) -> str:
 
 # mmt_rel_attention_fwd's C arguments (csrc/rel_attention_fwd.cu).
 FWD_ARGTYPES = (
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_float]
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 + [ctypes.c_float]
     + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 )
 
@@ -722,7 +848,7 @@ def _bwd_kernel():
     lib = build.load_library("rel_attention_bwd")
     fn = lib.mmt_rel_attention_bwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [ctypes.c_float]
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 16 + [ctypes.c_float]
         + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -768,14 +894,21 @@ def _geometry_from_args(geo_args) -> RelGeometry:
     return RelGeometry(text_max_distance, num_patch_per_row, num_core_layers, window, num_global)
 
 
-def _check_kernel_inputs(q, lengths, rel_table, geometry, **same_shape):
+def _check_kernel_inputs(q, lengths, rel_table, geometry, keys=(), **same_shape):
     """Shape/dtype checks shared by the launchers; returns whether the bias
     is used, the relative vocab and the kernel's geometry arguments
-    (``_geometry_args``)."""
+    (``_geometry_args``).  ``same_shape`` tensors have q's shape; ``keys``
+    (k, v) its batch, heads and head_dim with their own sequence length."""
     batch, seq_len, num_heads, head_dim = q.shape
     for name, t in same_shape.items():
         if t.shape != q.shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != q shape {tuple(q.shape)}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the kernels take bf16 {name}, got {t.dtype}")
+    for name, t in zip("kv", keys):
+        if t.shape != keys[0].shape or t.shape[0] != batch or t.shape[2:] != q.shape[2:]:
+            raise ValueError(f"{name} shape {tuple(t.shape)} does not match q "
+                             f"{tuple(q.shape)} and k {tuple(keys[0].shape)}")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"the kernels take bf16 {name}, got {t.dtype}")
     if q.dtype != torch.bfloat16:
@@ -821,14 +954,20 @@ def _contiguous_aligned(**tensors):
     return out
 
 
-def _dropout_args(rate: float, seed):
-    """(threshold, keep scale, int32 seed, batch_start) for the kernels.
-    The kernels take whole batches, so example 0 is global example 0."""
+def _int32(x) -> int:
+    """``x`` wrapped to int32 (the C arguments' type)."""
+    x = int(np.int64(x) & _U32)
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def _dropout_args(rate: float, seed, batch_start: int = 0):
+    """(threshold, keep scale, int32 seed, int32 batch_start) for the
+    kernels: ``batch_start`` is the global index of the call's example 0
+    (a data-parallel shard's first example), which enters each example's
+    hash seed."""
     if rate == 0.0:
         return 0, 1.0, 0, 0
-    seed32 = int(np.int64(seed) & _U32)
-    seed32 = seed32 - (1 << 32) if seed32 >= 1 << 31 else seed32
-    return dropout_threshold(rate), dropout_scale(rate), seed32, 0
+    return dropout_threshold(rate), dropout_scale(rate), _int32(seed), _int32(batch_start)
 
 
 def _refuse_grad(*tensors) -> None:
@@ -843,8 +982,10 @@ def _refuse_grad(*tensors) -> None:
 # outputs' shapes, the CUDA version launches the kernel, the CPU version is
 # the plain one.  Arguments are flat: the geometry as its 8 ints
 # (``_geometry_args``), the dropout as its rate and int32 seed (0 at rate
-# 0).  ``kernel_table`` is the table in the kernels' layout when the caller
-# built it (CUDA only); the kernel builds it from ``rel_table`` otherwise.
+# 0), then the offsets, which default to 0 (an artifact exported before
+# they existed calls the op without them).  ``kernel_table`` is the table in
+# the kernels' layout when the caller built it (CUDA only); the kernel
+# builds it from ``rel_table`` otherwise.
 
 
 @torch.library.custom_op("mmt_tpu_torch::rel_attention_fwd", mutates_args=(),
@@ -854,33 +995,37 @@ def _rel_attention_fwd_op(
     kernel_table: Optional[torch.Tensor], lengths: torch.Tensor, image_len: int,
     num_patch_per_row: int, num_core_layers: int, text_max_distance: int,
     image_part_id: int, text_part_id: int, window: int, num_global: int,
-    dropout_rate: float, dropout_seed: int,
+    dropout_rate: float, dropout_seed: int, q_start: int = 0, k_start: int = 0,
+    batch_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    batch, seq_len, num_heads, head_dim = q.shape
+    batch, seq_q, num_heads, head_dim = q.shape
+    seq_k = k.shape[1]
     q, k, v = _contiguous_aligned(q=q, k=k, v=v)
     rel = None
     if rel_table is not None:
         rel = _kernel_table(rel_table, kernel_table)
     lengths32 = lengths.to(torch.int32).contiguous()
     o = torch.empty_like(q)
-    lse = torch.empty(batch, num_heads, seq_len, dtype=torch.float32, device=q.device)
+    lse = torch.empty(batch, num_heads, seq_q, dtype=torch.float32, device=q.device)
     lib = _fwd_kernel()
     err = lib.mmt_rel_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         rel.data_ptr() if rel is not None else None,
         lengths32.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        batch, seq_len, num_heads, head_dim,
+        batch, seq_q, seq_k, q_start, k_start, num_heads, head_dim,
         rel_table.shape[0] if rel_table is not None else 0,
         image_len, num_patch_per_row, num_core_layers, text_max_distance,
         image_part_id, text_part_id, window, num_global,
         1.0 / math.sqrt(head_dim),
-        *_dropout_args(dropout_rate, dropout_seed),
+        *_dropout_args(dropout_rate, dropout_seed, batch_start),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"rel_attention_fwd launch failed: CUDA error {err} "
                            f"({_error_string(lib, err)})")
-    if window:
+    if q_start or k_start or seq_q != seq_k:
+        relative_attention_forward.launches_offset += 1
+    elif window:
         relative_attention_forward.launches_window += 1
     else:
         relative_attention_forward.launches += 1
@@ -888,19 +1033,24 @@ def _rel_attention_fwd_op(
 
 
 @_rel_attention_fwd_op.register_kernel("cpu")
-def _rel_attention_fwd_cpu(q, k, v, rel_table, kernel_table, lengths, *geo_and_dropout):
-    *geo_args, dropout_rate, dropout_seed = geo_and_dropout
+def _rel_attention_fwd_cpu(q, k, v, rel_table, kernel_table, lengths, image_len,
+                           num_patch_per_row, num_core_layers, text_max_distance,
+                           image_part_id, text_part_id, window, num_global, dropout_rate,
+                           dropout_seed, q_start=0, k_start=0, batch_start=0):
+    geo_args = (image_len, num_patch_per_row, num_core_layers, text_max_distance,
+                image_part_id, text_part_id, window, num_global)
     geometry = _geometry_from_args(geo_args) if rel_table is not None else None
     o, lse = relative_attention_plain(q, k, v, rel_table, geometry, lengths, dropout_rate,
-                                      dropout_seed if dropout_rate > 0.0 else None)
+                                      dropout_seed if dropout_rate > 0.0 else None,
+                                      q_start, k_start, batch_start)
     return o.contiguous(), lse.contiguous()
 
 
 @_rel_attention_fwd_op.register_fake
-def _rel_attention_fwd_fake(q, k, v, rel_table, kernel_table, lengths, *geo_and_dropout):
-    batch, seq_len, num_heads, _ = q.shape
+def _rel_attention_fwd_fake(q, k, v, rel_table, kernel_table, lengths, *geo_dropout_offsets):
+    batch, seq_q, num_heads, _ = q.shape
     return (q.new_empty(q.shape),
-            q.new_empty((batch, num_heads, seq_len), dtype=torch.float32))
+            q.new_empty((batch, num_heads, seq_q), dtype=torch.float32))
 
 
 def relative_attention_forward(
@@ -914,8 +1064,11 @@ def relative_attention_forward(
     dropout_rate: float = 0.0,
     dropout_seed=None,
     kernel_table: Optional[torch.Tensor] = None,
+    q_start: int = 0,
+    k_start: int = 0,
+    batch_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused relative attention forward -> (o [B,S,H,D], lse [B,H,S] fp32).
+    """Fused relative attention forward -> (o [B,S_q,H,D], lse [B,H,S_q] fp32).
 
     ``device`` names where the tensors must lie.  On ``"cuda"`` the Hopper
     kernel runs (bf16 q/k/v, head_dim 32 or 64, relative vocab <= 64), its
@@ -927,35 +1080,42 @@ def relative_attention_forward(
     (``relative_attention`` is the differentiable op).
 
     Args:
-      q, k, v: <float>[B, S, num_heads, head_dim].
+      q: <float>[B, S_q, num_heads, head_dim]; k, v: [B, S_k, ...].
       rel_table: <float32>[V, num_heads, head_dim] or None (no bias).
       geometry: the id scheme, or None (no bias).
-      lengths: <int>[B] real lengths.
+      lengths: <int>[B] real lengths (global positions).
       dropout_rate, dropout_seed: in-kernel attention-probs dropout (the
         hash of ``dropout_keep``, per-example seed
-        ``seed + b * -1771729351``); the seed is required when the rate > 0.
+        ``seed + (batch_start + b) * -1771729351``); the seed is required
+        when the rate > 0.
       kernel_table: ``kernel_rel_table(rel_table)``, when the caller
         already built it (CUDA only); else it is built here.
+      q_start, k_start, batch_start: the global positions of q's first row
+        and k's first key (multiples of 64 on the card) and the global
+        index of the first example (module docstring).
     """
     _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
+    _check_offsets(q_start, k_start, batch_start)
     _refuse_grad(q, k, v, rel_table)
     dev = _check_devices(device, q=q, k=k, v=v, lengths=lengths)
     if rel_table is None or geometry is None:
         rel_table = kernel_table = None
     if dev.type == "cuda":
-        _, _, geo_args = _check_kernel_inputs(q, lengths, rel_table, geometry, k=k, v=v)
+        _check_tile_offsets(q_start, k_start, batch_start)
+        _, _, geo_args = _check_kernel_inputs(q, lengths, rel_table, geometry, keys=(k, v))
         if rel_table is not None:
             kernel_table = _kernel_table(rel_table, kernel_table)
     else:
         geo_args, kernel_table = _geometry_args(rel_table, geometry), None
     seed = int(dropout_seed) if dropout_rate > 0.0 else 0
     return _rel_attention_fwd_op(q, k, v, rel_table, kernel_table, lengths, *geo_args,
-                                 float(dropout_rate), seed)
+                                 float(dropout_rate), seed, q_start, k_start, batch_start)
 
 
 relative_attention_forward.launches = 0
 relative_attention_forward.launches_window = 0
+relative_attention_forward.launches_offset = 0
 
 
 def relative_attention_backward(
@@ -972,6 +1132,9 @@ def relative_attention_backward(
     dropout_rate: float = 0.0,
     dropout_seed=None,
     kernel_table: Optional[torch.Tensor] = None,
+    q_start: int = 0,
+    k_start: int = 0,
+    batch_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Fused relative attention backward -> (dq, dk, dv, drel).
 
@@ -983,20 +1146,23 @@ def relative_attention_backward(
     table's dtype (summed over the batch here, as
     ``pallas_attention.py:2972`` does), or None without a table.
     Arguments as in ``relative_attention_backward_plain``;
-    ``kernel_table`` as in ``relative_attention_forward``.
+    ``kernel_table`` and the offsets as in ``relative_attention_forward``
+    (dk, dv: [B, S_k, H, D]).
     """
     _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
+    _check_offsets(q_start, k_start, batch_start)
     dev = _check_devices(device, q=q, k=k, v=v, do=do, lse=lse, delta=delta,
                          lengths=lengths)
     if dev.type == "cpu":
         return relative_attention_backward_plain(q, k, v, do, lse, delta, rel_table,
                                                  geometry, lengths, dropout_rate,
-                                                 dropout_seed)
+                                                 dropout_seed, q_start, k_start, batch_start)
 
+    _check_tile_offsets(q_start, k_start, batch_start)
     batch, seq_len, num_heads, head_dim = q.shape
     use_rel, vocab, geo_args = _check_kernel_inputs(q, lengths, rel_table, geometry,
-                                                    k=k, v=v, do=do)
+                                                    keys=(k, v), do=do)
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (batch, num_heads, seq_len) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 [{batch}, {num_heads}, {seq_len}], "
@@ -1017,15 +1183,17 @@ def relative_attention_backward(
         delta.data_ptr(), rel.data_ptr() if rel is not None else None, lengths32.data_ptr(),
         dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         drel_b.data_ptr() if drel_b is not None else None,
-        batch, seq_len, num_heads, head_dim, vocab, *geo_args,
+        batch, seq_len, k.shape[1], q_start, k_start, num_heads, head_dim, vocab, *geo_args,
         1.0 / math.sqrt(head_dim),
-        *_dropout_args(dropout_rate, dropout_seed),
+        *_dropout_args(dropout_rate, dropout_seed, batch_start),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"rel_attention_bwd launch failed: CUDA error {err} "
                            f"({_error_string(lib, err)})")
-    if _windowed(geometry):
+    if q_start or k_start or seq_len != k.shape[1]:
+        relative_attention_backward.launches_offset += 1
+    elif _windowed(geometry):
         relative_attention_backward.launches_window += 1
     else:
         relative_attention_backward.launches += 1
@@ -1037,6 +1205,7 @@ def relative_attention_backward(
 
 relative_attention_backward.launches = 0
 relative_attention_backward.launches_window = 0
+relative_attention_backward.launches_offset = 0
 
 
 # ------------------------------------------------------ differentiable op
@@ -1049,19 +1218,21 @@ class RelativeAttentionFunction(torch.autograd.Function):
     (``pallas_attention.py:3105-3140``).  Saves q, k, v, o and lse as the
     JAX residuals do; delta = rowsum(do * o) is computed here in plain
     torch, outside the kernels (``:2842``).  On CUDA the table's kernel
-    layout is built once and kept for the backward."""
+    layout is built once and kept for the backward.  ``offsets`` is
+    (q_start, k_start, batch_start)."""
 
     @staticmethod
     def forward(ctx, q, k, v, rel_table, lengths, geometry, dropout_rate, dropout_seed,
-                device):
+                device, offsets=(0, 0, 0)):
         kernel_table = None
         if rel_table is not None and torch.device(device).type == "cuda":
             kernel_table = kernel_rel_table(rel_table)
         o, lse = relative_attention_forward(q, k, v, rel_table, geometry, lengths,
-                                            device, dropout_rate, dropout_seed, kernel_table)
+                                            device, dropout_rate, dropout_seed, kernel_table,
+                                            *offsets)
         ctx.save_for_backward(q, k, v, rel_table, lengths, o, lse)
         ctx.kernel_table = kernel_table
-        ctx.geometry, ctx.device = geometry, device
+        ctx.geometry, ctx.device, ctx.offsets = geometry, device, offsets
         ctx.dropout_rate, ctx.dropout_seed = dropout_rate, dropout_seed
         ctx.mark_non_differentiable(lse)
         return o, lse
@@ -1072,10 +1243,10 @@ class RelativeAttentionFunction(torch.autograd.Function):
         delta = torch.einsum("bshd,bshd->bhs", do.float(), o.float()).contiguous()
         dq, dk, dv, drel = relative_attention_backward(
             q, k, v, do.to(q.dtype), lse, delta, rel_table, ctx.geometry, lengths,
-            ctx.device, ctx.dropout_rate, ctx.dropout_seed, ctx.kernel_table)
+            ctx.device, ctx.dropout_rate, ctx.dropout_seed, ctx.kernel_table, *ctx.offsets)
         if rel_table is None or not ctx.needs_input_grad[3]:
             drel = None
-        return dq, dk, dv, drel, None, None, None, None, None
+        return dq, dk, dv, drel, None, None, None, None, None, None
 
 
 def relative_attention(
@@ -1088,8 +1259,11 @@ def relative_attention(
     dropout_rate: float = 0.0,
     dropout_seed=None,
     device: str = "cuda",
+    q_start: int = 0,
+    k_start: int = 0,
+    batch_start: int = 0,
 ) -> torch.Tensor:
-    """Fused, differentiable relative attention -> o [B, S, H, D] (q.dtype).
+    """Fused, differentiable relative attention -> o [B, S_q, H, D] (q.dtype).
 
     Mirrors ``pallas_relative_attention``: ``dropout_rate`` applies the
     reference-order attention-probs dropout inside the kernels, from a
@@ -1098,12 +1272,14 @@ def relative_attention(
     ``dropout_rate > 0`` -- derive one per call.  ``geometry.window > 0``
     adds the sliding-window + prefix-global pattern (it needs the table).
     On ``"cuda"`` the forward and backward run the Hopper kernels; on
-    ``"cpu"`` their plain versions.
+    ``"cpu"`` their plain versions.  ``q_start``, ``k_start`` and
+    ``batch_start`` as in ``relative_attention_forward`` (JAX's ``qoff``).
     """
     _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
     if rel_table is None or geometry is None:
         rel_table = geometry = None
     o, _ = RelativeAttentionFunction.apply(q, k, v, rel_table, lengths, geometry,
-                                           float(dropout_rate), dropout_seed, device)
+                                           float(dropout_rate), dropout_seed, device,
+                                           (q_start, k_start, batch_start))
     return o

@@ -17,7 +17,10 @@ place of Orbax (tensors on the CPU):
   steps.  At most one save is in flight (a second waits for the first), a
   writer's exception is raised again by the next ``save`` or by
   ``wait_until_finished``, which a caller runs before it reads the
-  checkpoint back or exits.
+  checkpoint back or exits.  With several ranks the checkpoint holds the
+  global state: every rank calls ``save`` (a ZeRO-1 optimizer gathers its
+  moments in ``state_dict``), and rank 0 alone writes the files; every
+  rank can restore them.
 * ``BestCheckpointExporter``: keeps the parameters of the best step by an
   eval metric (``higher`` or ``lower``) as a one-step checkpoint directory
   ``<export_dir>/best_ckpt`` and writes ``<export_dir>/best_info.json``.
@@ -36,6 +39,8 @@ from typing import Dict, Mapping, Optional
 
 import torch
 from torch import nn
+
+from mmt_tpu_torch.parallel.mesh import rank_and_world
 
 _MODEL_FILE = "model.pt"
 _OPTIMIZER_FILE = "optimizer.pt"
@@ -82,9 +87,11 @@ class CheckpointManager:
         to host memory before this returns (the card is synchronised by the
         copy) and written by a background thread."""
         self.wait_until_finished()
+        opt_state = None if optimizer is None else optimizer.state_dict()  # a collective
+        if rank_and_world()[0] != 0:
+            return
         model_state = _to_cpu(model.state_dict(), copy=self.async_save)
-        opt_state = None if optimizer is None else _to_cpu(optimizer.state_dict(),
-                                                           copy=self.async_save)
+        opt_state = None if opt_state is None else _to_cpu(opt_state, copy=self.async_save)
         if not self.async_save:
             self._write(step, model_state, opt_state)
             return

@@ -38,6 +38,12 @@ Runs ``train_step`` from ``state.step`` to ``trainer.train_steps``:
   them), waits until they are durable, closes the summary writers and
   raises ``TrainingPreempted(step)``; the same command resumes there.
 
+With several ranks (a ``torch.distributed`` group, data parallelism) every
+rank runs the loop, its steps, its saves (a ZeRO-1 optimizer gathers its
+moments) and its validation together; rank 0 alone writes the summaries,
+the event files, the checkpoints and the best export, and each rank keeps
+its own input stream's snapshot (``data_stream/rank_<r>/``).
+
 On the CPU, with ``torch.use_deterministic_algorithms(True)`` (the
 embedding gathers' backward sums in a run-dependent order otherwise), a
 resumed run equals the uninterrupted one bit for bit.  On the card the
@@ -55,8 +61,11 @@ import pickle
 import time
 from typing import Callable, Dict, Iterator, Optional
 
+import torch.distributed as dist
+
 from mmt_tpu_torch.configs.experiments import TrainerConfig
 from mmt_tpu_torch.models import DropoutRngs
+from mmt_tpu_torch.parallel.mesh import rank_and_world
 from mmt_tpu_torch.train.checkpoint import BestCheckpointExporter, CheckpointManager
 from mmt_tpu_torch.train.metrics import finalize
 from mmt_tpu_torch.train.preemption import PreemptionWatcher, TrainingPreempted
@@ -71,15 +80,20 @@ class SummaryWriter:
     ``<log_dir>/summaries/<name>/events.out.tfevents.*``."""
 
     def __init__(self, log_dir: str, name: str, tensorboard: bool = False):
-        os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, f"{name}_summaries.jsonl")
+        self.enabled = rank_and_world()[0] == 0  # rank 0 alone writes
         self._tb = None
+        if not self.enabled:
+            return
+        os.makedirs(log_dir, exist_ok=True)
         if tensorboard:
             from mmt_tpu_torch.utils.tb_events import TBEventWriter
 
             self._tb = TBEventWriter(os.path.join(log_dir, "summaries", name))
 
     def write(self, step: int, metrics: Dict[str, float]) -> None:
+        if not self.enabled:
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps({"step": step, **metrics}) + "\n")
         if self._tb is not None:
@@ -92,7 +106,10 @@ class SummaryWriter:
 
 
 def _stream_state_path(model_dir: str, step: int) -> str:
-    return os.path.join(model_dir, "data_stream", f"step_{step}.pkl")
+    rank, world = rank_and_world()
+    directory = (os.path.join(model_dir, "data_stream") if world == 1
+                 else os.path.join(model_dir, "data_stream", f"rank_{rank}"))
+    return os.path.join(directory, f"step_{step}.pkl")
 
 
 def _save_stream_state(model_dir: str, step: int, train_iter) -> None:
@@ -155,12 +172,20 @@ def run_training(
       TrainingPreempted: a preemption signal arrived and the state was
         checkpointed; a rerun resumes from ``exc.step``.
     """
+    rank, world = rank_and_world()
     ckpt = CheckpointManager(model_dir, max_to_keep=trainer.max_to_keep,
                              async_save=trainer.async_checkpointing)
     writer = SummaryWriter(model_dir, "train", tensorboard=trainer.tensorboard_summaries)
     val_writer = None
     best = None
-    if trainer.best_checkpoint_export_subdir and trainer.best_checkpoint_eval_metric:
+
+    def durable():
+        """Every rank returns once rank 0's checkpoint is on disk."""
+        ckpt.wait_until_finished()
+        if world > 1:
+            dist.barrier()
+
+    if rank == 0 and trainer.best_checkpoint_export_subdir and trainer.best_checkpoint_eval_metric:
         best = BestCheckpointExporter(
             os.path.join(model_dir, trainer.best_checkpoint_export_subdir),
             trainer.best_checkpoint_eval_metric, trainer.best_checkpoint_metric_comp)
@@ -229,7 +254,7 @@ def run_training(
                 if not saved:
                     ckpt.save(step, state.model, state.optimizer)
                     _save_stream_state(model_dir, step, train_iter)
-                ckpt.wait_until_finished()
+                durable()
                 close_writers()
                 logger.warning("preempted at step %d: checkpoint durable, exiting "
                                "(a rerun resumes here)", step)
@@ -237,6 +262,6 @@ def run_training(
 
             if at_boundary:
                 t_loop = time.perf_counter()
-    ckpt.wait_until_finished()
+    durable()
     close_writers()
     return state

@@ -14,6 +14,12 @@ transforms; the same arithmetic is written out here in float32:
 The learning rate is computed on the host, in float32, so a step never
 waits for the card.  ``state_dict`` / ``load_state_dict`` carry the count
 and the moments, which a checkpoint saves beside the parameters.
+
+Under ZeRO-1 (``parallel/zero.py``'s ``shard_opt_state`` sets ``zero``)
+this rank keeps and updates only its slice of each moment whose leading
+dimension divides by the group's size, all-gathers the updated parameter
+slices, and ``state_dict`` / ``load_state_dict`` still carry the full
+(global) moments.
 """
 
 from __future__ import annotations
@@ -86,24 +92,39 @@ class AdamW:
         self.count = 0
         self.mu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()}
         self.nu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()}
+        self.zero = None  # a parallel.zero.Zero1 under ZeRO-1
+
+    @property
+    def slices(self) -> Dict[str, slice]:
+        """This rank's rows of each sharded moment (none when replicated)."""
+        return self.zero.slices if self.zero is not None else {}
 
     def state_dict(self) -> Dict:
-        """The update count and the float32 moments (the tensors
-        themselves, not copies), by parameter name."""
-        return {"count": self.count, "mu": dict(self.mu), "nu": dict(self.nu)}
+        """The update count and the float32 moments by parameter name: the
+        tensors themselves, or under ZeRO-1 the full moments gathered from
+        the group (a collective: every rank calls it)."""
+        mu, nu = dict(self.mu), dict(self.nu)
+        for name in self.slices:
+            for m in (mu, nu):
+                m[name] = self.zero.gather(m[name], m[name].new_empty(self.params[name].shape))
+        return {"count": self.count, "mu": mu, "nu": nu}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
-        """Copies a ``state_dict`` of an AdamW over the same parameters in."""
+        """Copies a ``state_dict`` of an AdamW over the same parameters in
+        (full moments; under ZeRO-1 this rank keeps its slices)."""
         for key in ("mu", "nu"):
             if set(state[key]) != set(self.params):
                 raise ValueError(f"optimizer state {key!r} names other parameters: "
                                  f"{sorted(set(state[key]) ^ set(self.params))[:5]}")
             for name, t in getattr(self, key).items():
-                if state[key][name].shape != t.shape:
+                value = state[key][name]
+                if value.shape != self.params[name].shape:
                     raise ValueError(f"optimizer state {key}[{name!r}] has shape "
-                                     f"{tuple(state[key][name].shape)}, expected {tuple(t.shape)}")
-                t.copy_(state[key][name])
+                                     f"{tuple(value.shape)}, expected "
+                                     f"{tuple(self.params[name].shape)}")
+                rows = self.slices.get(name)
+                t.copy_(value[rows] if rows is not None else value)
         self.count = int(state["count"])
 
     def zero_grad(self) -> None:
@@ -128,13 +149,18 @@ class AdamW:
         c1 = float(_F32(1) - _F32(self.b1) ** _F32(self.count))
         c2 = float(_F32(1) - _F32(self.b2) ** _F32(self.count))
         for name, p in self.params.items():
-            g = grads[name]
+            g, target = grads[name], p
+            rows = self.slices.get(name)
+            if rows is not None:  # ZeRO-1: this rank's slice, the same arithmetic
+                g, target = g[rows], p[rows]
             mu = self.mu[name].mul_(self.b1).add_((1 - self.b1) * g)
             nu = self.nu[name].mul_(self.b2).add_((1 - self.b2) * (g * g))
             update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
             if self.weight_decay and self.mask[name]:
-                update = update + self.weight_decay * p
-            p.add_((-lr) * update)
+                update = update + self.weight_decay * target
+            target.add_((-lr) * update)
+            if rows is not None:
+                self.zero.gather(target.clone(), p)
 
 
 def create_optimizer(config: OptimizationConfig, train_steps: int, model: nn.Module) -> AdamW:

@@ -11,11 +11,12 @@ The handler only sets the flag: a signal that lands inside a kernel or a
 cuBLAS call is handled at the next Python bytecode, and the card is
 synchronised by the loop's own save, never in the handler.
 
-The port trains in one process, so ``should_save`` returns the local flag
-at every step, as the JAX package does when ``process_count() == 1``.  The
-multi-process rule (the OR of every process's flag, taken only at a
-``steps_per_loop`` boundary where every process calls it together) waits
-for the parallel runtimes.
+In one process ``should_save`` returns the local flag at every step, as
+the JAX package does when ``process_count() == 1``.  With a process group
+of several ranks it is the OR of every rank's flag, taken by an
+all-reduce at a ``steps_per_loop`` boundary only, where every rank calls
+it together (``mmt_tpu/train/preemption.py:90-108``): one signalled rank
+checkpoints the whole group at the same step.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ import logging
 import signal
 import threading
 from typing import Iterable
+
+import torch
+import torch.distributed as dist
 
 logger = logging.getLogger("mmt_tpu_torch")
 
@@ -83,7 +87,16 @@ class PreemptionWatcher:
         return self._flag
 
     def should_save(self, at_boundary: bool) -> bool:
-        """True when the final checkpoint should be saved now: in one
-        process, whenever the flag is set (``at_boundary`` matters only
-        to the multi-process rule)."""
-        return self._flag
+        """True when the group agreed to save the final checkpoint now.
+
+        ``at_boundary`` must be computed identically on every rank (e.g.
+        ``step % steps_per_loop == 0``): with several ranks this runs a
+        collective, which every rank must reach together."""
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return self._flag
+        if not at_boundary:
+            return False
+        device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        flag = torch.tensor([int(self._flag)], dtype=torch.int32, device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())

@@ -17,6 +17,26 @@ Torch counterparts of ``mmt_tpu/train/tasks.py``.  ``PretrainingTask``:
   summed;
 * ``make_eval_step``: the loss and metrics in ``eval()`` mode, no grad.
 
+Data parallelism (``mesh``, a ``parallel.mesh.Mesh``): each rank steps on
+its own slice of the global batch (process-major), and the step computes
+the one-process step on the global batch, as JAX's step under a mesh
+does.  JAX cuts the global batch into k micro-batches of consecutive global
+rows, and each micro-batch's MLM, MPP and ITM losses are weighted means
+over that whole micro-batch.  So a rank cuts its rows where the global
+micro-batches cut them (``micro_segments``), the micro-batches' weight sums
+are all-reduced first, each row's loss is divided by its global
+micro-batch's sum (``compute_loss(weight_sums=...)``), the gradients are
+all-reduced over the data group once after the micro-batches (with
+``num_model > 1`` the model group's replicas then take its first rank's
+sums, so they stay equal), and so are the metric pairs.  Micro-batch m
+draws its dropout streams from ``rngs.split(k)[m]`` on every rank; its
+attention dropout hashes each row's index within micro-batch m
+(``DropoutRngs.batch_start``), and its hidden, embedding and head masks
+are drawn over all of micro-batch m's rows (``DropoutRngs.batch_rows``)
+and sliced to the rank's, so every mask a rank applies is the one-process
+step's (each rank draws the whole micro-batch's masks, as one process
+would).
+
 ``ClassificationTask`` builds the classification model of a
 ``ClassificationTaskConfig``:
 
@@ -34,9 +54,11 @@ Torch counterparts of ``mmt_tpu/train/tasks.py``.  ``PretrainingTask``:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from mmt_tpu_torch.configs.experiments import (
     ClassificationTaskConfig,
@@ -61,6 +83,9 @@ MODEL_INPUT_KEYS = (
 
 
 _ACCUM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# Metrics whose count is one per (micro-)batch: a data-parallel step counts
+# each once, on the rank that holds the batch's first row.
+LOSS_METRICS = ("mlm_loss", "mpp_loss", "itm_loss", "cls_loss")
 
 
 def _accumulate(params, acc, dtype):
@@ -80,6 +105,74 @@ def batch_to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def micro_segments(local: int, data_rank: int, num_data: int, k: int):
+    """Where a rank's rows meet the k global micro-batches: (m, lo, hi,
+    offset) for each micro-batch m holding local rows [lo, hi), ``offset``
+    being row lo's index within micro-batch m.  The global batch is
+    process-major (data rank d holds rows [d local, (d + 1) local))."""
+    size, start = local * num_data // k, data_rank * local
+    for m in range(k):
+        lo, hi = max(start, m * size), min(start + local, (m + 1) * size)
+        if lo < hi:
+            yield m, lo - start, hi - start, lo - m * size
+
+
+class DataParallel:
+    """A step's collectives over a ``Mesh`` (none without one): sums over
+    the data group, and the model group's replicas kept equal."""
+
+    def __init__(self, mesh=None):
+        distributed = mesh is not None and mesh.distributed
+        self.data_group = mesh.data_group if distributed else None
+        self.model_group = mesh.model_group if distributed and mesh.num_model > 1 else None
+        self.num_data = mesh.num_data if mesh is not None else 1
+        self.data_rank = mesh.data_rank if mesh is not None else 0
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        if self.data_group is not None:
+            dist.all_reduce(t, group=self.data_group)
+            if self.model_group is not None:
+                dist.broadcast(t, dist.get_global_rank(self.model_group, 0),
+                               group=self.model_group)
+        return t
+
+    def gradients(self, params) -> None:
+        """All-reduces the parameters' ``.grad`` in one flat buffer."""
+        if self.data_group is None:
+            return
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        flat = self.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+        offset = 0
+        for p, g in zip(params, grads):
+            p.grad = flat[offset:offset + g.numel()].view_as(g)
+            offset += g.numel()
+
+    def metrics(self, sums: Dict, device) -> Dict:
+        """The metric pairs summed over the data group."""
+        if self.data_group is None or not sums:
+            return sums
+        names = sorted(sums)
+        flat = self.all_reduce(torch.stack(
+            [torch.stack([torch.as_tensor(sums[n][0], device=device).float(),
+                          torch.as_tensor(sums[n][1], device=device).float()])
+             for n in names]))
+        return {n: (flat[i, 0], flat[i, 1]) for i, n in enumerate(names)}
+
+
+def _add_pairs(sums: Dict, metrics: Mapping, head: bool = True) -> None:
+    """Adds metric pairs into ``sums``; with ``head`` False the loss
+    metrics' counts are left out (another rank counts that batch)."""
+    for name, (total, count) in metrics.items():
+        count = count.detach() if head or name not in LOSS_METRICS else count.detach() * 0
+        prev = sums.get(name)
+        pair = (total.detach(), count)
+        sums[name] = pair if prev is None else (prev[0] + pair[0], prev[1] + pair[1])
+
+
+def _rows(batch: Mapping, lo: int, hi: int) -> Dict:
+    return {key: v[lo:hi] for key, v in batch.items()}
+
+
 class PretrainingTask:
     """MLM + MPP (+ ITM) pretraining on ``device`` (default the card)."""
 
@@ -97,9 +190,33 @@ class PretrainingTask:
             device=self.device, seed=seed,
         )
 
+    def _has_itm(self, batch) -> bool:
+        return "itm_label_weights" in batch and any(
+            h.name == "itm" for h in self.config.model.cls_heads)
+
+    def _loss_weights(self, batch):
+        mlm_w = batch["mlm_label_weights"]
+        mpp_w = batch["mpp_label_weights"]
+        if self._has_itm(batch):  # mask MLM/MPP on ITM-negative examples
+            itm_ids = batch["itm_label_ids"].float()[:, None]
+            mlm_w = mlm_w * itm_ids
+            mpp_w = mpp_w * itm_ids
+        return mlm_w, mpp_w
+
+    def loss_weight_sums(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """<float32>[3]: the MLM, MPP and ITM losses' weight sums over
+        ``batch`` (their denominators)."""
+        mlm_w, mpp_w = self._loss_weights(batch)
+        itm = (torch.sum(batch["itm_label_weights"].float()) if self._has_itm(batch)
+               else torch.zeros((), device=mlm_w.device))
+        return torch.stack([torch.sum(mlm_w.float()), torch.sum(mpp_w.float()), itm])
+
     def compute_loss(self, batch: Mapping[str, torch.Tensor],
                      rngs: Optional[DropoutRngs] = None, deterministic: bool = False,
+                     weight_sums: Optional[torch.Tensor] = None,
                      ) -> Tuple[torch.Tensor, Tuple[Dict, Dict]]:
+        """``weight_sums``: the losses' denominators (``loss_weight_sums`` of
+        a larger batch, all-reduced), default this batch's own."""
         self.model.train(not deterministic)
         outputs = self.model(
             **{k: batch[k] for k in MODEL_INPUT_KEYS if k in batch},
@@ -107,24 +224,19 @@ class PretrainingTask:
             mpp_positions=batch.get("mpp_positions"),
             rngs=rngs,
         )
-        has_itm = "itm_label_weights" in batch and any(
-            h.name == "itm" for h in self.config.model.cls_heads)
-        mlm_w = batch["mlm_label_weights"]
-        mpp_w = batch["mpp_label_weights"]
-        if has_itm:  # mask MLM/MPP on ITM-negative examples
-            itm_ids = batch["itm_label_ids"].float()[:, None]
-            mlm_w = mlm_w * itm_ids
-            mpp_w = mpp_w * itm_ids
+        has_itm = self._has_itm(batch)
+        mlm_w, mpp_w = self._loss_weights(batch)
+        den = [None] * 3 if weight_sums is None else list(weight_sums)
 
         ce = losses_lib.weighted_sparse_categorical_crossentropy_loss
-        mlm_loss = ce(outputs["mlm_logits"], batch["mlm_label_ids"], mlm_w)
-        mpp_loss = ce(outputs["mpp_logits"], batch["mpp_label_ids"], mpp_w)
+        mlm_loss = ce(outputs["mlm_logits"], batch["mlm_label_ids"], mlm_w, denominator=den[0])
+        mpp_loss = ce(outputs["mpp_logits"], batch["mpp_label_ids"], mpp_w, denominator=den[1])
         total = mlm_loss + mpp_loss
         one = torch.ones((), device=total.device)
         metrics = {"mlm_loss": (mlm_loss, one), "mpp_loss": (mpp_loss, one)}
         if has_itm:
             itm_loss = ce(outputs["itm_logits"], batch["itm_label_ids"],
-                          batch["itm_label_weights"])
+                          batch["itm_label_weights"], denominator=den[2])
             total = total + itm_loss
             metrics["itm_loss"] = (itm_loss, one)
         metrics["mlm_accuracy"] = weighted_accuracy(
@@ -136,9 +248,11 @@ class PretrainingTask:
                 batch["itm_label_ids"], outputs["itm_logits"], batch["itm_label_weights"])
         return total, (outputs, metrics)
 
-    def make_train_step(self, micro_batch_size: int = 0, grad_accum_dtype: str = "float32"):
+    def make_train_step(self, micro_batch_size: int = 0, grad_accum_dtype: str = "float32",
+                        mesh=None):
         """Returns (state, batch, rngs) -> (state, metric pairs); ``batch``
-        holds tensors on the task's device."""
+        holds tensors on the task's device: the global batch, or with
+        ``mesh`` this rank's slice of it (module docstring)."""
         if grad_accum_dtype not in _ACCUM_DTYPES:
             raise NotImplementedError(
                 f"grad_accum_dtype={grad_accum_dtype!r}: the port accumulates in "
@@ -146,45 +260,65 @@ class PretrainingTask:
         # As in JAX, the accumulator's dtype applies only with micro-batches.
         acc_dtype = _ACCUM_DTYPES[grad_accum_dtype] if micro_batch_size else torch.float32
         params = [p for p in self.model.parameters() if p.requires_grad]
+        dp = DataParallel(mesh)
 
         def step(state: TrainState, batch, rngs: Optional[DropoutRngs] = None):
-            bsz = batch["word_ids"].shape[0]
+            local = batch["word_ids"].shape[0]
+            bsz = local * dp.num_data
             k = max(1, bsz // micro_batch_size) if micro_batch_size else 1
             if bsz % k:
                 raise ValueError(f"batch {bsz} does not split into {k} micro-batches")
-            m = bsz // k
+            segments = list(micro_segments(local, dp.data_rank, dp.num_data, k))
+            weight_sums = torch.zeros(k, 3, device=self.device)
+            for m, lo, hi, _ in segments:
+                weight_sums[m] = self.loss_weight_sums(_rows(batch, lo, hi))
+            dp.all_reduce(weight_sums)
+            streams = rngs.split(k) if rngs is not None else [None] * k
             sums: Dict = {}
             loss_sum = torch.zeros((), device=self.device)
             acc = None
-            for i in range(k):
-                micro = {key: v[i * m:(i + 1) * m] for key, v in batch.items()}
-                loss, (_, metrics) = self.compute_loss(micro, rngs, deterministic=False)
+            for m, lo, hi, offset in segments:
+                r = streams[m]
+                if r is not None:
+                    r = dataclasses.replace(r, batch_start=offset, batch_rows=bsz // k)
+                loss, (_, metrics) = self.compute_loss(_rows(batch, lo, hi), r,
+                                                       deterministic=False,
+                                                       weight_sums=weight_sums[m])
                 (loss / k).backward()
                 if acc_dtype != torch.float32:
                     acc = _accumulate(params, acc, acc_dtype)
                 loss_sum = loss_sum + loss.detach() / k
-                for name, (total, count) in metrics.items():
-                    prev = sums.get(name)
-                    pair = (total.detach(), count.detach())
-                    sums[name] = pair if prev is None else (prev[0] + pair[0], prev[1] + pair[1])
+                _add_pairs(sums, metrics, head=offset == 0)
             if acc is not None:
                 for p, a in zip(params, acc):
                     p.grad = a.to(p.dtype)
+            dp.gradients(params)
             state = state.apply_gradients()
-            sums["total_loss"] = (loss_sum, torch.ones((), device=self.device))
+            sums["total_loss"] = (loss_sum, torch.zeros((), device=self.device))
+            sums = dp.metrics(sums, self.device)
+            sums["total_loss"] = (sums["total_loss"][0], torch.ones((), device=self.device))
             return state, sums
 
         return step
 
-    def make_eval_step(self):
-        """Returns (model, batch) -> metric pairs, in eval mode, no grad."""
+    def make_eval_step(self, mesh=None):
+        """Returns batch -> metric pairs, in eval mode, no grad; with
+        ``mesh`` over the global batch whose slice this rank holds."""
+        dp = DataParallel(mesh)
 
         def step(batch):
             with torch.no_grad():
-                loss, (_, metrics) = self.compute_loss(batch, None, deterministic=True)
-            metrics = dict(metrics)
-            metrics["total_loss"] = (loss, torch.ones((), device=loss.device))
-            return metrics
+                weight_sums = None
+                if dp.data_group is not None:
+                    weight_sums = dp.all_reduce(self.loss_weight_sums(batch))
+                loss, (_, metrics) = self.compute_loss(batch, None, deterministic=True,
+                                                       weight_sums=weight_sums)
+            sums: Dict = {}
+            _add_pairs(sums, metrics, head=dp.data_rank == 0)
+            sums["total_loss"] = (loss.detach(), torch.zeros((), device=loss.device))
+            sums = dp.metrics(sums, loss.device)
+            sums["total_loss"] = (sums["total_loss"][0], torch.ones((), device=loss.device))
+            return sums
 
         return step
 
@@ -213,7 +347,10 @@ class ClassificationTask:
 
     def compute_loss(self, batch: Mapping[str, torch.Tensor],
                      rngs: Optional[DropoutRngs] = None, deterministic: bool = False,
+                     weight_sum: Optional[torch.Tensor] = None,
                      ) -> Tuple[torch.Tensor, Tuple[Dict, Dict]]:
+        """``weight_sum``: the loss's denominator (the label weights' sum
+        over a larger batch), default this batch's own."""
         self.model.train(not deterministic)
         outputs = self.model(**{k: batch[k] for k in MODEL_INPUT_KEYS if k in batch},
                              rngs=rngs)
@@ -223,11 +360,11 @@ class ClassificationTask:
         pos_weights = batch.get("pos_weights")
         if self.num_classes == 1:
             loss = losses_lib.weighted_binary_crossentropy_loss(
-                logits, labels, weights, pos_weights)
+                logits, labels, weights, pos_weights, denominator=weight_sum)
             correct = ((logits.reshape(-1) > 0).to(labels.dtype) == labels).float()
         else:
             loss = losses_lib.weighted_sparse_categorical_crossentropy_loss(
-                logits, labels, weights, pos_weights)
+                logits, labels, weights, pos_weights, denominator=weight_sum)
             correct = (torch.argmax(logits, -1) == labels).float()
         weights = weights.float()
         metrics = {
@@ -236,31 +373,54 @@ class ClassificationTask:
         }
         return loss, (outputs, metrics)
 
-    def make_train_step(self):
+    def _weight_sum(self, batch, dp: DataParallel):
+        if dp.data_group is None:
+            return None
+        return dp.all_reduce(torch.sum(batch["label_weights"].float()))
+
+    def make_train_step(self, mesh=None):
         """Returns (state, batch, rngs) -> (state, metric pairs): the whole
-        batch in one forward and backward, then one optimizer update."""
+        batch in one forward and backward, then one optimizer update; with
+        ``mesh`` the batch is this rank's slice of the global batch, whose
+        loss is the global weighted mean."""
+        dp = DataParallel(mesh)
+        params = [p for p in self.model.parameters() if p.requires_grad]
 
         def step(state: TrainState, batch, rngs: Optional[DropoutRngs] = None):
-            loss, (_, metrics) = self.compute_loss(batch, rngs, deterministic=False)
+            local = batch["label_ids"].shape[0]
+            if rngs is not None:
+                rngs = dataclasses.replace(rngs, batch_start=dp.data_rank * local,
+                                           batch_rows=dp.num_data * local)
+            loss, (_, metrics) = self.compute_loss(batch, rngs, deterministic=False,
+                                                   weight_sum=self._weight_sum(batch, dp))
             loss.backward()
+            dp.gradients(params)
             state = state.apply_gradients()
-            metrics = {name: (total.detach(), count.detach())
-                       for name, (total, count) in metrics.items()}
-            metrics["total_loss"] = (loss.detach(), torch.ones((), device=self.device))
-            return state, metrics
+            sums: Dict = {}
+            _add_pairs(sums, metrics, head=dp.data_rank == 0)
+            sums["total_loss"] = (loss.detach(), torch.zeros((), device=self.device))
+            sums = dp.metrics(sums, self.device)
+            sums["total_loss"] = (sums["total_loss"][0], torch.ones((), device=self.device))
+            return state, sums
 
         return step
 
-    def make_eval_step(self):
+    def make_eval_step(self, mesh=None):
         """Returns batch -> (metric pairs, probabilities), in eval mode, no
-        grad; the probabilities are the inference step's scores."""
+        grad; the probabilities are the inference step's scores (this
+        rank's rows with ``mesh``; the pairs are the global batch's)."""
+        dp = DataParallel(mesh)
 
         def step(batch):
             with torch.no_grad():
-                loss, (outputs, metrics) = self.compute_loss(batch, None, deterministic=True)
-            metrics = dict(metrics)
-            metrics["total_loss"] = (loss, torch.ones((), device=loss.device))
-            return metrics, scores_from_logits(outputs[self.logits_key], self.num_classes)
+                loss, (outputs, metrics) = self.compute_loss(
+                    batch, None, deterministic=True, weight_sum=self._weight_sum(batch, dp))
+            sums: Dict = {}
+            _add_pairs(sums, metrics, head=dp.data_rank == 0)
+            sums["total_loss"] = (loss, torch.zeros((), device=loss.device))
+            sums = dp.metrics(sums, loss.device)
+            sums["total_loss"] = (sums["total_loss"][0], torch.ones((), device=loss.device))
+            return sums, scores_from_logits(outputs[self.logits_key], self.num_classes)
 
         return step
 

@@ -395,3 +395,61 @@ def test_exported_op_launches_the_kernel(cuda):
     want, _ = fa.relative_attention_forward(q, k, v, table, FLAGSHIP, lens)
     for b, n in enumerate([200, 131, 64]):
         assert torch.equal(got[b, :n], want[b, :n])
+
+
+OFFSET_FORMS = [  # (q_start, S_q, k_start, S_k): all-gather shard, ring pairs
+    (256, 128, 0, 512), (256, 128, 128, 128), (0, 128, 384, 128), (384, 128, 384, 128)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("window", [0, 96])
+@pytest.mark.parametrize("form", OFFSET_FORMS, ids=["all_gather", "below", "above", "diagonal"])
+def test_offset_kernels_match_plain(cuda, form, window, rate):
+    """The offset mode: a shard's rows against a chunk's keys at global
+    positions, forward and backward (against the unsharded call's lse),
+    with batch_start 3, on real rows that have a live key in the chunk."""
+    import dataclasses
+
+    q_start, seq_q, k_start, seq_k = form
+    geo = dataclasses.replace(FLAGSHIP, window=window, num_global=198 if window else 0)
+    lengths = [512, 301, 70]
+    q, k, v, table, lens = _inputs(cuda, 3, 512, 4, 64, 49, lengths, seed=9)
+    seed = 77 if rate else None
+    o_u, lse_u = fa.relative_attention_forward(q, k, v, table, geo, lens, "cuda", rate, seed,
+                                               batch_start=3)
+    qs, ks = slice(q_start, q_start + seq_q), slice(k_start, k_start + seq_k)
+    qc, kc, vc = (t[:, s].contiguous() for t, s in ((q, qs), (k, ks), (v, ks)))
+    args = (qc, kc, vc, table, geo, lens)
+    offsets = dict(q_start=q_start, k_start=k_start, batch_start=3)
+    o, lse = fa.relative_attention_forward(*args, "cuda", rate, seed, **offsets)
+    o_ref, lse_ref = fa.relative_attention_plain(*args, rate, seed, **offsets)
+    qp = torch.arange(q_start, q_start + seq_q, device=cuda)
+    kp = torch.arange(k_start, k_start + seq_k, device=cuda)
+    empty = fa.empty_rows(geo, lens, qp, kp)
+    live = (qp[None] < lens[:, None]) & ~empty
+    assert torch.all(o[empty] == 0) and torch.all(lse.transpose(1, 2)[empty] == -float("inf"))
+    if live.any():
+        assert (o.float() - o_ref.float())[live].abs().max().item() <= O_BOUND
+        assert (lse - lse_ref).transpose(1, 2)[live].abs().max().item() <= LSE_BOUND
+    do = torch.randn_like(qc)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), o_u[:, qs].float()).contiguous()
+    bwd = (qc, kc, vc, do, lse_u[:, :, qs].contiguous(), delta, table, geo, lens)
+    got = fa.relative_attention_backward(*bwd, "cuda", rate, seed, **offsets)
+    want = fa.relative_attention_backward_plain(*bwd, rate, seed, **offsets)
+    for name, g, w in zip(("dq", "dk", "dv", "drel"), got, want):
+        bound = DREL_REL_BOUND if name == "drel" else GRAD_REL_BOUND
+        scale = w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= bound * max(scale, 1e-30), name
+
+
+def test_ring_shards_assemble_the_unsharded_kernel(cuda):
+    from mmt_tpu_torch.ops import sharded_attention as sa
+
+    lengths = [512, 301, 70]
+    q, k, v, table, lens = _inputs(cuda, 3, 512, 4, 64, 49, lengths, seed=10)
+    o_u, lse_u = fa.relative_attention_forward(q, k, v, table, FLAGSHIP, lens)
+    for fn in (sa.all_gather_shards, sa.ring_shards):
+        o, lse = fn(q, k, v, table, FLAGSHIP, lens, 4)
+        for b, n in enumerate(lengths):
+            assert (o[b, :n].float() - o_u[b, :n].float()).abs().max().item() <= O_BOUND
+            assert (lse[b, :, :n] - lse_u[b, :, :n]).abs().max().item() <= LSE_BOUND

@@ -462,8 +462,10 @@ def test_cli_refuses_what_is_not_ported(records, tmp_path):
         main(base + ["--params_override=trainer.grad_accum_dtype=float16"])
     with pytest.raises(NotImplementedError, match="pipeline"):
         main(base + ["--params_override=runtime.num_pipeline_stages=2"])
-    with pytest.raises(NotImplementedError, match="ZeRO"):
-        main(base + ["--params_override=runtime.zero_sharded_optimizer=true"])
+    # Model-parallel ranks run across processes now: one process cannot
+    # hold a 1 x 2 mesh.
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        main(base + ["--params_override=runtime.num_model_parallel=2"])
     # A TF checkpoint directory whose ``checkpoint`` file names a prefix
     # without its .index (TF and ViT warm starts are ported).
     tf_ckpt = tmp_path / "tf"

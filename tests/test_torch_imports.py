@@ -45,7 +45,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "train.preemption", "train.continuous", "utils.tb_events", "utils.bindings",
                  "utils.profiling", "ops.quant", "eval.export", "preprocessing.records",
                  "preprocessing.flickr30k", "preprocessing.wit", "preprocessing.fashion_gen",
-                 "train.tf_bundle", "train.tf_checkpoint", "train.vit_checkpoint"):
+                 "train.tf_bundle", "train.tf_checkpoint", "train.vit_checkpoint",
+                 "ops.sharded_attention", "parallel.mesh", "parallel.zero",
+                 "parallel.sequence_sharding", "parallel.launch", "parallel.dryrun"):
         assert f"mmt_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
