@@ -117,8 +117,32 @@ Phases, each printed as one JSON line:
    for bit, and the parameters and moments equal the replicated AdamW's on
    those gradients.  ms per shard call against the unsharded call, the
    phase's seconds.  One card: no collective crosses cards.
+18. model_parallel: tensor parallelism and the pipeline on the one card,
+   reusing phase 17's one-rank nccl group (and ending it).  (a) The kernels
+   on 4 head shards (3 heads each, ``head_start`` = 3 r, folded into the
+   dropout seed): at the S=256 micro-batch (B=64, rate 0.1) every shard
+   call, forward and backward, against the plain version with the same heads
+   and ``head_start`` at the kernels' gates (the ``kernels`` line's error);
+   the flagship forward (rate 0) and the micro-batch forward and backward,
+   assembled, against the unsharded calls at the same gates (o, lse, dk, dv
+   expected bit-equal), ms per shard call against the unsharded call.  (b) One full-width layer
+   (the WIT model cut to 1 layer, train mode, dropout 0.1, B=64, S=256)
+   sharded over 4 ranks in this process (``shard_params_in_process``; the
+   30522-row vocabulary stays replicated): its output within
+   TP_LAYER_OUT_BOUND of the unsharded layer's norm, every gradient within
+   TRAIN_GRAD_BOUND, 4 launches of each kernel, 3 of them counted as
+   head-shard launches (a nonzero ``head_start``).  (c) The
+   pipelined WIT step (``make_pipelined_train_step`` with
+   ``InProcessTransport(4)``: 4 stages of 3 layers, global batch 512 as 8
+   micro-batches of 64, remat): at dropout 0 the loss within PP_LOSS_BOUND
+   and every gradient within TRAIN_GRAD_BOUND of the unpipelined model on
+   the same batch and loss (the global weighted mean), 192 forward and 96
+   backward launches; at dropout 0.1 the same loss twice for the same rngs
+   and another for other rngs; seconds per step beside the unpipelined
+   (accumulation) step's.  No point-to-point transfer or collective crosses
+   cards.
 
-18. probe_split: the far / structured split schedule as two probe passes
+19. probe_split: the far / structured split schedule as two probe passes
    (``probes.split_probe``): each pass and their logsumexp combine against
    the plain versions and the one-pass kernel at the check lengths (the o /
    lse bounds of phase 3), then the probe's entry point at the retrieval
@@ -126,16 +150,16 @@ Phases, each printed as one JSON line:
    forward kernel, ``csrc/rel_attention_fwd.cu``), the share of far
    tiles; each pass also against its bound and against
    ``scaled_dot_product_attention`` handed the bias and the class mask.
-19. probe_op_cost: every variant of the op-cost probe
+20. probe_op_cost: every variant of the op-cost probe
    (``probes.op_cost_probe``) against its plain version at the retrieval
    shape (and, inside the probe's entry point, at B=1, H=2, S=512), then
    the entry point's timings at the retrieval shape: ms per variant and
    the delta against the baseline.
-20. probe_hopper: every primitive probe of ``probes.hopper_probe`` (wgmma,
+21. probe_hopper: every primitive probe of ``probes.hopper_probe`` (wgmma,
    TMA load / store, cp.async ring, ldmatrix.trans + stmatrix, cluster
    shared memory, 227 KB shared memory, setmaxnreg, red.v4.f32) against its
    plain version; any status other than OK fails the run.
-21. predict_cli: synthetic Flickr30k-style records (16 images x 40 captions
+22. predict_cli: synthetic Flickr30k-style records (16 images x 40 captions
    = 640 pairs, PNG images, a generated vocab, an ``input_meta_data`` JSON
    with ``max_seq_length`` 256), a seeded random checkpoint of the
    full-width model of configs/exp_yamls/finetune/flickr30k/
@@ -149,7 +173,7 @@ Phases, each printed as one JSON line:
    plain version at this path's shape (B=128, S=256, the first batch's
    lengths, no dropout; the o / lse bounds of phase 3); pairs/s of the whole call, of the host part (records ->
    batches) and of the device part (batches -> scores).
-22. int8: the flagship model of phase main in dynamic int8
+23. int8: the flagship model of phase main in dynamic int8
    (``quantize="int8_dynamic"``: the 72 projection and FFN layers as
    ``ops.quant.Int8Linear``, the float state dict loaded unchanged) against
    the same weights in bf16, at the retrieval shape (S=4096, batch 32, the
@@ -160,7 +184,7 @@ Phases, each printed as one JSON line:
    forward, and one full-shape ``Int8Linear`` call's int32 accumulator
    (``torch._int_mm``) bit-equal to the exact float64 product, with both
    products' times beside the bf16 matmul's.
-23. export: the predict CLI's serving export at full width (the records,
+24. export: the predict CLI's serving export at full width (the records,
    config and seeded checkpoint of phase predict_cli): ``cli.predict.main``
    with ``--export_serving_artifact`` (a static batch of 128: the config's
    attention is the fused op) and again with ``--export_bucket_sizes="1,
@@ -173,7 +197,7 @@ Phases, each printed as one JSON line:
    same examples the scores must lie within 4 bf16 spacings (equality is
    expected), the artifact within 1% of the parameters' bytes, and the
    process must launch the forward kernel 12 times per fused call.
-24. finetune: Flickr30k ITM finetuning at full width through
+25. finetune: Flickr30k ITM finetuning at full width through
    ``mmt_tpu_torch.cli.train.main`` in train_and_eval: seeded paired records
    (512 for training, 4 steps' worth at 128 records a step, and 128 for
    validation; 224 x 224 PNG images, 5 captions of 8-24 words each), a
@@ -204,17 +228,17 @@ Phases, each printed as one JSON line:
    command run again must resume at k, finish, and end within the resume
    bound above; k, the seconds from the signal to the exit and the exit
    codes are reported.
-25. finetune_profile: one B=512 training step under the profiler (device
+26. finetune_profile: one B=512 training step under the profiler (device
    time by kernel group, idle share, the forward and backward kernels per
    call), and the two kernels at B=512, S=256 with the records' lengths and
    dropout 0.1: against their plain versions (the bounds of phases 3 and 8),
    alone, against SDPA handed the bias mask, and against the bound.
-26. finetune_reference: the classification model's per-tensor gradients on
+27. finetune_reference: the classification model's per-tensor gradients on
    2 examples of the records (positives weighted 2, attention dropout 0.1
    from the same seeds) with the kernels, with dense attention and with
    dense attention in float32: the kernels' relative error against float32
    may exceed dense attention's by at most TRAIN_GRAD_BOUND.
-27. continuous: ``cli.train.main --mode=continuous_train_and_eval`` on the
+28. continuous: ``cli.train.main --mode=continuous_train_and_eval`` on the
    finetune yaml at CONT_STEPS steps a round, watching a pretraining
    directory that holds the seeded WIT checkpoint at step 0; once the first
    ``continuous_results.jsonl`` line is written, a helper thread saves a
@@ -224,12 +248,12 @@ Phases, each printed as one JSON line:
    ``cls_accuracy``, ``cls_loss`` and ``auc``, the finetune phase's
    ``count_restored`` in each round, and 12 forward launches per step and
    per eval batch and 12 backward launches per step.
-28. checkpoint: ``CheckpointManager.save`` of the WIT pretraining model and
+29. checkpoint: ``CheckpointManager.save`` of the WIT pretraining model and
    its AdamW state, synchronous and asynchronous in turns (sync, async,
    async, sync): the bytes, the ms the caller is blocked and the ms until
    the checkpoint is durable; the restored tensors bit-equal to the saved
    ones.
-29. grad_accum: one WIT pretraining step of 8 micro-batches of 64 (S=256,
+30. grad_accum: one WIT pretraining step of 8 micro-batches of 64 (S=256,
    dropout 0.1, the same parameters, batch and seeds) with float32,
    bfloat16, and again bfloat16 with every micro-batch's float32 gradient
    recorded as the backward leaves it: that step's summed gradient equal,
@@ -239,7 +263,7 @@ Phases, each printed as one JSON line:
    relative (the same forward); the worst tensor and the card's peak
    memory of each run, 12 launches of each kernel per micro-batch.
 
-30. pretrain_records: WIT pretraining from records through
+31. pretrain_records: WIT pretraining from records through
    ``mmt_tpu_torch.cli.train.main --experiment=mmt/pretraining`` in
    train_and_eval: seeded WIT-style records (8 files of 512 for training,
    512 for validation; smooth PNG images at 256 x 192, 192 x 256 and
@@ -260,14 +284,14 @@ Phases, each printed as one JSON line:
    per validation batch and 12 backward launches per micro-batch.  Then a
    profile of the loader's per-record work (``loader_profile``) and
    validation alone (records -> metrics).
-31. pretrain_records_profile: one optimizer step of a 4096-row batch of
+32. pretrain_records_profile: one optimizer step of a 4096-row batch of
    the records (``profile_batch``) on the card under the profiler (device
    time by kernel group, idle share, the kernels per call) and the host's
    share of the runs' steady steps; the forward and backward kernels at a
    micro-batch's lengths (B=64, rate 0.1) and the forward at a validation
    batch's (B=256, rate 0) against their plain versions (the bounds of
    phases 3 and 8), SDPA and the bound.
-32. pretrain_records_reference: a micro-batch of 64 rows of the records,
+33. pretrain_records_reference: a micro-batch of 64 rows of the records,
    kernels against dense attention: the loss within LOSS_REL_BOUND, the
    gradients by train_reference's rule, or, for a tensor outside it,
    finetune_reference's float32 rule; then one MLM + MPP + ITM batch at MPP
@@ -276,7 +300,7 @@ Phases, each printed as one JSON line:
    the two modes against each other and against dense attention (ITM
    within 4 bf16 spacings, MLM and MPP within SEQUENCE_REL_BOUND of their
    norm).
-33. warm_start: TF object checkpoints through ``cli.train.main`` at full
+34. warm_start: TF object checkpoints through ``cli.train.main`` at full
    width, written by this script's bundle writer (``write_tf_bundle``; the
    card's machine has no TF) and read by ``train/tf_bundle.py``.  A seeded
    ViT-B/16 (``seeded_vit``: conv patch kernel [16, 16, 3, 768], position
@@ -469,7 +493,7 @@ def materialised_bias(q, table, geo, lengths):
     masks = []
     for b in range(q.shape[0]):  # per example, to bound the fp32 temporaries
         qr = torch.einsum("qhd,vhd->hqv", q[b].float(), table.to(q.dtype).float())
-        bias = torch.gather(qr, -1, torch.where(valid, ids, 0).expand(HEADS, -1, -1))
+        bias = torch.gather(qr, -1, torch.where(valid, ids, 0).expand(q.shape[2], -1, -1))
         bias = torch.where(valid, bias, 0.0) * scale
         real = torch.arange(seq, device=q.device) < lengths[b]
         bias = bias + (real[:, None] != real[None, :]).float() * NEG_INF + window
@@ -1036,12 +1060,20 @@ def launch_counts():
             "bwd_window": bwd.launches_window, "bwd_offset": bwd.launches_offset}
 
 
+def head_shard_counts():
+    """The launches of head-shard calls (counted again beside ``launch_counts``)."""
+    from mmt_tpu_torch.ops import fused_attention as fa
+
+    return {"fwd_head_shard": fa.relative_attention_forward.launches_head_shard,
+            "bwd_head_shard": fa.relative_attention_backward.launches_head_shard}
+
+
 def reset_launch_counts() -> None:
     from mmt_tpu_torch.ops import fused_attention as fa
 
     fwd, bwd = fa.relative_attention_forward, fa.relative_attention_backward
-    fwd.launches = fwd.launches_window = fwd.launches_offset = 0
-    bwd.launches = bwd.launches_window = bwd.launches_offset = 0
+    fwd.launches = fwd.launches_window = fwd.launches_offset = fwd.launches_head_shard = 0
+    bwd.launches = bwd.launches_window = bwd.launches_offset = bwd.launches_head_shard = 0
 
 
 def phase_train():
@@ -4392,7 +4424,8 @@ def data_parallel_world1():
     the data-parallel step with ZeRO-1 inside a one-rank nccl group: the
     gradients' all-reduce must leave them bit for bit, and the ZeRO-1 update
     must give the replicated AdamW's parameters and moments bit for bit on
-    the same gradients."""
+    the same gradients.  The group stays open for phase model_parallel,
+    which ends it."""
     import copy
     import os
 
@@ -4463,9 +4496,6 @@ def data_parallel_world1():
     if not all(math.isfinite(x) for x in losses.values()):
         raise AssertionError(f"non-finite metrics {losses}")
     sharded = sum(1 for n in optimizer.slices)
-    dist.destroy_process_group()
-    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
-        os.environ.pop(key, None)
     del task, reference, optimizer, ref_optimizer, recorded
     torch.cuda.empty_cache()
     return {"backend": backend, "world_size": 1, "global_batch": DP_GLOBAL,
@@ -4523,6 +4553,380 @@ def phase_sequence_shard():
     return fwd_entry, bwd_entry, {"fwd": dp_counts["fwd"], "bwd": dp_counts["bwd"]}
 
 
+# ------------------------------------------ model_parallel (TP and pipeline)
+
+TP = 4  # 12 heads -> 3 per shard; 30522 vocabulary rows do not divide
+PP_STAGES, PP_GLOBAL = 4, 512  # the pipelined step: 8 micro-batches of 64
+TP_LAYER_OUT_BOUND = 2e-2
+PP_LOSS_BOUND = 1e-2
+
+
+def head_slices(n):
+    h = HEADS // n
+    return [slice(r * h, (r + 1) * h) for r in range(n)]
+
+
+def head_shards(tensors, n):
+    """Each shard's contiguous heads of [B, S, H, D] tensors (and of the
+    [V, H, D] table, passed as the last)."""
+    *acts, table = tensors
+    return [([t[:, :, h].contiguous() for t in acts], table[:, h].contiguous())
+            for h in head_slices(n)]
+
+
+def head_shard_forward(n, case, rate=0.0, seed=None):
+    """The forward kernel shard by shard over heads -> (assembled o, lse),
+    and the n shard calls as functions for timing."""
+    from mmt_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, table, geo, lengths = case
+    h = HEADS // n
+    calls = [lambda qkv=qkv, t=t, r=r: fa.relative_attention_forward(
+        *qkv, t, geo, lengths, "cuda", rate, seed, head_start=r * h)
+        for r, (qkv, t) in enumerate(head_shards((q, k, v, table), n))]
+    outs = [c() for c in calls]
+    return torch.cat([o for o, _ in outs], 2), torch.cat([lse for _, lse in outs], 1), calls
+
+
+def shard_plain_forward_errors(calls, shards, geo, lengths, rate, seed, n):
+    """Each head-shard forward call against the plain version with the same
+    heads and ``head_start``: (max abs error of o, of lse) over the shards;
+    raises past O_BOUND / LSE_BOUND."""
+    from mmt_tpu_torch.ops import fused_attention as fa
+
+    lens, h = lengths.tolist(), HEADS // n
+    worst = [0.0, 0.0]
+    for r, (call, (qkv, t)) in enumerate(zip(calls, shards)):
+        o, lse = call()
+        o_ref, lse_ref = fa.relative_attention_plain(*qkv, t, geo, lengths, rate, seed,
+                                                     head_start=r * h)
+        for b, m in enumerate(lens):
+            if not torch.isfinite(o[b, :m]).all():
+                raise AssertionError(f"non-finite head-shard output, shard {r} example {b}")
+            worst[0] = max(worst[0], (o[b, :m].float() - o_ref[b, :m].float()).abs().max().item())
+            worst[1] = max(worst[1], (lse[b, :, :m] - lse_ref[b, :, :m]).abs().max().item())
+    if not (worst[0] <= O_BOUND and worst[1] <= LSE_BOUND):
+        raise AssertionError(f"head-shard forward against the plain version: o {worst[0]} "
+                             f"lse {worst[1]}")
+    return worst
+
+
+def head_shard_kernels(n):
+    """(a) The kernels on n head shards (head_start = r H / n): at the S=256
+    micro-batch (rate 0.1) every shard call, forward and backward, against
+    the plain version with the same heads and head offset, and, assembled,
+    the flagship forward (rate 0) and the micro-batch forward and backward
+    against the unsharded calls."""
+    from mmt_tpu_torch.ops import fused_attention as fa
+
+    out = {}
+    seed = 20263
+    lens = np.random.default_rng(50).integers(SEQ_LEN // 2, SEQ_LEN + 1, BATCH).tolist()
+    flag = attention_inputs(lens, seed=51)
+    o_u, lse_u = fa.relative_attention_forward(*flag)
+    o_s, lse_s, calls = head_shard_forward(n, flag)
+    torch.cuda.synchronize()
+    err = assembled_errors(o_s, lse_s, o_u, lse_u, lens)
+    out["flagship_forward"] = {
+        "o_lse_bit_equal": bool(torch.equal(o_s, o_u) and torch.equal(lse_s, lse_u)),
+        "max_abs_err_o_lse_vs_unsharded": err,
+        "unsharded_ms": cuda_ms(lambda: fa.relative_attention_forward(*flag), 10),
+        "ms_per_shard_call": cuda_ms(lambda: [c() for c in calls], 5) / n}
+    del flag, o_u, lse_u, o_s, lse_s, calls
+    torch.cuda.empty_cache()
+
+    case = train_attention_inputs(seed=52)
+    q, k, v, table, geo, lengths = case
+    lens = lengths.tolist()
+    shards = head_shards((q, k, v, table), n)
+    o_u, lse_u = fa.relative_attention_forward(*case, "cuda", DROPOUT, seed)
+    o_s, lse_s, calls = head_shard_forward(n, case, DROPOUT, seed)
+    torch.cuda.synchronize()
+    fwd = {"max_abs_err_o_lse_vs_plain": shard_plain_forward_errors(
+               calls, shards, geo, lengths, DROPOUT, seed, n),
+           "o_lse_bit_equal_to_unsharded": bool(torch.equal(o_s, o_u)
+                                                and torch.equal(lse_s, lse_u)),
+           "max_abs_err_o_lse_vs_unsharded": assembled_errors(o_s, lse_s, o_u, lse_u, lens),
+           "unsharded_ms": cuda_ms(lambda: fa.relative_attention_forward(
+               *case, "cuda", DROPOUT, seed), 50),
+           "ms_per_shard_call": cuda_ms(lambda: [c() for c in calls], 20) / n}
+    qkv1, t1 = shards[1]
+    h1 = HEADS // n
+    fwd["plain_ms_per_shard_call"] = cuda_ms(lambda: fa.relative_attention_plain(
+        *qkv1, t1, geo, lengths, DROPOUT, seed, head_start=h1), 2)
+    fwd["library_ms_per_shard_call"] = cuda_ms(sdpa_with_bias(*qkv1, t1, geo, lengths), 20)
+    flops, nbytes = forward_work(lens, TRAIN_SEQ)
+    fwd["bound_ms_per_shard_call"], fwd["bound_by"] = bound_ms(flops / n, nbytes / n)
+    out["micro_batch_forward"] = fwd
+
+    do = torch.from_numpy(np.random.default_rng(53).standard_normal(q.shape, np.float32)).cuda() \
+        .to(torch.bfloat16)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), o_u.float()).contiguous()
+    args = (q, k, v, do, lse_u, delta, table, geo, lengths)
+    want = fa.relative_attention_backward(*args, "cuda", DROPOUT, seed)
+    parts = []
+    for r, hs in enumerate(head_slices(n)):
+        sq, sk, sv, sdo = (t[:, :, hs].contiguous() for t in (q, k, v, do))
+        parts.append(((sq, sk, sv, sdo, lse_u[:, hs].contiguous(), delta[:, hs].contiguous(),
+                       table[:, hs].contiguous(), geo, lengths), r * (HEADS // n)))
+    got = [fa.relative_attention_backward(*a, "cuda", DROPOUT, seed, head_start=hs0)
+           for a, hs0 in parts]
+    torch.cuda.synchronize()
+    # Every shard call against the plain backward with the same head offset.
+    errs_plain = {}
+    for r, ((a, hs0), g) in enumerate(zip(parts, got)):
+        e = grad_errors(g, fa.relative_attention_backward_plain(*a, DROPOUT, seed,
+                                                                head_start=hs0), lens)
+        check_grad_errors(e, f"head shard {r} backward against the plain version")
+        for name, v_ in e.items():
+            errs_plain[name] = {key: max(val, errs_plain.get(name, {}).get(key, 0.0))
+                                for key, val in v_.items()}
+    assembled = (torch.cat([g[0] for g in got], 2), torch.cat([g[1] for g in got], 2),
+                 torch.cat([g[2] for g in got], 2), torch.cat([g[3] for g in got], 1))
+    errs = grad_errors(assembled, want, lens)
+    check_grad_errors(errs, "head-sharded backward against the unsharded kernel")
+    shard_args, shard_h0 = parts[1]
+    b_flops, b_bytes = backward_flops(lens), backward_bytes(lens, TRAIN_SEQ)
+    bwd = {"errors_vs_plain": errs_plain,
+           "errors_vs_unsharded": errs,
+           "dk_dv_bit_equal_to_unsharded": bool(torch.equal(assembled[1], want[1])
+                                                and torch.equal(assembled[2], want[2])),
+           "unsharded_ms": cuda_ms(lambda: fa.relative_attention_backward(
+               *args, "cuda", DROPOUT, seed), 20),
+           "ms_per_shard_call": cuda_ms(lambda: [fa.relative_attention_backward(
+               *a, "cuda", DROPOUT, seed, head_start=hs0) for a, hs0 in parts], 10) / n,
+           "plain_ms_per_shard_call": cuda_ms(lambda: fa.relative_attention_backward_plain(
+               *shard_args, DROPOUT, seed, head_start=shard_h0), 2),
+           "library_ms_per_shard_call": sdpa_backward_ms(*shard_args[:3], shard_args[6], geo,
+                                                         lengths, 10)}
+    bwd["bound_ms_per_shard_call"], bwd["bound_by"] = bound_ms(b_flops / n, b_bytes / n)
+    out["micro_batch_backward"] = bwd
+    del q, k, v, do, delta, args, want, got, parts, assembled, case, shards
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_layer(n, device):
+    """(b) One full-width layer (the WIT model cut to 1 layer, train mode,
+    dropout 0.1, B=64, S=256) with its parameters sharded over n ranks in
+    this process (``shard_params_in_process``: each rank's heads and FFN
+    columns, the row-parallel partials summed in rank order) against the
+    same model unsharded: the sequence output and every gradient."""
+    from mmt_tpu_torch.models import DropoutRngs
+    from mmt_tpu_torch.parallel.param_sharding import shard_params_in_process
+    from mmt_tpu_torch.train.tasks import PretrainingTask
+
+    cfg = _wit_experiment({"num_hidden_layers": 1}, TRAIN_SEQ, TRAIN_MICRO, TRAIN_MICRO,
+                          "pallas", DROPOUT, DROPOUT, 1)
+    batch = synthetic_pretrain_batch(cfg.task.train_data, cfg.task.model.encoder.mmt.vocab_size,
+                                     TRAIN_MICRO, torch.Generator("cuda").manual_seed(60))
+    results = {}
+    for sharded in (False, True):
+        task = PretrainingTask(cfg.task, cfg.trainer, device=device, seed=61)
+        plan = shard_params_in_process(task.model, n) if sharded else None
+        rngs = DropoutRngs(host=torch.Generator().manual_seed(62),
+                           device=torch.Generator("cuda").manual_seed(63))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        loss, (outputs, _) = task.compute_loss(batch, rngs)
+        loss.backward()
+        torch.cuda.synchronize()
+        results[sharded] = (outputs["sequence_output"].detach(),
+                            {k: p.grad for k, p in task.model.named_parameters()},
+                            {**launch_counts(), **head_shard_counts()}, plan)
+        del task, loss, outputs
+    (seq, grads, _, _), (seq_tp, grads_tp, counts, plan) = results[False], results[True]
+    out_err = ((seq_tp - seq).norm() / seq.norm()).item()
+    worst, worst_name, n_zero, _ = gradient_errors(grads_tp, grads)
+    if not out_err <= TP_LAYER_OUT_BOUND:
+        raise AssertionError(f"tensor-parallel layer output {out_err} > {TP_LAYER_OUT_BOUND}")
+    if not worst <= TRAIN_GRAD_BOUND:
+        raise AssertionError(f"tensor-parallel layer {worst_name}: gradient {worst} > "
+                             f"{TRAIN_GRAD_BOUND}")
+    # The shards at heads H/n, 2H/n, ... count as head-shard launches; the
+    # shard at head 0 is the dense call on its heads.
+    if counts["fwd_head_shard"] != n - 1 or counts["bwd_head_shard"] != n - 1 \
+            or counts["fwd"] != n or counts["bwd"] != n:
+        raise AssertionError(f"tensor-parallel layer launches {counts}, expected {n} of each "
+                             f"kernel, {n - 1} with a head offset")
+    replicated_table = not plan["encoder.word_embeddings.embedding_table"]
+    if not replicated_table or not plan["encoder.transformer.layers.0.attention.query.weight"]:
+        raise AssertionError(f"unexpected plan at tp={n}")
+    del results, seq, grads, seq_tp, grads_tp
+    torch.cuda.empty_cache()
+    return {"tp": n, "heads_per_shard": HEADS // n, "batch": TRAIN_MICRO, "seq_len": TRAIN_SEQ,
+            "dropout": DROPOUT, "output_rel_err": out_err, "output_bound": TP_LAYER_OUT_BOUND,
+            "max_grad_rel_err": worst, "worst_tensor": worst_name, "zero_tensors": n_zero,
+            "grad_bound": TRAIN_GRAD_BOUND, "vocabulary_table_replicated": replicated_table,
+            "launches": counts}, counts
+
+
+def pipelined_step(device, mesh):
+    """(c) The pipelined WIT pretraining step (4 stages of 3 layers in this
+    process, global batch 512 as 8 micro-batches of 64, remat): at dropout
+    0 against the unpipelined model on the same batch (the global weighted
+    mean, micro-batch by micro-batch: the pipelined step's loss), and at
+    dropout 0.1 the same loss twice for the same rngs and another for
+    other rngs; seconds per step beside the unpipelined step's."""
+    from mmt_tpu_torch.models import DropoutRngs
+    from mmt_tpu_torch.parallel.pipeline import InProcessTransport
+    from mmt_tpu_torch.train.optimizer import create_optimizer
+    from mmt_tpu_torch.train.tasks import PretrainingTask
+    from mmt_tpu_torch.train.train_state import TrainState
+
+    micro = PP_GLOBAL // TRAIN_MICRO
+    out = {"stages": PP_STAGES, "global_batch": PP_GLOBAL, "micro_batches": micro, "remat": True}
+
+    def build(rate):
+        cfg = _wit_experiment({}, TRAIN_SEQ, PP_GLOBAL, TRAIN_MICRO, "pallas", rate, rate, 1)
+        task = PretrainingTask(cfg.task, cfg.trainer, device=device, seed=0)
+        grads = {}
+        optimizer = create_optimizer(cfg.trainer.optimizer_config, 1, task.model)
+        real = optimizer.step
+
+        def recording():
+            grads.update({n: p.grad.clone() for n, p in task.model.named_parameters()})
+            real()
+
+        optimizer.step = recording
+        initial = {k: v.clone() for k, v in task.model.state_dict().items()}
+
+        def run(step, batch, rngs):
+            task.model.load_state_dict(initial)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = step(TrainState.create(task.model, optimizer), batch, rngs)
+            torch.cuda.synchronize()
+            return metrics, time.perf_counter() - t0
+
+        return cfg, task, grads, initial, run
+
+    cfg, task, grads, initial, run = build(0.0)
+    layers = cfg.task.model.encoder.mmt.num_hidden_layers
+    batch = synthetic_pretrain_batch(cfg.task.train_data, cfg.task.model.encoder.mmt.vocab_size,
+                                     PP_GLOBAL, torch.Generator("cuda").manual_seed(70))
+    piped = task.make_pipelined_train_step(mesh, micro, remat=True,
+                                           transport=InProcessTransport(PP_STAGES))
+    reset_launch_counts()
+    metrics, first_s = run(piped, batch, None)
+    counts = launch_counts()
+    if counts["fwd"] != 2 * layers * micro or counts["bwd"] != layers * micro:
+        raise AssertionError(f"pipelined step launches {counts}, expected {2 * layers * micro} "
+                             f"forward (remat) and {layers * micro} backward")
+    loss = float(metrics["total_loss"][0] / metrics["total_loss"][1])
+    g_pipe = dict(grads)
+    # The unpipelined model on the same batch and loss, micro-batch by micro-batch.
+    task.model.load_state_dict(initial)
+    task.model.zero_grad(set_to_none=True)
+    weight_sums = task.loss_weight_sums(batch)
+    ref_loss = 0.0
+    for m in range(micro):
+        rows = {k: v[m * TRAIN_MICRO:(m + 1) * TRAIN_MICRO] for k, v in batch.items()}
+        part, _ = task.compute_loss(rows, None, weight_sums=weight_sums)
+        part.backward()
+        ref_loss += float(part.detach())
+    g_ref = {n: p.grad for n, p in task.model.named_parameters()}
+    worst, worst_name, n_zero, _ = gradient_errors(g_pipe, g_ref)
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    if not (loss_err <= PP_LOSS_BOUND and worst <= TRAIN_GRAD_BOUND):
+        raise AssertionError(f"pipelined step against the unpipelined model: loss {loss} vs "
+                             f"{ref_loss}, {worst_name} gradient {worst}")
+    task.model.zero_grad(set_to_none=True)
+    del g_ref, g_pipe
+    grads.clear()
+    _, piped_s = run(piped, batch, None)
+    unpiped = task.make_train_step(TRAIN_MICRO)
+    run(unpiped, batch, None)
+    _, unpiped_s = run(unpiped, batch, None)
+    out.update({"launches": counts, "loss": loss, "unpipelined_loss": ref_loss,
+                "loss_rel_err": loss_err, "loss_bound": PP_LOSS_BOUND,
+                "max_grad_rel_err": worst, "worst_tensor": worst_name, "zero_tensors": n_zero,
+                "grad_bound": TRAIN_GRAD_BOUND, "first_step_s": first_s,
+                "pipelined_step_s": piped_s, "unpipelined_step_s": unpiped_s,
+                "pipelined_over_unpipelined": piped_s / unpiped_s})
+    del task, grads, initial, piped, unpiped
+    torch.cuda.empty_cache()
+
+    cfg, task, grads, initial, run = build(DROPOUT)
+    piped = task.make_pipelined_train_step(mesh, micro, remat=True,
+                                           transport=InProcessTransport(PP_STAGES))
+    dropout_losses = []
+    for seed in (2, 2, 3):
+        metrics, _ = run(piped, batch, DropoutRngs.for_step(seed, 0, device))
+        dropout_losses.append(float(metrics["total_loss"][0] / metrics["total_loss"][1]))
+    if not (dropout_losses[0] == dropout_losses[1] != dropout_losses[2]
+            and all(math.isfinite(x) for x in dropout_losses)):
+        raise AssertionError(f"pipelined dropout losses {dropout_losses}: the same rngs must "
+                             f"give the same loss, others another")
+    out["dropout_losses_same_same_other"] = dropout_losses
+    del task, grads, initial, piped, batch
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def head_shard_entries(kernels, layer_counts):
+    """The ``kernels`` line's entries of the head-shard calls: times and the
+    error against the plain version at the S=256 micro-batch shape of (a),
+    launches of the tensor-parallel layer."""
+    fwd, bwd = kernels["micro_batch_forward"], kernels["micro_batch_backward"]
+    source = "mmt_tpu_torch/csrc/rel_attention_{}.cu"
+    head_shard = ("on a tensor-parallel head shard (GSPMD over 'model' under "
+                  "mmt_tpu/parallel/param_sharding.py:29-37)")
+    entries = [{
+        "name": "rel_attention_fwd_head_shard", "route": "cuda", "source": source.format("fwd"),
+        "replaces": f"mmt_tpu/ops/pallas_attention.py:1593 (_fwd_kernel, K1) {head_shard}",
+        "launches": layer_counts["fwd_head_shard"],
+        "max_abs_err": fwd["max_abs_err_o_lse_vs_plain"][0],
+        "ms": fwd["ms_per_shard_call"], "plain_ms": fwd["plain_ms_per_shard_call"],
+        "bound_ms": fwd["bound_ms_per_shard_call"], "bound_by": fwd["bound_by"],
+        "library_ms": fwd["library_ms_per_shard_call"],
+    }, {
+        "name": "rel_attention_bwd_head_shard", "route": "cuda", "source": source.format("bwd"),
+        "replaces": f"mmt_tpu/ops/pallas_attention.py:2249 (_bwd_fused_kernel, K3) {head_shard}",
+        "launches": layer_counts["bwd_head_shard"],
+        "max_abs_err": max(e["max_abs_err"] for e in bwd["errors_vs_plain"].values()),
+        "ms": bwd["ms_per_shard_call"], "plain_ms": bwd["plain_ms_per_shard_call"],
+        "bound_ms": bwd["bound_ms_per_shard_call"], "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_ms_per_shard_call"],
+    }]
+    return entries
+
+
+def phase_model_parallel():
+    """Tensor parallelism and the pipeline on the one card: (a) the kernels
+    on head shards, (b) a full-width layer sharded over TP ranks in this
+    process, (c) the pipelined WIT step with every stage in this process,
+    its data-parallel all-reduce on the one-rank nccl group that phase
+    sequence_shard opened (and that this phase ends).  Returns the
+    head-shard entries of the ``kernels`` line and the dense kernels'
+    launches of (c)."""
+    import os
+
+    import torch.distributed as dist
+
+    from mmt_tpu_torch.parallel import mesh as pm
+
+    t0 = time.perf_counter()
+    try:
+        kernels = head_shard_kernels(TP)
+        layer, layer_counts = tp_layer(TP, torch.device("cuda", 0))
+        mesh = pm.create_pipe_mesh(0, 1)
+        pipeline, pp_counts = pipelined_step(torch.device("cuda", 0), mesh)
+        backend = dist.get_backend(mesh.data_group) if mesh.data_group is not None else None
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(key, None)
+    seconds = time.perf_counter() - t0
+    emit({"phase": "model_parallel", "head_shard_kernels": kernels, "tp_layer": layer,
+          "pipeline": pipeline, "data_group_backend": backend, "seconds": seconds,
+          "note": "one card: the tensor-parallel ranks and the pipeline stages ran in one "
+                  "process; no point-to-point transfer and no collective crossed cards"})
+    entries = head_shard_entries(kernels, layer_counts)
+    return entries, {"fwd": pp_counts["fwd"], "bwd": pp_counts["bwd"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4575,6 +4979,9 @@ def main() -> int:
     off_entry, off_bwd_entry, dp_launches = phase_sequence_shard()
     entry["launches"] += dp_launches["fwd"]
     bwd_entry["launches"] += dp_launches["bwd"]
+    head_entries, pp_launches = phase_model_parallel()
+    entry["launches"] += pp_launches["fwd"]
+    bwd_entry["launches"] += pp_launches["bwd"]
     probe_entries = [*phase_probe_split(), *phase_probe_op_cost(), *phase_probe_hopper()]
     entry["launches"] += phase_predict_cli()
     entry["launches"] += phase_int8()
@@ -4609,7 +5016,7 @@ def main() -> int:
         bwd_entry["launches"] += ws_launches["bwd"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     kernels = {"kernels": [entry, bwd_entry, win_entry, win_bwd_entry, off_entry, off_bwd_entry,
-                           *probe_entries]}
+                           *head_entries, *probe_entries]}
     print(json.dumps(kernels), flush=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.jsonl").write_text("\n".join(_lines + [json.dumps(kernels)]) + "\n")

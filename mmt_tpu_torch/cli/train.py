@@ -83,10 +83,18 @@ rank checkpoints every rank at the same step.  Validation needs
 collectives) and gathers the labels, weights and probabilities step-major,
 as the JAX CLI does.
 
-Everything else raises NotImplementedError naming what is missing: the
-pipeline runtime (``num_pipeline_stages > 1``), continuous finetuning in
-several processes, and ``grad_accum_dtype`` values other than float32 and
-bfloat16.
+``runtime.num_pipeline_stages`` S > 1 trains through the GPipe pipelined
+step (``make_pipelined_train_step``, ``parallel/pipeline.py``) on a ('data',
+'pipe') mesh of ``num_data_parallel`` (default world / S) x S ranks, rank r
+at (r // S, r % S), as the JAX CLI lays it out; the stages of one pipeline
+load the same rows.  Micro-batches: ``runtime.num_pipeline_microbatches``,
+else ``max(1, global_batch // max(micro_batch_size, 1))`` for pretraining
+and 2 for classification.  Validation runs unpipelined.  With
+``num_model_parallel > 1`` it raises JAX's ValueError.
+
+Everything else raises NotImplementedError naming what is missing:
+continuous finetuning in several processes, and ``grad_accum_dtype``
+values other than float32 and bfloat16.
 """
 
 from __future__ import annotations
@@ -158,9 +166,9 @@ def _check_ported(args, cfg) -> None:
         # An empty pattern matches no file, and a repeating stream would
         # then wait for a record forever.
         raise ValueError("task.train_data.input_path is empty: name the training records")
-    if cfg.runtime.num_pipeline_stages > 1:
-        raise NotImplementedError("num_pipeline_stages > 1: the pipeline runtime is not "
-                                  "ported yet")
+    if cfg.runtime.num_pipeline_stages > 1 and cfg.runtime.num_model_parallel > 1:
+        raise ValueError("num_pipeline_stages > 1 is mutually exclusive with "
+                         "num_model_parallel > 1")
     if cfg.trainer.grad_accum_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(f"trainer.grad_accum_dtype={cfg.trainer.grad_accum_dtype!r}: "
                                   f"the port accumulates in float32 or bfloat16")
@@ -336,6 +344,7 @@ def main(argv=None):
     from mmt_tpu_torch.device import resolve_device
     from mmt_tpu_torch.parallel.mesh import (
         create_mesh,
+        create_pipe_mesh,
         init_distributed,
         launched,
         local_batch_size,
@@ -346,11 +355,15 @@ def main(argv=None):
         device = init_distributed(args.device)
     else:
         device = resolve_device(args.device)
-    mesh = create_mesh(cfg.runtime.num_data_parallel, cfg.runtime.num_model_parallel)
+    num_pipe = cfg.runtime.num_pipeline_stages
+    if num_pipe > 1:  # the ('data', 'pipe') mesh of mmt_tpu/cli/train.py:167-185
+        mesh = create_pipe_mesh(cfg.runtime.num_data_parallel, num_pipe)
+    else:
+        mesh = create_mesh(cfg.runtime.num_data_parallel, cfg.runtime.num_model_parallel)
     if mesh.distributed and args.mode == "continuous_train_and_eval":
         raise NotImplementedError("continuous_train_and_eval runs in one process")
-    logging.info("mesh: %d data x %d model ranks (rank %d)", mesh.num_data, mesh.num_model,
-                 mesh.rank)
+    logging.info("mesh: %s = %d x %d ranks (rank %d)", mesh.axis_names, mesh.num_data,
+                 mesh.num_model * mesh.num_pipe, mesh.rank)
     os.makedirs(args.model_dir, exist_ok=True)
     if args.mode in ("train", "train_and_eval") and mesh.is_chief:
         with open(os.path.join(args.model_dir, "params.yaml"), "w") as f:
@@ -368,13 +381,23 @@ def main(argv=None):
             MmtPretrainLoader if pretraining else MmtClassificationLoader, data_cfg,
             mesh.data_rank, mesh.num_data, local)
     try:
+        zero1 = cfg.runtime.zero_sharded_optimizer
         if pretraining:
             task = PretrainingTask(cfg.task, cfg.trainer, device=device, seed=args.seed)
-            train_step = task.make_train_step(cfg.trainer.micro_batch_size,
-                                              cfg.trainer.grad_accum_dtype, mesh=mesh)
+            if num_pipe > 1:
+                num_micro = cfg.runtime.num_pipeline_microbatches or max(
+                    1, data_cfg.global_batch_size // max(cfg.trainer.micro_batch_size, 1))
+                train_step = task.make_pipelined_train_step(mesh, num_micro, zero1=zero1)
+            else:
+                train_step = task.make_train_step(cfg.trainer.micro_batch_size,
+                                                  cfg.trainer.grad_accum_dtype, mesh=mesh)
         else:
             task = ClassificationTask(cfg.task, cfg.trainer, device=device, seed=args.seed)
-            train_step = task.make_train_step(mesh=mesh)
+            if num_pipe > 1:
+                train_step = task.make_pipelined_train_step(
+                    mesh, cfg.runtime.num_pipeline_microbatches or 2, zero1=zero1)
+            else:
+                train_step = task.make_train_step(mesh=mesh)
         return _run(args, cfg, task, train_step, train_iter, device, mesh)
     finally:
         if workers is not None:

@@ -61,6 +61,17 @@ class MmtClassificationModel(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         outputs = self.encoder(word_ids, segment_ids, patch_embeddings, lengths, rngs,
                                images=images)
-        for name, head in self.cls_heads.items():
-            outputs[f"{name}_logits"] = head(outputs["sequence_output"], rngs)
+        outputs.update(self.head_outputs(outputs["sequence_output"], rngs))
         return outputs
+
+    def encoder_inputs(self, *args, **kwargs):
+        """The encoder's ``transformer_inputs`` (embeddings and lengths), for
+        a scheduler that runs the layer stack itself
+        (``parallel/pipeline.py``)."""
+        return self.encoder.transformer_inputs(*args, **kwargs)
+
+    def head_outputs(self, sequence: torch.Tensor,
+                     rngs: Optional[DropoutRngs] = None) -> Dict[str, torch.Tensor]:
+        """The classification heads' logits over a ready float32 [B, S, H]
+        sequence output."""
+        return {f"{name}_logits": head(sequence, rngs) for name, head in self.cls_heads.items()}

@@ -154,6 +154,32 @@ class MmtEncoder(nn.Module):
         ``images`` (<uint8|float>[B, size, size, 3]) is used when
         ``patch_embeddings`` is None, and ``patch_mask`` (<float>[B, N], 1
         where MPP masked a patch) zeroes masked patches of ``images``."""
+        rngs = rngs or DropoutRngs()
+        emb, lengths = self.transformer_inputs(word_ids, segment_ids, patch_embeddings, lengths,
+                                               rngs, images, patch_mask)
+        x = self.transformer(emb, lengths, rngs).float()
+        outputs = {"sequence_output": x}
+        if self.pooler_transform is not None:
+            outputs["pooled_output"] = torch.tanh(
+                dense(x[:, 0], self.pooler_transform, self.dtype).float())
+        return outputs
+
+    def transformer_inputs(
+        self,
+        word_ids: torch.Tensor,
+        segment_ids: Optional[torch.Tensor] = None,
+        patch_embeddings: Optional[torch.Tensor] = None,
+        lengths: Optional[torch.Tensor] = None,
+        rngs: Optional[DropoutRngs] = None,
+        images: Optional[torch.Tensor] = None,
+        patch_mask: Optional[torch.Tensor] = None,
+    ):
+        """Everything before the layer stack (``mmt_tpu/models/encoder.py:
+        transformer_inputs``): (embeddings in the compute dtype [B, S, H],
+        lengths <int>[B]), exactly what ``forward`` feeds
+        ``self.transformer``, so that another scheduler of the layers
+        (``parallel/pipeline.py``) can run the stack itself.  Arguments as
+        in ``forward``."""
         batch, seq_len = word_ids.shape
         if patch_embeddings is None and images is not None:
             im = images
@@ -182,9 +208,4 @@ class MmtEncoder(nn.Module):
             projected = dense(patch_embeddings, self.patch_embedding_projection, self.dtype)
             emb = emb + F.pad(projected, (0, 0, 2, seq_len - 2 - num_patches))
 
-        x = self.transformer(emb.to(self.dtype), lengths, rngs).float()
-        outputs = {"sequence_output": x}
-        if self.pooler_transform is not None:
-            outputs["pooled_output"] = torch.tanh(
-                dense(x[:, 0], self.pooler_transform, self.dtype).float())
-        return outputs
+        return emb.to(self.dtype), lengths

@@ -17,7 +17,7 @@ compute the two are the same).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -27,7 +27,8 @@ from mmt_tpu_torch.ops.relative_attention_ref import gather_indexes
 
 
 class MaskedLMHead(nn.Module):
-    """MLM head -> [B, M, vocab] logits over a table handed in at call time."""
+    """MLM head -> [B, M, vocab] logits against a table whose projection is
+    handed in at call time."""
 
     def __init__(self, hidden_size: int, embedding_size: int, vocab_size: int,
                  activation_name: Optional[str] = "gelu",
@@ -41,12 +42,13 @@ class MaskedLMHead(nn.Module):
         self.output_bias = nn.Parameter(torch.zeros(vocab_size, device=device))
 
     def forward(self, sequence: torch.Tensor, positions: torch.Tensor,
-                embedding_table: torch.Tensor) -> torch.Tensor:
+                attend: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+        """``attend``: x [..., E] -> its logits against the output table
+        (``EmbeddingLookup.attend``, or ``embeddings.attend_table``)."""
         x = self.activation(dense(gather_indexes(sequence, positions), self.transform_dense,
                                   self.dtype))
         x = layer_norm(x, self.transform_layer_norm)
-        logits = torch.matmul(x.to(self.dtype), embedding_table.to(self.dtype).t())
-        return logits.float() + self.output_bias
+        return attend(x.to(self.dtype)).float() + self.output_bias
 
 
 class MaskedPPHead(nn.Module):

@@ -17,6 +17,7 @@ with ``convert.params_from_flax`` + ``load_state_dict``.  Dropout runs in
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -26,6 +27,7 @@ from mmt_tpu_torch.configs.encoder import build_encoder
 from mmt_tpu_torch.configs.model import PretrainModelConfig
 from mmt_tpu_torch.device import resolve_device
 from mmt_tpu_torch.models.common import DropoutRngs, init_params
+from mmt_tpu_torch.models.embeddings import EmbeddingLookup, attend_table
 from mmt_tpu_torch.models.encoder import compute_dtype
 from mmt_tpu_torch.models.heads import ClassificationHead, MaskedLMHead, MaskedPPHead
 
@@ -83,11 +85,34 @@ class MmtPretrainingModel(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         outputs = self.encoder(word_ids, segment_ids, patch_embeddings, lengths, rngs,
                                images=images, patch_mask=patch_mask)
-        sequence = outputs["sequence_output"]
-        table = (self.encoder.word_embeddings.embedding_table
-                 if self.mlm_embedding_table is None else self.mlm_embedding_table)
+        outputs.update(self.head_outputs(outputs["sequence_output"], mlm_positions,
+                                         mpp_positions, rngs))
+        return outputs
+
+    def _mlm_attend(self):
+        """The MLM output projection: the word table's ``attend`` (which a
+        tensor-parallel model runs vocabulary-sharded), or the untied table,
+        or a custom encoder's shared ``embedding_table``."""
+        words = self.encoder.word_embeddings if self.mlm_embedding_table is None else None
+        if isinstance(words, EmbeddingLookup):
+            return words.attend
+        table = self.mlm_embedding_table if words is None else words.embedding_table
+        return functools.partial(attend_table, table)
+
+    def encoder_inputs(self, *args, **kwargs):
+        """The encoder's ``transformer_inputs`` (embeddings and lengths), for
+        a scheduler that runs the layer stack itself
+        (``parallel/pipeline.py``)."""
+        return self.encoder.transformer_inputs(*args, **kwargs)
+
+    def head_outputs(self, sequence: torch.Tensor, mlm_positions: Optional[torch.Tensor] = None,
+                     mpp_positions: Optional[torch.Tensor] = None,
+                     rngs: Optional[DropoutRngs] = None) -> Dict[str, torch.Tensor]:
+        """Everything after the encoder: the MLM, MPP and classification
+        logits over a ready float32 [B, S, H] sequence output."""
+        outputs = {}
         if mlm_positions is not None:
-            outputs["mlm_logits"] = self.masked_lm(sequence, mlm_positions, table)
+            outputs["mlm_logits"] = self.masked_lm(sequence, mlm_positions, self._mlm_attend())
         if mpp_positions is not None:
             outputs["mpp_logits"] = self.masked_pp(sequence, mpp_positions)
         for name, head in self.cls_heads.items():

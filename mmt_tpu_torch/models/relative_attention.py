@@ -43,6 +43,14 @@ Parameter layout: the q/k/v projections are ``nn.Linear(hidden, A*D)``
 (Flax DenseGeneral kernel ``[hidden, A, D]``), the output projection
 ``nn.Linear(A*D, hidden)`` (kernel ``[A, D, hidden]``), and the relative
 table keeps the Flax layout ``[V, A, D]``.
+
+Tensor parallelism (``parallel/param_sharding.py`` sets ``tp``): an
+attention module whose ``tp`` is set holds its heads' rows of q/k/v and
+their columns of the output projection for the ranks it runs, and runs
+each rank's heads with ``head_start`` on its slice of the (replicated)
+relative table, summing the output projections' partial products over
+the model axis before the (replicated) bias; a layer whose ``tp`` is set
+does the same with the FFN's intermediate width.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -99,6 +108,7 @@ class RelativeAttention(nn.Module):
             self.relative_emb_table = nn.Parameter(torch.empty(
                 relative_vocab_size, num_heads, self.head_dim, device=device))
         self.output = linear(hidden_size, hidden_size, device=device)
+        self.tp = None  # a parallel.param_sharding.TensorParallel once sharded
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 dropout_seed: Optional[int] = None, batch_start: int = 0) -> torch.Tensor:
@@ -110,22 +120,47 @@ class RelativeAttention(nn.Module):
             raise ValueError(
                 "quantize='int8_dynamic' is an inference-only path "
                 "(rounding has zero gradient); train with quantize='none'.")
+        rate, seed = 0.0, None
+        if self.training and self.attention_dropout > 0.0:
+            rate, seed = self.attention_dropout, dropout_seed
+        if self.tp is not None:
+            return self._sharded(x, lengths, rate, seed, batch_start)
         batch, seq_len, _ = x.shape
         shape = (batch, seq_len, self.num_heads, self.head_dim)
         q = dense(x, self.query, self.dtype).view(shape)
         k = dense(x, self.key, self.dtype).view(shape)
         v = dense(x, self.value, self.dtype).view(shape)
-        rate, seed = 0.0, None
-        if self.training and self.attention_dropout > 0.0:
-            rate, seed = self.attention_dropout, dropout_seed
-        if self.attention_impl == "pallas":
-            ctx = relative_attention(q, k, v, self.relative_emb_table, self.geometry, lengths,
-                                     rate, seed, device=x.device.type, batch_start=batch_start)
-        else:
-            ctx, _ = relative_attention_plain(
-                q, k, v, self.relative_emb_table, self.geometry, lengths, rate, seed,
-                batch_start=batch_start)
+        ctx = self._attend(q, k, v, self.relative_emb_table, lengths, rate, seed, batch_start)
         return dense(ctx.reshape(batch, seq_len, -1), self.output, self.dtype)
+
+    def _attend(self, q, k, v, table, lengths, rate, seed, batch_start, head_start=0):
+        if self.attention_impl == "pallas":
+            return relative_attention(q, k, v, table, self.geometry, lengths, rate, seed,
+                                      device=q.device.type, batch_start=batch_start,
+                                      head_start=head_start)
+        ctx, _ = relative_attention_plain(q, k, v, table, self.geometry, lengths, rate, seed,
+                                          batch_start=batch_start, head_start=head_start)
+        return ctx
+
+    def _sharded(self, x, lengths, rate, seed, batch_start):
+        """The head-sharded forward: each rank's heads, their partial output
+        projections summed over the model axis, then the bias."""
+        tp, dt = self.tp, self.dtype
+        batch, seq_len, _ = x.shape
+        heads = self.num_heads // tp.size
+        x = tp.copy(x.to(dt))
+        partials = []
+        for i, rank in enumerate(tp.ranks):
+            q, k, v = (F.linear(x, tp.piece(m.weight, i).to(dt), tp.piece(m.bias, i).to(dt))
+                       .view(batch, seq_len, heads, self.head_dim)
+                       for m in (self.query, self.key, self.value))
+            table = self.relative_emb_table
+            if table is not None:
+                table = table[:, rank * heads:(rank + 1) * heads]
+            ctx = self._attend(q, k, v, table, lengths, rate, seed, batch_start, rank * heads)
+            partials.append(F.linear(ctx.reshape(batch, seq_len, -1),
+                                     tp.piece(self.output.weight, i, 1).to(dt)))
+        return (tp.reduce(partials) + self.output.bias.to(dt)).to(dt)
 
 
 class RelativeTransformerLayer(nn.Module):
@@ -156,10 +191,19 @@ class RelativeTransformerLayer(nn.Module):
         self.ffn_layer_norm = nn.LayerNorm(hidden_size, eps=1e-12, device=device)
         self.intermediate = linear(hidden_size, intermediate_size, device=device)
         self.ffn_output = linear(intermediate_size, hidden_size, device=device)
+        self.tp = None  # a parallel.param_sharding.TensorParallel once the FFN is sharded
 
     def _ffn(self, h: torch.Tensor) -> torch.Tensor:
-        h = gelu(dense(h, self.intermediate, self.dtype))
-        return dense(h, self.ffn_output, self.dtype)
+        if self.tp is None:
+            h = gelu(dense(h, self.intermediate, self.dtype))
+            return dense(h, self.ffn_output, self.dtype)
+        tp, dt = self.tp, self.dtype
+        h = tp.copy(h.to(dt))
+        partials = [F.linear(gelu(F.linear(h, tp.piece(self.intermediate.weight, i).to(dt),
+                                           tp.piece(self.intermediate.bias, i).to(dt))),
+                             tp.piece(self.ffn_output.weight, i, 1).to(dt))
+                    for i in range(len(tp.ranks))]
+        return (tp.reduce(partials) + self.ffn_output.bias.to(dt)).to(dt)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 seeds: Optional[LayerSeeds] = None) -> torch.Tensor:
@@ -196,14 +240,26 @@ class RelativeTransformerLayers(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 rngs: Optional[DropoutRngs] = None) -> torch.Tensor:
+        return self.apply_layers(x, lengths, self.layer_seeds(rngs), range(len(self.layers)),
+                                 self.remat)
+
+    def layer_seeds(self, rngs: Optional[DropoutRngs] = None) -> list:
+        """Every layer's seeds for one call, in layer order (None each in
+        ``eval()`` mode), drawn before any runs, so that a recompute replays
+        them."""
         rngs = rngs or DropoutRngs()
-        for layer in self.layers:
-            # Drawn before the call, so that a recompute replays them.
-            seeds = rngs.layer_seeds() if self.training else None
-            if self.remat and torch.is_grad_enabled():
+        return [rngs.layer_seeds() if self.training else None for _ in self.layers]
+
+    def apply_layers(self, x: torch.Tensor, lengths: torch.Tensor, seeds: list, indices,
+                     remat: bool) -> torch.Tensor:
+        """Layers ``indices`` (in order) on x, layer i with ``seeds[i]``;
+        ``remat`` recomputes each one's forward in the backward."""
+        for i in indices:
+            layer = self.layers[i]
+            if remat and torch.is_grad_enabled():
                 # The layer draws nothing from torch's default generators.
-                x = checkpoint(layer, x, lengths, seeds, use_reentrant=False,
+                x = checkpoint(layer, x, lengths, seeds[i], use_reentrant=False,
                                preserve_rng_state=False)
             else:
-                x = layer(x, lengths, seeds)
+                x = layer(x, lengths, seeds[i])
         return x

@@ -42,7 +42,10 @@ Public pieces:
   rows than keys) apart; a call whose only offset is ``batch_start`` runs
   the ordinary schedule and counts as dense or windowed:
   ``relative_attention_forward.launches`` / ``.launches_window`` /
-  ``.launches_offset`` and ``relative_attention_backward``'s three.
+  ``.launches_offset`` and ``relative_attention_backward``'s three; a
+  launch on a tensor-parallel head shard with a nonzero ``head_start`` is
+  counted again in ``.launches_head_shard`` (the shard at head 0 is the
+  ordinary call on its heads, as a sequence shard at offset 0 is).
 * ``relative_attention_plain`` / ``relative_attention_backward_plain``
   are the plain PyTorch versions: dense formulas over the materialised id
   map and pattern mask, chunked over the batch.
@@ -83,6 +86,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -306,13 +310,22 @@ def dropout_tile(seed, batch_idx, head, q_base, k_base, shape, rate: float) -> t
 
 
 def _dropout_block(seed, batch_ids: torch.Tensor, num_heads: int, q_pos: torch.Tensor,
-                   k_pos: torch.Tensor, rate: float) -> torch.Tensor:
-    """[b, H, S_q, S_k] keep factors for the (global) examples ``batch_ids``."""
+                   k_pos: torch.Tensor, rate: float, head_start: int = 0) -> torch.Tensor:
+    """[b, H, S_q, S_k] keep factors for the (global) examples ``batch_ids``
+    and the global heads ``[head_start, head_start + H)``."""
     dev = batch_ids.device
-    heads = torch.arange(num_heads, dtype=torch.int64, device=dev)
+    heads = torch.arange(num_heads, dtype=torch.int64, device=dev) + head_start
     seeds = example_seed(seed, batch_ids.to(torch.int64))
     return dropout_keep(seeds[:, None, None, None], heads[None, :, None, None],
                         q_pos.long()[:, None], k_pos.long()[None, :], rate)
+
+
+def head_seed(seed, head_start: int) -> int:
+    """The int32 seed whose hash at local head h is ``seed``'s at global head
+    ``head_start + h``: the hash adds ``head * 0x27D4EB2D`` to the example's
+    seed (mod 2**32), so a head offset folds into the seed and the kernels
+    take a head shard unchanged."""
+    return _int32(int(seed) + head_start * _HASH_HEAD)
 
 
 def _check_offsets(q_start: int, k_start: int, batch_start: int) -> None:
@@ -393,6 +406,7 @@ def relative_attention_plain(
     q_start: int = 0,
     k_start: int = 0,
     batch_start: int = 0,
+    head_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense masked relative attention -> (o [B,S_q,H,D] q.dtype, lse [B,H,S_q] fp32).
 
@@ -405,7 +419,8 @@ def relative_attention_plain(
     logits.  Differentiable by autograd.  ``q_start``, ``k_start`` and
     ``batch_start`` place q, k and the batch in the global sequence and
     batch (module docstring); a real row with no live key in k gives o =
-    0 and lse = -inf.
+    0 and lse = -inf.  ``head_start``: the global index of q's first head,
+    which the dropout hash takes (a tensor-parallel head shard).
     """
     _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
@@ -433,7 +448,7 @@ def relative_attention_plain(
             rows = torch.arange(batch_start + b0, batch_start + b0 + probs.shape[0],
                                 device=q.device)
             probs = probs * _dropout_block(dropout_seed, rows, num_heads, q_pos, k_pos,
-                                           dropout_rate)
+                                           dropout_rate, head_start)
         probs = probs.to(q.dtype)
         o = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v[sl].float()).to(q.dtype)
         if offsets:  # rows whose chunk holds no live key contribute nothing
@@ -461,6 +476,7 @@ def relative_attention_backward_plain(
     q_start: int = 0,
     k_start: int = 0,
     batch_start: int = 0,
+    head_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Dense backward -> (dq [B,S_q,H,D], dk, dv [B,S_k,H,D] in q.dtype, drel
     [V,H,D] in the table's dtype or None).
@@ -482,7 +498,7 @@ def relative_attention_backward_plain(
     is clamped to 3e38, as the kernels do.  Chunked over the batch like
     the forward.  Offsets as in ``relative_attention_plain``: with a chunk
     of keys and the global ``lse`` (the ring schedule), these are the
-    chunk's terms of the gradients.
+    chunk's terms of the gradients; ``head_start`` as there too.
 
     Args:
       q, do: <float>[B, S_q, H, D]; k, v: <float>[B, S_k, H, D].
@@ -522,7 +538,8 @@ def relative_attention_backward_plain(
         if dropout_rate > 0.0:
             rows = torch.arange(batch_start + b0, batch_start + b0 + p.shape[0],
                                 device=q.device)
-            keep = _dropout_block(dropout_seed, rows, num_heads, q_pos, k_pos, dropout_rate)
+            keep = _dropout_block(dropout_seed, rows, num_heads, q_pos, k_pos, dropout_rate,
+                                  head_start)
             dp = dp * keep
             p_v = p * keep
             del keep
@@ -985,7 +1002,12 @@ def _refuse_grad(*tensors) -> None:
 # 0), then the offsets, which default to 0 (an artifact exported before
 # they existed calls the op without them).  ``kernel_table`` is the table in
 # the kernels' layout when the caller built it (CUDA only); the kernel
-# builds it from ``rel_table`` otherwise.
+# builds it from ``rel_table`` otherwise.  The op's arguments do not hold
+# ``head_start`` (it is folded into the seed), so the launcher marks a
+# head-shard call in ``_head_shard_call`` for the CUDA version to count; a
+# traced call (the fake version) launches nothing and counts nothing.
+
+_head_shard_call = threading.local()
 
 
 @torch.library.custom_op("mmt_tpu_torch::rel_attention_fwd", mutates_args=(),
@@ -1029,6 +1051,8 @@ def _rel_attention_fwd_op(
         relative_attention_forward.launches_window += 1
     else:
         relative_attention_forward.launches += 1
+    if getattr(_head_shard_call, "active", False):
+        relative_attention_forward.launches_head_shard += 1
     return o, lse
 
 
@@ -1067,6 +1091,7 @@ def relative_attention_forward(
     q_start: int = 0,
     k_start: int = 0,
     batch_start: int = 0,
+    head_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused relative attention forward -> (o [B,S_q,H,D], lse [B,H,S_q] fp32).
 
@@ -1093,6 +1118,11 @@ def relative_attention_forward(
       q_start, k_start, batch_start: the global positions of q's first row
         and k's first key (multiples of 64 on the card) and the global
         index of the first example (module docstring).
+      head_start: the global index of q's first head for a tensor-parallel
+        head shard; the dropout hash takes global heads, so it is folded
+        into the seed (``head_seed``) and the kernel runs unchanged.  A
+        launch with a nonzero ``head_start`` also counts in
+        ``.launches_head_shard``.
     """
     _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
@@ -1108,14 +1138,19 @@ def relative_attention_forward(
             kernel_table = _kernel_table(rel_table, kernel_table)
     else:
         geo_args, kernel_table = _geometry_args(rel_table, geometry), None
-    seed = int(dropout_seed) if dropout_rate > 0.0 else 0
-    return _rel_attention_fwd_op(q, k, v, rel_table, kernel_table, lengths, *geo_args,
-                                 float(dropout_rate), seed, q_start, k_start, batch_start)
+    seed = head_seed(dropout_seed, head_start) if dropout_rate > 0.0 else 0
+    _head_shard_call.active = bool(head_start)
+    try:
+        return _rel_attention_fwd_op(q, k, v, rel_table, kernel_table, lengths, *geo_args,
+                                     float(dropout_rate), seed, q_start, k_start, batch_start)
+    finally:
+        _head_shard_call.active = False
 
 
 relative_attention_forward.launches = 0
 relative_attention_forward.launches_window = 0
 relative_attention_forward.launches_offset = 0
+relative_attention_forward.launches_head_shard = 0
 
 
 def relative_attention_backward(
@@ -1135,6 +1170,7 @@ def relative_attention_backward(
     q_start: int = 0,
     k_start: int = 0,
     batch_start: int = 0,
+    head_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Fused relative attention backward -> (dq, dk, dv, drel).
 
@@ -1146,14 +1182,16 @@ def relative_attention_backward(
     table's dtype (summed over the batch here, as
     ``pallas_attention.py:2972`` does), or None without a table.
     Arguments as in ``relative_attention_backward_plain``;
-    ``kernel_table`` and the offsets as in ``relative_attention_forward``
-    (dk, dv: [B, S_k, H, D]).
+    ``kernel_table`` and the offsets, ``head_start`` included, as in
+    ``relative_attention_forward`` (dk, dv: [B, S_k, H, D]).
     """
     _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
     _check_offsets(q_start, k_start, batch_start)
     dev = _check_devices(device, q=q, k=k, v=v, do=do, lse=lse, delta=delta,
                          lengths=lengths)
+    if dropout_rate > 0.0:
+        dropout_seed = head_seed(dropout_seed, head_start)
     if dev.type == "cpu":
         return relative_attention_backward_plain(q, k, v, do, lse, delta, rel_table,
                                                  geometry, lengths, dropout_rate,
@@ -1197,6 +1235,8 @@ def relative_attention_backward(
         relative_attention_backward.launches_window += 1
     else:
         relative_attention_backward.launches += 1
+    if head_start:
+        relative_attention_backward.launches_head_shard += 1
     drel = None
     if use_rel:
         drel = drel_b.sum(0)[:, :vocab].permute(1, 0, 2).to(rel_table.dtype)
@@ -1206,6 +1246,7 @@ def relative_attention_backward(
 relative_attention_backward.launches = 0
 relative_attention_backward.launches_window = 0
 relative_attention_backward.launches_offset = 0
+relative_attention_backward.launches_head_shard = 0
 
 
 # ------------------------------------------------------ differentiable op
@@ -1219,11 +1260,11 @@ class RelativeAttentionFunction(torch.autograd.Function):
     JAX residuals do; delta = rowsum(do * o) is computed here in plain
     torch, outside the kernels (``:2842``).  On CUDA the table's kernel
     layout is built once and kept for the backward.  ``offsets`` is
-    (q_start, k_start, batch_start)."""
+    (q_start, k_start, batch_start, head_start)."""
 
     @staticmethod
     def forward(ctx, q, k, v, rel_table, lengths, geometry, dropout_rate, dropout_seed,
-                device, offsets=(0, 0, 0)):
+                device, offsets=(0, 0, 0, 0)):
         kernel_table = None
         if rel_table is not None and torch.device(device).type == "cuda":
             kernel_table = kernel_rel_table(rel_table)
@@ -1262,6 +1303,7 @@ def relative_attention(
     q_start: int = 0,
     k_start: int = 0,
     batch_start: int = 0,
+    head_start: int = 0,
 ) -> torch.Tensor:
     """Fused, differentiable relative attention -> o [B, S_q, H, D] (q.dtype).
 
@@ -1273,7 +1315,9 @@ def relative_attention(
     adds the sliding-window + prefix-global pattern (it needs the table).
     On ``"cuda"`` the forward and backward run the Hopper kernels; on
     ``"cpu"`` their plain versions.  ``q_start``, ``k_start`` and
-    ``batch_start`` as in ``relative_attention_forward`` (JAX's ``qoff``).
+    ``batch_start`` as in ``relative_attention_forward`` (JAX's ``qoff``);
+    ``head_start`` (a tensor-parallel head shard: q, k, v hold heads
+    ``[head_start, head_start + H)`` and ``rel_table`` their slice) too.
     """
     _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
@@ -1281,5 +1325,5 @@ def relative_attention(
         rel_table = geometry = None
     o, _ = RelativeAttentionFunction.apply(q, k, v, rel_table, lengths, geometry,
                                            float(dropout_rate), dropout_seed, device,
-                                           (q_start, k_start, batch_start))
+                                           (q_start, k_start, batch_start, head_start))
     return o

@@ -5,9 +5,15 @@ n-device dry run): n ``gloo`` processes (``parallel.launch.run_local``)
 take one full pretraining step (MLM + MPP + ITM, two micro-batches, AdamW)
 at JAX's tiny geometry on a global batch of 4 n examples, first on an
 (n, 1) data x model mesh, then on its (n / 2, 2) variant with the
-parameters replicated over the model axis; then the ring-schedule
-sequence-sharded attention, forward and backward, over the model groups.
-Each variant prints its loss.
+parameters replicated over the model axis, then on that mesh with the
+parameters sharded over the model axis (``param_sharding.shard_params``,
+the tiny config's 2 heads -> tp = 2); then the ring-schedule
+sequence-sharded attention, forward and backward, over the model groups;
+then, at n >= 4, a 4-layer encoder pipelined over an (n / 4, 4) data x
+pipe mesh (one layer per stage, 2 micro-batches, remat), an MSE loss
+through the pipeline into an AdamW update
+(``__graft_entry__.py:338-382``).  Each variant prints its loss; the ranks
+must agree on every one.
 
     python -m mmt_tpu_torch.parallel.dryrun [n]
 """
@@ -19,13 +25,16 @@ import sys
 import numpy as np
 
 
+_TINY_ENCODER = dict(vocab_size=128, hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+                     intermediate_size=64, relative_pos_max_distance=3, relative_vocab_size=12,
+                     relative_att_num_core_layers=1, compute_dtype="float32")
+
+
 def _tiny_task():
     from mmt_tpu_torch.configs import PretrainingTaskConfig, TrainerConfig, override
     from mmt_tpu_torch.train.tasks import PretrainingTask
 
-    enc = dict(vocab_size=128, hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
-               intermediate_size=64, relative_pos_max_distance=3, relative_vocab_size=12,
-               relative_att_num_core_layers=1, compute_dtype="float32")
+    enc = _TINY_ENCODER
     cfg = override(PretrainingTaskConfig(), {
         "model": {"encoder": {"mmt": enc},
                   "cls_heads": [{"inner_dim": 32, "num_classes": 2, "name": "itm"}]},
@@ -65,13 +74,19 @@ def _rank_main(n: int) -> list:
     from mmt_tpu_torch.train.optimizer import create_optimizer
     from mmt_tpu_torch.train.train_state import TrainState
 
+    from mmt_tpu_torch.parallel.param_sharding import shard_params
+
     pm.init_distributed("cpu")
     batch = tiny_batch(4 * n)
     losses = []
-    layouts = [(n, 1)] + ([(n // 2, 2)] if n >= 2 and n % 2 == 0 else [])
-    for num_data, num_model in layouts:
+    layouts = [(n, 1, False)]
+    if n >= 2 and n % 2 == 0:
+        layouts += [(n // 2, 2, False), (n // 2, 2, True)]
+    for num_data, num_model, tp in layouts:
         mesh = pm.create_mesh(num_data, num_model)
         task = _tiny_task()
+        if tp:
+            shard_params(mesh, task.model)
         state = TrainState.create(task.model, create_optimizer(OptimizationConfig(), 10,
                                                                task.model))
         step = task.make_train_step(micro_batch_size=2 * n, mesh=mesh)
@@ -81,7 +96,7 @@ def _rank_main(n: int) -> list:
         loss = float(total / count)
         if not np.isfinite(loss):
             raise RuntimeError(f"non-finite loss {loss}")
-        losses.append(((num_data, num_model), loss))
+        losses.append(((num_data, num_model, tp), loss))
     if len(layouts) > 1:  # the ring over each model group, forward and backward
         rng = np.random.default_rng(1)
         B, S, H, D = num_data, 16 * num_model, 2, 16
@@ -101,7 +116,60 @@ def _rank_main(n: int) -> list:
         if not torch.isfinite(grads).all():
             raise RuntimeError("non-finite ring gradients")
         losses.append(("ring", float(out.detach().pow(2).mean())))
+    if n >= 4 and n % 4 == 0:
+        losses.append(("pipeline", _pipeline_step(n, batch)))
     return losses
+
+
+def _pipeline_step(n: int, batch: dict) -> float:
+    """One AdamW step of a 4-layer tiny encoder whose stack is pipelined
+    over an (n / 4, 4) data x pipe mesh; returns the global MSE loss."""
+    import torch
+
+    from mmt_tpu_torch.configs import OptimizationConfig
+    from mmt_tpu_torch.configs.encoder import MmtEncoderConfig
+    from mmt_tpu_torch.models import DropoutRngs, MmtEncoder
+    from mmt_tpu_torch.models.common import init_params
+    from mmt_tpu_torch.parallel import mesh as pm
+    from mmt_tpu_torch.parallel.pipeline import EncoderPipeline, P2PTransport
+    from mmt_tpu_torch.train.optimizer import create_optimizer
+    from mmt_tpu_torch.train.tasks import DataParallel, _pipe_gradients
+
+    mesh = pm.create_pipe_mesh(n // 4, 4)
+    encoder = MmtEncoder(MmtEncoderConfig(**{**_TINY_ENCODER, "num_hidden_layers": 4}),
+                         num_patch_per_row=2, patch_dim=768, device="cpu")
+    init_params(encoder, 3, encoder.config.initializer_range)
+    encoder.train()
+    optimizer = create_optimizer(OptimizationConfig(), 10, encoder)
+    local = pm.shard_batch(mesh, batch, "cpu")
+    rows, seq_len = local["word_ids"].shape
+    target = torch.tensor(np.random.default_rng(1).normal(
+        size=(4 * n, seq_len, encoder.config.hidden_size)).astype(np.float32))
+    target = target[mesh.data_rank * rows:(mesh.data_rank + 1) * rows]
+    transport = P2PTransport(mesh)
+    pipe = EncoderPipeline(encoder, transport, num_micro=2, remat=True)
+    rngs = DropoutRngs.for_step(1, 0, "cpu")
+
+    def inputs():
+        return encoder.transformer_inputs(local["word_ids"], local["segment_ids"],
+                                          local["patch_embeddings"], local["lengths"], rngs)[0]
+
+    def loss_fn(seq):  # this rank's share of the global mean
+        return ((seq - target) ** 2).sum() / target.numel() / mesh.num_data
+
+    loss = pipe.run(inputs, loss_fn, local["lengths"], seq_len, rngs, mesh.data_rank,
+                    mesh.num_data)
+    params = list(encoder.parameters())
+    _pipe_gradients(transport, params)
+    dp = DataParallel(mesh)
+    dp.gradients(params)
+    optimizer.step()
+    loss = transport.broadcast_from_last(
+        torch.zeros(()) if loss is None else loss.detach().clone())
+    loss = float(dp.all_reduce(loss))
+    if not np.isfinite(loss):
+        raise RuntimeError(f"non-finite pipelined loss {loss}")
+    return loss
 
 
 def dryrun_multichip(n_devices: int) -> None:
@@ -116,8 +184,13 @@ def dryrun_multichip(n_devices: int) -> None:
             continue
         if any(abs(o[1] - loss) > 1e-6 * max(1.0, abs(loss)) for o in others):
             raise RuntimeError(f"ranks disagree on the loss at {layout}: {[loss] + others}")
-        name = "dp" if layout[1] == 1 else "dp x model"
-        print(f"dryrun_multichip({n_devices}): {name} mesh {layout[0]}x{layout[1]} ok, "
+        if layout == "pipeline":
+            print(f"dryrun_multichip({n_devices}): dp x pp mesh {n_devices // 4}x4 pipelined "
+                  f"train ok, loss={loss:.4f}")
+            continue
+        num_data, num_model, tp = layout
+        name = "dp x tp" if tp else "dp" if num_model == 1 else "dp x model"
+        print(f"dryrun_multichip({n_devices}): {name} mesh {num_data}x{num_model} ok, "
               f"loss={loss:.4f}")
 
 

@@ -16,6 +16,12 @@ device (a rank), and the mesh is a pair of process-group families:
   (r // num_model, r % num_model); ``data_group`` holds the ranks of its
   column (one model index, every data index: gradients are summed there),
   ``model_group`` the ranks of its row (one data index).
+* ``create_pipe_mesh(num_data, num_pipe)`` lays the world out as JAX's
+  train CLI lays its ('data', 'pipe') mesh out (``mmt_tpu/cli/train.py:
+  174-185``): rank r at (r // num_pipe, r % num_pipe), ``num_data = 0``
+  meaning world / num_pipe; ``pipe_group`` holds the ranks of its row (the
+  stages of one pipeline, ``parallel/pipeline.py``), ``data_group`` those
+  of its column; the stages of a pipeline hold the same rows.
 * a rank holds its own slice of the global batch, which is process-major
   (data rank d holds global rows ``[d b, (d + 1) b)`` for a local batch of
   b rows), as ``make_array_from_process_local_data`` assembles it; ranks
@@ -96,21 +102,29 @@ def init_distributed(device="cuda") -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in the (data, model) grid and its two groups."""
+    """This rank's place in the (data, model) grid, or in the (data, pipe)
+    grid of a pipeline mesh, and its groups."""
 
     num_data: int
     num_model: int
     rank: int = 0
     data_group: Optional[object] = None
     model_group: Optional[object] = None
+    num_pipe: int = 1
+    pipe_group: Optional[object] = None
+    axis_names: tuple = ("data", "model")
 
     @property
     def data_rank(self) -> int:
-        return self.rank // self.num_model
+        return self.rank // (self.num_model * self.num_pipe)
 
     @property
     def model_rank(self) -> int:
         return self.rank % self.num_model
+
+    @property
+    def pipe_rank(self) -> int:
+        return self.rank % self.num_pipe
 
     @property
     def distributed(self) -> bool:
@@ -122,33 +136,49 @@ class Mesh:
         return self.rank == 0
 
 
+def _grid(num_data: int, num_other: int, name: str):
+    """(num_data, rank, data group, group of the second axis) of a
+    num_data x num_other grid over the world; rank r at (r // num_other, r
+    % num_other), groups None without a process group."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if num_other < 1:
+        raise ValueError(f"{name} must be >= 1, got {num_other}")
+    if num_data <= 0:
+        if world % num_other:
+            raise ValueError(f"{world} ranks not divisible by {name}={num_other}")
+        num_data = world // num_other
+    if num_data * num_other != world:
+        raise ValueError(f"a {num_data} x {num_other} mesh needs {num_data * num_other} ranks, "
+                         f"the world has {world}")
+    if not dist.is_initialized():
+        return num_data, 0, None, None
+    rank = dist.get_rank()
+    data_group = row_group = None
+    for j in range(num_other):  # every rank creates every group, in one order
+        g = dist.new_group([i * num_other + j for i in range(num_data)])
+        if rank % num_other == j:
+            data_group = g
+    for i in range(num_data):
+        g = dist.new_group([i * num_other + j for j in range(num_other)])
+        if rank // num_other == i:
+            row_group = g
+    return num_data, rank, data_group, row_group
+
+
 def create_mesh(num_data: int = 0, num_model: int = 1) -> Mesh:
     """The (data, model) mesh over the world (``mmt_tpu/parallel/mesh.py:
     create_mesh``).  Every rank must call it, in the same order as its other
     group creations."""
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    if num_model < 1:
-        raise ValueError(f"num_model must be >= 1, got {num_model}")
-    if num_data <= 0:
-        if world % num_model:
-            raise ValueError(f"{world} ranks not divisible by num_model={num_model}")
-        num_data = world // num_model
-    if num_data * num_model != world:
-        raise ValueError(f"a {num_data} x {num_model} mesh needs {num_data * num_model} ranks, "
-                         f"the world has {world}")
-    if not dist.is_initialized():
-        return Mesh(num_data, num_model)
-    rank = dist.get_rank()
-    data_group = model_group = None
-    for j in range(num_model):  # every rank creates every group, in one order
-        g = dist.new_group([i * num_model + j for i in range(num_data)])
-        if rank % num_model == j:
-            data_group = g
-    for i in range(num_data):
-        g = dist.new_group([i * num_model + j for j in range(num_model)])
-        if rank // num_model == i:
-            model_group = g
+    num_data, rank, data_group, model_group = _grid(num_data, num_model, "num_model")
     return Mesh(num_data, num_model, rank, data_group, model_group)
+
+
+def create_pipe_mesh(num_data: int = 0, num_pipe: int = 1) -> Mesh:
+    """The ('data', 'pipe') mesh of a pipelined run (module docstring).
+    Every rank must call it, in the same order as its other group
+    creations."""
+    num_data, rank, data_group, pipe_group = _grid(num_data, num_pipe, "num_pipe")
+    return Mesh(num_data, 1, rank, data_group, None, num_pipe, pipe_group, ("data", "pipe"))
 
 
 def local_batch_size(mesh: Mesh, global_batch_size: int) -> int:

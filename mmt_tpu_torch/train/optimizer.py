@@ -19,7 +19,9 @@ Under ZeRO-1 (``parallel/zero.py``'s ``shard_opt_state`` sets ``zero``)
 this rank keeps and updates only its slice of each moment whose leading
 dimension divides by the group's size, all-gathers the updated parameter
 slices, and ``state_dict`` / ``load_state_dict`` still carry the full
-(global) moments.
+(global) moments.  A parameter that holds one slice of a sharded tensor
+(``parallel/param_sharding.py``) carries ``norm_sum``, which the global
+norm of the clipping calls to sum its slices' squares over their group.
 """
 
 from __future__ import annotations
@@ -135,11 +137,20 @@ class AdamW:
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).float()
                  for n, p in self.params.items()}
         if self.global_clipnorm > 0:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+            norm = torch.sqrt(self._squared_norm(grads))
             clip = norm >= self.global_clipnorm
             grads = {n: torch.where(clip, g / norm * self.global_clipnorm, g)
                      for n, g in grads.items()}
         return grads
+
+    def _squared_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """|g|^2 over the whole model: the squares of the parameters that
+        carry a ``norm_sum`` are summed by it (module docstring)."""
+        parts: Dict = {}
+        for n, g in grads.items():
+            parts.setdefault(getattr(self.params[n], "norm_sum", None), []).append(
+                torch.sum(g * g))
+        return sum(sum(v) if f is None else f(sum(v)) for f, v in parts.items())
 
     @torch.no_grad()
     def step(self) -> None:

@@ -37,6 +37,27 @@ and sliced to the rank's, so every mask a rank applies is the one-process
 step's (each rank draws the whole micro-batch's masks, as one process
 would).
 
+Pipelined steps (``make_pipelined_train_step(mesh, num_micro, remat=True,
+zero1=False)`` on both tasks; ``parallel/pipeline.py``): on a ('data',
+'pipe') mesh the encoder's layer stack runs as a GPipe pipeline over the
+pipe group in ``num_micro`` micro-batches of the rank's rows, the
+embeddings on the first stage and the heads and the loss on the last, over
+the whole batch.  As in JAX's pipelined step, the loss is one weighted mean
+over the global batch (the weight sums all-reduced over the data group),
+one optimizer update per global batch; every gradient is summed over the
+pipe group (each stage holds only its part), then over the data group as
+above; with ``zero1`` the moments are sharded over the data group.  The
+embedding and head dropout draw from ``rngs.split(2)``, the same streams on
+every stage whichever process runs them, over the whole batch; the layers
+then split the host stream by micro-batch (``parallel/pipeline.py``).  The
+loss and metrics come from the last stage to every stage.  ``transport``
+(default: one stage per rank of the pipe group) may be
+``parallel.pipeline.InProcessTransport(S)``, all S stages in this process.
+Under tensor parallelism (``parallel.param_sharding.shard_params``) the
+same steps train the sharded model: ``DataParallel`` sums the relative
+tables' gradients over the model group and keeps the replicated
+parameters equal there.
+
 ``ClassificationTask`` builds the classification model of a
 ``ClassificationTaskConfig``:
 
@@ -68,6 +89,7 @@ from mmt_tpu_torch.configs.experiments import (
 from mmt_tpu_torch.device import resolve_device
 from mmt_tpu_torch.eval.predict import make_inference_step, scores_from_logits
 from mmt_tpu_torch.models import DropoutRngs, MmtClassificationModel, MmtPretrainingModel
+from mmt_tpu_torch.parallel.param_sharding import tp_param_kind
 from mmt_tpu_torch.train import losses as losses_lib
 from mmt_tpu_torch.train.metrics import weighted_accuracy
 from mmt_tpu_torch.train.train_state import TrainState
@@ -137,15 +159,31 @@ class DataParallel:
         return t
 
     def gradients(self, params) -> None:
-        """All-reduces the parameters' ``.grad`` in one flat buffer."""
+        """All-reduces the parameters' ``.grad`` over the data group in one
+        flat buffer.  With tensor-parallel parameters
+        (``parallel/param_sharding.py``) the relative tables' gradients are
+        first summed over the model group, and only the replicated
+        parameters take the model group's first rank's sums."""
         if self.data_group is None:
             return
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        flat = self.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
-        offset = 0
-        for p, g in zip(params, grads):
-            p.grad = flat[offset:offset + g.numel()].view_as(g)
-            offset += g.numel()
+        kinds = [tp_param_kind(p) for p in params]
+        if self.model_group is None or not any(kinds):
+            _set_grads(params, grads, self.all_reduce(_flat(grads)))
+            return
+        partial = [g for g, k in zip(grads, kinds) if k == "partial"]
+        if partial:
+            flat = _flat(partial)
+            dist.all_reduce(flat, group=self.model_group)
+            _set_grads([p for p, k in zip(params, kinds) if k == "partial"], partial, flat)
+            grads = [p.grad for p in params]
+        flat = _flat(grads)
+        dist.all_reduce(flat, group=self.data_group)
+        _set_grads(params, grads, flat)
+        replicated = [p for p, k in zip(params, kinds) if k != "shard"]
+        rep = _flat([p.grad for p in replicated])
+        dist.broadcast(rep, dist.get_global_rank(self.model_group, 0), group=self.model_group)
+        _set_grads(replicated, [p.grad for p in replicated], rep)
 
     def metrics(self, sums: Dict, device) -> Dict:
         """The metric pairs summed over the data group."""
@@ -157,6 +195,85 @@ class DataParallel:
                           torch.as_tensor(sums[n][1], device=device).float()])
              for n in names]))
         return {n: (flat[i, 0], flat[i, 1]) for i, n in enumerate(names)}
+
+
+def _flat(tensors) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _set_grads(params, like, flat: torch.Tensor) -> None:
+    """Each parameter's ``.grad`` as its slice of ``flat`` (shaped like
+    ``like``'s tensors)."""
+    offset = 0
+    for p, g in zip(params, like):
+        p.grad = flat[offset:offset + g.numel()].view_as(g)
+        offset += g.numel()
+
+
+def _pipe_gradients(transport, params) -> None:
+    """Sums the parameters' ``.grad`` over the pipe group: each stage holds
+    the gradients of its own layers (and the first the embeddings', the last
+    the heads'); nothing to do when this process runs every stage."""
+    if len(transport.stages) == transport.num_stages:
+        return
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    _set_grads(params, grads, transport.all_reduce(_flat(grads)))
+
+
+def _make_pipelined_step(task, mesh, num_micro: int, remat: bool, zero1: bool, transport):
+    """The pipelined train step of ``task`` (``make_pipelined_train_step``)."""
+    from mmt_tpu_torch.parallel.pipeline import EncoderPipeline, P2PTransport, check_pipe_mesh
+    from mmt_tpu_torch.parallel.zero import shard_opt_state
+
+    check_pipe_mesh(mesh)
+    transport = transport if transport is not None else P2PTransport(mesh)
+    pipe = EncoderPipeline(task.model.encoder, transport, num_micro, remat)
+    dp = DataParallel(mesh)
+    params = [p for p in task.model.parameters() if p.requires_grad]
+
+    def step(state: TrainState, batch, rngs: Optional[DropoutRngs] = None):
+        if zero1 and state.optimizer.zero is None:
+            shard_opt_state(mesh, state.optimizer)
+        word_ids = batch["word_ids"]
+        local, seq_len = word_ids.shape
+        embed_rngs = head_rngs = rngs
+        if rngs is not None:
+            # The embeddings (first stage) and the heads (last stage) draw their
+            # masks from streams of their own, split off the host stream alike
+            # on every stage: the heads' masks do not depend on which process
+            # ran the embeddings.  The layers' streams split from what follows.
+            embed_rngs, head_rngs = (
+                dataclasses.replace(r, batch_start=dp.data_rank * local,
+                                    batch_rows=dp.num_data * local) for r in rngs.split(2))
+        lengths = batch.get("lengths")
+        if lengths is None:
+            lengths = torch.full((local,), seq_len, dtype=torch.int32, device=word_ids.device)
+        weights = task.global_weights(batch, dp)
+        task.model.train()
+        inputs = {k: batch[k] for k in MODEL_INPUT_KEYS if k in batch}
+
+        def embeddings():
+            return task.model.encoder_inputs(**inputs, rngs=embed_rngs)[0]
+
+        def loss(sequence):
+            total, (_, metrics) = task.loss_from_outputs(
+                batch, task.head_outputs(sequence, batch, head_rngs), weights)
+            return total, metrics
+
+        result = pipe.run(embeddings, loss, lengths, seq_len, rngs, dp.data_rank, dp.num_data)
+        _pipe_gradients(transport, params)
+        dp.gradients(params)
+        state = state.apply_gradients()
+        sums: Dict = {}
+        if result is not None:
+            _add_pairs(sums, result[1], head=dp.data_rank == 0)
+            sums["total_loss"] = (result[0].detach(), torch.zeros((), device=task.device))
+        sums = transport.broadcast_metrics(sums, task.device)
+        sums = dp.metrics(sums, task.device)
+        sums["total_loss"] = (sums["total_loss"][0], torch.ones((), device=task.device))
+        return state, sums
+
+    return step
 
 
 def _add_pairs(sums: Dict, metrics: Mapping, head: bool = True) -> None:
@@ -224,6 +341,23 @@ class PretrainingTask:
             mpp_positions=batch.get("mpp_positions"),
             rngs=rngs,
         )
+        return self.loss_from_outputs(batch, outputs, weight_sums)
+
+    def head_outputs(self, sequence: torch.Tensor, batch: Mapping[str, torch.Tensor],
+                     rngs: Optional[DropoutRngs] = None) -> Dict[str, torch.Tensor]:
+        """The heads over a ready sequence output (the pipelined step's last
+        stage)."""
+        return self.model.head_outputs(sequence, batch.get("mlm_positions"),
+                                       batch.get("mpp_positions"), rngs)
+
+    def global_weights(self, batch: Mapping[str, torch.Tensor], dp: "DataParallel"):
+        """The losses' denominators over the global batch (``weight_sums``)."""
+        return dp.all_reduce(self.loss_weight_sums(batch))
+
+    def loss_from_outputs(self, batch: Mapping[str, torch.Tensor], outputs: Dict,
+                          weight_sums: Optional[torch.Tensor] = None,
+                          ) -> Tuple[torch.Tensor, Tuple[Dict, Dict]]:
+        """``compute_loss`` from the model's outputs."""
         has_itm = self._has_itm(batch)
         mlm_w, mpp_w = self._loss_weights(batch)
         den = [None] * 3 if weight_sums is None else list(weight_sums)
@@ -301,6 +435,13 @@ class PretrainingTask:
 
         return step
 
+    def make_pipelined_train_step(self, mesh, num_micro: int, remat: bool = True,
+                                  zero1: bool = False, transport=None):
+        """Returns (state, batch, rngs) -> (state, metric pairs) with the
+        encoder's layer stack GPipe-pipelined over ``mesh``'s pipe axis in
+        ``num_micro`` micro-batches (module docstring)."""
+        return _make_pipelined_step(self, mesh, num_micro, remat, zero1, transport)
+
     def make_eval_step(self, mesh=None):
         """Returns batch -> metric pairs, in eval mode, no grad; with
         ``mesh`` over the global batch whose slice this rank holds."""
@@ -354,6 +495,22 @@ class ClassificationTask:
         self.model.train(not deterministic)
         outputs = self.model(**{k: batch[k] for k in MODEL_INPUT_KEYS if k in batch},
                              rngs=rngs)
+        return self.loss_from_outputs(batch, outputs, weight_sum)
+
+    def head_outputs(self, sequence: torch.Tensor, batch: Mapping[str, torch.Tensor],
+                     rngs: Optional[DropoutRngs] = None) -> Dict[str, torch.Tensor]:
+        """The heads over a ready sequence output (the pipelined step's last
+        stage)."""
+        return self.model.head_outputs(sequence, rngs)
+
+    def global_weights(self, batch: Mapping[str, torch.Tensor], dp: "DataParallel"):
+        """The loss's denominator over the global batch (``weight_sum``)."""
+        return dp.all_reduce(torch.sum(batch["label_weights"].float()))
+
+    def loss_from_outputs(self, batch: Mapping[str, torch.Tensor], outputs: Dict,
+                          weight_sum: Optional[torch.Tensor] = None,
+                          ) -> Tuple[torch.Tensor, Tuple[Dict, Dict]]:
+        """``compute_loss`` from the model's outputs."""
         logits = outputs[self.logits_key]
         labels = batch["label_ids"]
         weights = batch["label_weights"]
@@ -373,11 +530,6 @@ class ClassificationTask:
         }
         return loss, (outputs, metrics)
 
-    def _weight_sum(self, batch, dp: DataParallel):
-        if dp.data_group is None:
-            return None
-        return dp.all_reduce(torch.sum(batch["label_weights"].float()))
-
     def make_train_step(self, mesh=None):
         """Returns (state, batch, rngs) -> (state, metric pairs): the whole
         batch in one forward and backward, then one optimizer update; with
@@ -392,7 +544,7 @@ class ClassificationTask:
                 rngs = dataclasses.replace(rngs, batch_start=dp.data_rank * local,
                                            batch_rows=dp.num_data * local)
             loss, (_, metrics) = self.compute_loss(batch, rngs, deterministic=False,
-                                                   weight_sum=self._weight_sum(batch, dp))
+                                                   weight_sum=self.global_weights(batch, dp))
             loss.backward()
             dp.gradients(params)
             state = state.apply_gradients()
@@ -405,6 +557,13 @@ class ClassificationTask:
 
         return step
 
+    def make_pipelined_train_step(self, mesh, num_micro: int, remat: bool = True,
+                                  zero1: bool = False, transport=None):
+        """Returns (state, batch, rngs) -> (state, metric pairs) with the
+        encoder's layer stack GPipe-pipelined over ``mesh``'s pipe axis in
+        ``num_micro`` micro-batches (module docstring)."""
+        return _make_pipelined_step(self, mesh, num_micro, remat, zero1, transport)
+
     def make_eval_step(self, mesh=None):
         """Returns batch -> (metric pairs, probabilities), in eval mode, no
         grad; the probabilities are the inference step's scores (this
@@ -414,7 +573,7 @@ class ClassificationTask:
         def step(batch):
             with torch.no_grad():
                 loss, (outputs, metrics) = self.compute_loss(
-                    batch, None, deterministic=True, weight_sum=self._weight_sum(batch, dp))
+                    batch, None, deterministic=True, weight_sum=self.global_weights(batch, dp))
             sums: Dict = {}
             _add_pairs(sums, metrics, head=dp.data_rank == 0)
             sums["total_loss"] = (loss, torch.zeros((), device=loss.device))

@@ -453,3 +453,38 @@ def test_ring_shards_assemble_the_unsharded_kernel(cuda):
         for b, n in enumerate(lengths):
             assert (o[b, :n].float() - o_u[b, :n].float()).abs().max().item() <= O_BOUND
             assert (lse[b, :, :n] - lse_u[b, :, :n]).abs().max().item() <= LSE_BOUND
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_head_shard_kernels_match_plain_and_the_unsharded_heads(cuda, rate):
+    """A tensor-parallel head shard (heads [2, 4) of 4, ``head_start`` 2):
+    the kernels against the plain versions with the explicit offset (the
+    launchers fold it into the seed), and o, lse, dk, dv bit-equal to the
+    unsharded calls' heads; launches counted in ``.launches_head_shard``."""
+    lengths = [512, 301, 70]
+    q, k, v, table, lens = _inputs(cuda, 3, 512, 4, 64, 49, lengths, seed=11)
+    seed = 4321 if rate else None
+    heads = slice(2, 4)
+    sq, sk, sv = (t[:, :, heads].contiguous() for t in (q, k, v))
+    st = table[:, heads].contiguous()
+    before = (fa.relative_attention_forward.launches_head_shard,
+              fa.relative_attention_backward.launches_head_shard)
+    o, lse = fa.relative_attention_forward(sq, sk, sv, st, FLAGSHIP, lens, "cuda", rate, seed,
+                                           head_start=2)
+    o_ref, lse_ref = fa.relative_attention_plain(sq, sk, sv, st, FLAGSHIP, lens, rate, seed,
+                                                 head_start=2)
+    _assert_forward_close(o, lse, o_ref, lse_ref, lengths)
+    o_u, lse_u = fa.relative_attention_forward(q, k, v, table, FLAGSHIP, lens, "cuda", rate, seed)
+    assert torch.equal(o, o_u[:, :, heads]) and torch.equal(lse, lse_u[:, heads])
+    do = torch.randn_like(o_u)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), o_u.float()).contiguous()
+    args = (sq, sk, sv, do[:, :, heads].contiguous(), lse, delta[:, heads].contiguous(), st,
+            FLAGSHIP, lens)
+    got = fa.relative_attention_backward(*args, "cuda", rate, seed, head_start=2)
+    _assert_grads_close(got, fa.relative_attention_backward_plain(*args, rate, seed,
+                                                                  head_start=2), lengths)
+    whole = fa.relative_attention_backward(q, k, v, do, lse_u, delta, table, FLAGSHIP, lens,
+                                           "cuda", rate, seed)
+    assert torch.equal(got[1], whole[1][:, :, heads]) and torch.equal(got[2], whole[2][:, :, heads])
+    assert (fa.relative_attention_forward.launches_head_shard,
+            fa.relative_attention_backward.launches_head_shard) == (before[0] + 1, before[1] + 1)

@@ -460,8 +460,11 @@ def test_cli_refuses_what_is_not_ported(records, tmp_path):
             f"--config_file={config}", "--device=cpu"]
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         main(base + ["--params_override=trainer.grad_accum_dtype=float16"])
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        main(base + ["--params_override=runtime.num_pipeline_stages=2"])
+    # The pipeline runs (tests/test_torch_multiprocess_cli.py); with model
+    # parallelism it raises JAX's ValueError (mmt_tpu/cli/train.py:170-174).
+    with pytest.raises(ValueError, match="mutually exclusive with num_model_parallel"):
+        main(base + ['--params_override={"runtime": {"num_pipeline_stages": 2, '
+                     '"num_model_parallel": 2}}'])
     # Model-parallel ranks run across processes now: one process cannot
     # hold a 1 x 2 mesh.
     with pytest.raises(ValueError, match="needs 2 ranks"):

@@ -9,6 +9,9 @@ Counterparts of ``tests/test_multihost.py``: each test runs
   ``params.yaml``, one summary line per step and the checkpoint, and each
   step's losses equal a one-process run's within 1e-6 relative (the ranks'
   dummy rows are the one-process batch's);
+* pipelined pretraining on four ranks (a 2 x 2 data x pipe mesh): one
+  summary row per step, the checkpoint, and the losses of one unpipelined
+  process;
 * a preemption signalled on rank 1 only checkpoints both ranks at the same
   step, and both exit through the CLI's preemption path;
 * ``train_and_eval`` with ``validation_steps`` 2: the AUC of the gathered
@@ -25,6 +28,7 @@ import pytest
 import torch
 
 from mmt_tpu_torch.parallel.launch import run_local
+from mmt_tpu_torch.train.checkpoint import CheckpointManager
 from tests import torch_gloo_workers
 from tests.test_torch_finetune import cli_yaml, write_paired_records, write_vocab
 
@@ -75,6 +79,41 @@ def test_two_process_training(tmp_path):
     state = torch.load(mp / "3" / "optimizer.pt", weights_only=True)
     ref = torch.load(sp / "3" / "optimizer.pt", weights_only=True)
     assert all(state["mu"][n].shape == ref["mu"][n].shape for n in ref["mu"])  # global moments
+
+
+def test_four_process_pipelined_pretraining(tmp_path):
+    """``runtime.num_pipeline_stages: 2`` on four ranks: a 2 x 2 ('data',
+    'pipe') mesh, 2 layers, 2 micro-batches, ZeRO-1 (the counterpart of
+    ``tests/test_train_cli_pretrain.py:86``).  Rank 0 writes one summary
+    row per step with every loss and accuracy finite, and the checkpoint at
+    the last step; each step's losses equal one unpipelined process's on
+    the same batches within 1e-5 (both are weighted means over the global
+    batch at dropout 0)."""
+    from mmt_tpu_torch.cli.train import main
+
+    cfg = json.loads(json.dumps(PRETRAIN))
+    cfg["task"]["model"]["encoder"]["mmt"]["num_hidden_layers"] = 2
+    config = tmp_path / "pretrain.json"
+    config.write_text(json.dumps(cfg))
+    piped = tmp_path / "piped.json"
+    piped.write_text(json.dumps({**cfg, "runtime": {"num_pipeline_stages": 2,
+                                                    "num_pipeline_microbatches": 2,
+                                                    "zero_sharded_optimizer": True}}))
+    run_local(torch_gloo_workers.run_cli, 4, "mmt_tpu_torch.cli.train",
+              _train_argv(piped, tmp_path / "pp"))
+    main(_train_argv(config, tmp_path / "sp"))
+    pp_dir, sp = tmp_path / "pp", tmp_path / "sp"
+    assert json.loads((pp_dir / "params.yaml").read_text())["runtime"]["num_pipeline_stages"] == 2
+    rows, want = _read_jsonl(pp_dir / "train_summaries.jsonl"), _read_jsonl(
+        sp / "train_summaries.jsonl")
+    assert [r["step"] for r in rows] == [1, 2, 3]
+    for key in ("total_loss", "mlm_loss", "mpp_loss", "itm_loss", "mlm_accuracy",
+                "mpp_accuracy", "itm_accuracy"):
+        assert all(np.isfinite(r[key]) for r in rows), key
+    for got, ref in zip(rows, want):
+        for key in ("total_loss", "mlm_loss", "mpp_loss", "itm_loss"):
+            np.testing.assert_allclose(got[key], ref[key], rtol=1e-5, atol=0, err_msg=key)
+    assert CheckpointManager(str(pp_dir)).latest_step() == 3
 
 
 def test_two_process_preemption_collective_save(tmp_path):

@@ -10,8 +10,10 @@
   ``opt_state_specs`` shards (leading dimension divisible).
 * ``train.tasks.micro_segments``: a rank's rows cut where the global
   micro-batches cut them.
+* ``parallel.mesh.create_pipe_mesh``: the JAX CLI's ('data', 'pipe') layout.
 * ``parallel.dryrun.dryrun_multichip(4)``: exits cleanly on four gloo
-  processes (the counterpart of ``__graft_entry__.dryrun_multichip``).
+  processes (the counterpart of ``__graft_entry__.dryrun_multichip``),
+  with its dp x tp and dp x pp variants.
 * the preemption rule in one process: the local flag, at every step.
 """
 
@@ -43,6 +45,24 @@ def test_rank_layout_is_jax_device_layout(layout):
             rank = int(devices[i, j].id)
             mesh = _fake_mesh(rank, num_data, num_model)
             assert (mesh.data_rank, mesh.model_rank) == (i, j)
+
+
+@pytest.mark.parametrize("layout", [(4, 2), (2, 4), (1, 8)])
+def test_pipe_mesh_layout_is_the_jax_cli_layout(layout):
+    """``create_pipe_mesh``: rank r at (r // num_pipe, r % num_pipe), as the
+    JAX CLI reshapes its devices into ('data', 'pipe')
+    (``mmt_tpu/cli/train.py:174-185``)."""
+    num_data, num_pipe = layout
+    devices = np.asarray(jax.devices()[:num_data * num_pipe]).reshape(num_data, num_pipe)
+    for i in range(num_data):
+        for j in range(num_pipe):
+            rank = int(devices[i, j].id)
+            mesh = pm.Mesh(num_data, 1, rank, num_pipe=num_pipe, axis_names=("data", "pipe"))
+            assert (mesh.data_rank, mesh.pipe_rank, mesh.model_rank) == (i, j, 0)
+    one = pm.create_pipe_mesh()
+    assert (one.axis_names, one.num_pipe, one.distributed) == (("data", "pipe"), 1, False)
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        pm.create_pipe_mesh(1, 2)
 
 
 @pytest.mark.parametrize("layout", [(4, 2), (2, 4)])
@@ -114,4 +134,5 @@ def test_dryrun_multichip_four_processes(capsys):
     dryrun_multichip(4)
     out = capsys.readouterr().out
     assert "dp mesh 4x1 ok" in out and "dp x model mesh 2x2 ok" in out
+    assert "dp x tp mesh 2x2 ok" in out and "dp x pp mesh 1x4 pipelined train ok" in out
     assert "ring sequence-sharded attention ok" in out

@@ -207,3 +207,143 @@ def run_cli(module: str, argv: list, scripted_preemption_rank=None) -> str:
     finally:
         logging.getLogger().removeHandler(handler)
     return {"log": log.getvalue(), "result": None if result is None else repr(type(result))}
+
+
+def _task(kind: str, task_cfg: dict, trainer: dict, state: dict):
+    task = _dropout_task(kind, task_cfg, trainer)
+    task.model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    return task
+
+
+def _recorded_optimizer(task):
+    """The task's AdamW, recording the gradients it steps on."""
+    from mmt_tpu_torch.train.optimizer import create_optimizer
+
+    optimizer = create_optimizer(task.trainer.optimizer_config, task.trainer.train_steps,
+                                 task.model)
+    grads, real_step = {}, optimizer.step
+
+    def recording_step():
+        grads.update({n: p.grad.numpy().copy() for n, p in task.model.named_parameters()})
+        real_step()
+
+    optimizer.step = recording_step
+    return optimizer, grads
+
+
+def _encoder(cfg: dict, state: dict):
+    from mmt_tpu_torch.configs.encoder import MmtEncoderConfig
+    from mmt_tpu_torch.models import MmtEncoder
+
+    encoder = MmtEncoder(MmtEncoderConfig(**cfg), num_patch_per_row=2,
+                         patch_dim=state["patch_embedding_projection.weight"].shape[1],
+                         device="cpu")
+    encoder.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    return encoder
+
+
+def _encoder_case(case: dict, mesh, transport) -> dict:
+    """One encoder case through ``transport``: the pipelined sequence output
+    on this rank's rows and, with a target, the gradients of the global MSE
+    summed over the pipe and data groups."""
+    from mmt_tpu_torch.parallel import pipeline as pp
+    from mmt_tpu_torch.parallel import mesh as pm
+    from mmt_tpu_torch.train.tasks import DataParallel, _pipe_gradients
+
+    transport = transport if transport is not None else pp.P2PTransport(mesh)
+    encoder = _encoder(case["config"], case["state"])
+    local = pm.shard_batch(mesh, case["batch"], "cpu")
+    out = {"out": _np(pp.pipelined_encoder_sequence_output(
+        encoder, local, mesh=mesh, num_micro=case["num_micro"], transport=transport))}
+    target = case.get("target")
+    if target is not None:
+        rows, seq_len = local["word_ids"].shape
+        tgt = torch.as_tensor(target[mesh.data_rank * rows:(mesh.data_rank + 1) * rows])
+        pipe = pp.EncoderPipeline(encoder, transport, case["num_micro"], case.get("remat", False))
+        pipe.run(lambda: encoder.transformer_inputs(
+                     local["word_ids"], local["segment_ids"], local["patch_embeddings"],
+                     local["lengths"])[0],
+                 lambda seq: ((seq - tgt) ** 2).sum() / target.size,
+                 local["lengths"], seq_len, None, mesh.data_rank, mesh.num_data)
+        params = list(encoder.parameters())
+        _pipe_gradients(transport, params)
+        DataParallel(mesh).gradients(params)
+        out["grads"] = {n: _np(p.grad) for n, p in encoder.named_parameters()}
+    return out
+
+
+def _step_case(case: dict, mesh, transport) -> dict:
+    """One pipelined train step of ``case``'s task through ``transport``:
+    its metric pairs, the gradients its optimizer got and the updated
+    parameters."""
+    from mmt_tpu_torch.models import DropoutRngs
+    from mmt_tpu_torch.parallel import mesh as pm
+    from mmt_tpu_torch.train.train_state import TrainState
+
+    task = _task(case["kind"], case["task_cfg"], case["trainer"], case["state"])
+    optimizer, grads = _recorded_optimizer(task)
+    step = task.make_pipelined_train_step(mesh, case["num_micro"], remat=case.get("remat", True),
+                                          zero1=case.get("zero1", False), transport=transport)
+    seed = case.get("seed")
+    rngs = DropoutRngs.for_step(seed, 0, "cpu") if seed is not None else None
+    _, metrics = step(TrainState.create(task.model, optimizer),
+                      pm.shard_batch(mesh, case["batch"], "cpu"), rngs)
+    return {"metrics": {n: (float(t), float(c)) for n, (t, c) in metrics.items()},
+            "grads": grads, "sharded_moments": len(optimizer.slices),
+            "params": {n: p.detach().numpy().copy() for n, p in task.model.named_parameters()}}
+
+
+def pipeline_cases(path: str) -> dict:
+    """Every case of ``path`` (a ``torch.save``d dict, see
+    ``test_torch_pipeline``) on its (num_data, num_pipe) pipe mesh, once
+    with one stage per rank (gloo point-to-point) and once with every stage
+    in this process (``InProcessTransport``): encoder cases give the
+    pipelined sequence output (and gradients), step cases a pipelined train
+    step."""
+    from mmt_tpu_torch.parallel import mesh as pm
+    from mmt_tpu_torch.parallel.pipeline import InProcessTransport
+
+    pm.init_distributed("cpu")
+    torch.set_num_threads(2)
+    torch.use_deterministic_algorithms(True)
+    cases = torch.load(path, weights_only=False)
+    meshes = {shape: pm.create_pipe_mesh(*shape)  # every rank, in one order
+              for shape in sorted({tuple(c["mesh"]) for c in cases.values()})}
+    out = {}
+    for name, case in cases.items():
+        mesh = meshes[tuple(case["mesh"])]
+        run = _encoder_case if case["type"] == "encoder" else _step_case
+        out[name] = {"p2p": run(case, mesh, None),
+                     "in_process": run(case, mesh, InProcessTransport(mesh.num_pipe))}
+    return out
+
+
+def tensor_parallel_cases(path: str) -> dict:
+    """Every case of ``path`` (a ``torch.save``d dict, see
+    ``test_torch_param_sharding``) on its (num_data, num_model) mesh with
+    the parameters sharded by ``shard_params``: the specs, this rank's
+    eval-mode logits and, after one train step on its rows, its metric
+    pairs and parameter slices."""
+    from mmt_tpu_torch.parallel import mesh as pm
+    from mmt_tpu_torch.parallel.param_sharding import shard_params
+    from mmt_tpu_torch.train.tasks import MODEL_INPUT_KEYS
+    from mmt_tpu_torch.train.train_state import TrainState
+
+    pm.init_distributed("cpu")
+    torch.use_deterministic_algorithms(True)
+    out = {}
+    for name, case in torch.load(path, weights_only=False).items():
+        mesh = pm.create_mesh(*case["mesh"])
+        task = _task(case["kind"], case["task_cfg"], case["trainer"], case["state"])
+        specs = shard_params(mesh, task.model)
+        local = pm.shard_batch(mesh, case["batch"], "cpu")
+        with torch.no_grad():
+            logits = task.model(**{k: local[k] for k in MODEL_INPUT_KEYS if k in local})
+        optimizer, _ = _recorded_optimizer(task)
+        step = task.make_train_step(mesh=mesh)
+        _, metrics = step(TrainState.create(task.model, optimizer), local)
+        out[name] = {"specs": specs, "logits": _np(logits["itm_logits"]),
+                     "metrics": {n: (float(t), float(c)) for n, (t, c) in metrics.items()},
+                     "params": {n: p.detach().numpy().copy()
+                                for n, p in task.model.named_parameters()}}
+    return out
