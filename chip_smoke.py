@@ -125,13 +125,19 @@ Phases, each printed as one JSON line:
    and ``head_start`` at the kernels' gates (the ``kernels`` line's error);
    the flagship forward (rate 0) and the micro-batch forward and backward,
    assembled, against the unsharded calls at the same gates (o, lse, dk, dv
-   expected bit-equal), ms per shard call against the unsharded call.  (b) One full-width layer
+   expected bit-equal), ms per shard call against the unsharded call; the
+   same for the windowed kernels at the 4k micro-batch (B=8, S=4096, w=512,
+   g=198, rate 0.1): each shard call against the plain version, o, lse, dk
+   and dv assembled bit-equal to the unsharded windowed calls, 4 windowed
+   launches of each, 3 of them head-shard launches.  (b) One full-width layer
    (the WIT model cut to 1 layer, train mode, dropout 0.1, B=64, S=256)
    sharded over 4 ranks in this process (``shard_params_in_process``; the
    30522-row vocabulary stays replicated): its output within
    TP_LAYER_OUT_BOUND of the unsharded layer's norm, every gradient within
    TRAIN_GRAD_BOUND, 4 launches of each kernel, 3 of them counted as
-   head-shard launches (a nonzero ``head_start``).  (c) The
+   head-shard launches (a nonzero ``head_start``); and the 4k window yaml's
+   layer (B=8, S=4096, no remat) the same way, 4 windowed launches of each
+   kernel, 3 of them head-shard launches.  (c) The
    pipelined WIT step (``make_pipelined_train_step`` with
    ``InProcessTransport(4)``: 4 stages of 3 layers, global batch 512 as 8
    micro-batches of 64, remat): at dropout 0 the loss within PP_LOSS_BOUND
@@ -196,7 +202,11 @@ Phases, each printed as one JSON line:
    times the bucket-32 artifact; against the direct inference step on the
    same examples the scores must lie within 4 bf16 spacings (equality is
    expected), the artifact within 1% of the parameters' bytes, and the
-   process must launch the forward kernel 12 times per fused call.
+   process must launch the forward kernel 12 times per fused call.  Also a
+   ``platforms=("cpu", "cuda")`` artifact at a static batch of 8, loaded
+   in that process: its cuda program's scores equal to the bundle's
+   bucket-8 artifact's, its CPU program (the parameters on the host, no
+   launch) within 4 bf16 spacings of them, the CPU call's seconds.
 25. finetune: Flickr30k ITM finetuning at full width through
    ``mmt_tpu_torch.cli.train.main`` in train_and_eval: seeded paired records
    (512 for training, 4 steps' worth at 128 records a step, and 128 for
@@ -247,7 +257,10 @@ Phases, each printed as one JSON line:
    second round.  Two lines with ``pretrain_step`` 0 and 1 and finite
    ``cls_accuracy``, ``cls_loss`` and ``auc``, the finetune phase's
    ``count_restored`` in each round, and 12 forward launches per step and
-   per eval batch and 12 backward launches per step.
+   per eval batch and 12 backward launches per step.  Then one round in a
+   one-rank nccl group (``continuous_in_group``: the launcher's environment
+   set, ZeRO-1 on, ``validation_steps`` 2): the same gates, its seconds
+   beside the one-process run's time to its first line.
 29. checkpoint: ``CheckpointManager.save`` of the WIT pretraining model and
    its AdamW state, synchronous and asynchronous in turns (sync, async,
    async, sync): the bytes, the ms the caller is blocked and the ms until
@@ -255,13 +268,15 @@ Phases, each printed as one JSON line:
    ones.
 30. grad_accum: one WIT pretraining step of 8 micro-batches of 64 (S=256,
    dropout 0.1, the same parameters, batch and seeds) with float32,
-   bfloat16, and again bfloat16 with every micro-batch's float32 gradient
-   recorded as the backward leaves it: that step's summed gradient equal,
-   bit for bit, to the bf16 sum of the recorded gradients, and per tensor
-   within 1e-2 of their float32 sum's norm (the same gradients, so the
-   backward's run-to-run spread drops out); the losses equal within 1e-5
-   relative (the same forward); the worst tensor and the card's peak
-   memory of each run, 12 launches of each kernel per micro-batch.
+   bfloat16, again bfloat16 with every micro-batch's float32 gradient
+   recorded as the backward leaves it, float16, and again float16 recorded:
+   each recorded step's summed gradient equal, bit for bit, to the sum in
+   its dtype of the recorded gradients; the bf16 one per tensor within 1e-2
+   of their float32 sum's norm (the same gradients, so the backward's
+   run-to-run spread drops out), the fp16 one's distance reported per
+   tensor with no limit; the losses equal within 1e-5 relative (the same
+   forward); the worst tensors and the card's peak memory of each run, 12
+   launches of each kernel per micro-batch.
 
 31. pretrain_records: WIT pretraining from records through
    ``mmt_tpu_torch.cli.train.main --experiment=mmt/pretraining`` in
@@ -271,8 +286,9 @@ Phases, each printed as one JSON line:
    attribution and reference captions of 8-40 words from the generated
    vocab) and ``wit_records_experiment``,
    configs/exp_yamls/pretrain/wit/mlm_itm_2d.yaml with only its schedule
-   cut (global batch 4096 in micro-batches of 64, RandAugment, dropout 0.1;
-   validation at the last step on 2 batches of 256).  Run twice: the loader
+   and depth cut (PR_LAYERS of its 12 layers; global batch 4096 in
+   micro-batches of 64, RandAugment, dropout 0.1; validation at the last
+   step on 2 batches of 256).  Run twice: the loader
    in the training process (2 steps), and in N processes (``num_workers``,
    N from the host's cores and available memory, ``choose_workers``; N + 1
    steps, since the first N batches arrive together).  Per run: the time
@@ -280,8 +296,9 @@ Phases, each printed as one JSON line:
    steady step and examples/s, the loader's share of a steady step (the
    loop's ``input_seconds``: records -> batches in the training process,
    or the wait for the workers), the peak host memory in use and the card's
-   peak, the validation metrics, 12 forward launches per micro-batch and
-   per validation batch and 12 backward launches per micro-batch.  Then a
+   peak, the validation metrics, a forward launch per layer per micro-batch
+   and per validation batch and a backward launch per layer per
+   micro-batch.  Then a
    profile of the loader's per-record work (``loader_profile``) and
    validation alone (records -> metrics).
 32. pretrain_records_profile: one optimizer step of a 4096-row batch of
@@ -2073,11 +2090,17 @@ EXPORT_REQUESTS = (1, 5, 8, 40)  # examples per bundle request
 EXPORT_BUCKETS = "1, 8,32,"  # as a user might type it
 EXPORT_XLA_BATCH, EXPORT_XLA_CALLS = 8, (3, 17)
 EXPORT_TIMED_CALLS = 10
+# The ("cpu", "cuda") artifact's static batch: a bucket of EXPORT_BUCKETS
+# and a request of EXPORT_REQUESTS, whose scores it must equal.
+EXPORT_PLATFORMS_BATCH = 8
 
 # The serving process: imports the export module alone, loads the static
 # artifact, the bundle and the xla artifact, scores, times the bundle's
 # calls of 32 examples (its bucket-32 artifact, host clock, the scores
-# copied back) and prints one JSON line.
+# copied back); loads the ("cpu", "cuda") artifact, scores the first rows
+# with each of its programs (cuda: the parameters on the card; cpu: on the
+# host), times the CPU call, checks that a call with the parameters on the
+# card and the rows on the host is refused, and prints one JSON line.
 EXPORT_SERVER = r"""
 import json, sys, time
 import numpy as np, torch
@@ -2104,6 +2127,21 @@ t0 = time.perf_counter()
 for _ in range(int(sys.argv[4])):
     bundle.call(params, b32)  # the bucket-32 artifact; scores back on the host
 out["bucket32_ms"] = (time.perf_counter() - t0) / int(sys.argv[4]) * 1e3
+two = load_scoring(open(root + "/two_platforms.pt2", "rb").read())
+rows = {k: v[:int(sys.argv[5])] for k, v in first.items()}
+out["platforms"] = two.platforms
+out["platforms_cuda"] = two.call(params, rows).float().cpu().tolist()
+host_params = {k: v.cpu() for k, v in params.items()}
+before = fa.relative_attention_forward.launches
+t0 = time.perf_counter()
+out["platforms_cpu"] = two.call(host_params, rows).float().tolist()
+out["platforms_cpu_seconds"] = time.perf_counter() - t0
+out["platforms_cpu_launches"] = fa.relative_attention_forward.launches - before
+try:  # the parameters on the card, the rows as host tensors: refused
+    two.call(params, {k: torch.from_numpy(v) for k, v in rows.items()})
+    out["platforms_mixed_refused"] = False
+except ValueError:
+    out["platforms_mixed_refused"] = True
 out["launches"] = fa.relative_attention_forward.launches
 out["launches_window"] = fa.relative_attention_forward.launches_window
 out["model_modules"] = sorted(m for m in sys.modules if m.startswith("mmt_tpu_torch.models"))
@@ -2165,14 +2203,20 @@ def phase_export() -> int:
         (root / "xla.pt2").write_bytes(export.export_scoring(
             xla_task, params, {k: v[:EXPORT_XLA_BATCH] for k, v in first.items()}))
         seconds["xla"] = time.perf_counter() - t0
+        rows = {k: v[:EXPORT_PLATFORMS_BATCH] for k, v in first.items()}
+        t0 = time.perf_counter()
+        (root / "two_platforms.pt2").write_bytes(export.export_scoring(
+            task, params, rows, platforms=("cpu", "cuda"), symbolic_batch=False))
+        seconds["two_platforms"] = time.perf_counter() - t0
         sizes = {name: Path(root, name).stat().st_size
-                 for name in ("artifact.pt2", "bundle.zip", "xla.pt2")}
+                 for name in ("artifact.pt2", "bundle.zip", "xla.pt2", "two_platforms.pt2")}
 
         reset_launch_counts()
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-c", EXPORT_SERVER, str(root), json.dumps(EXPORT_REQUESTS),
-             json.dumps(EXPORT_XLA_CALLS), str(EXPORT_TIMED_CALLS)],
+             json.dumps(EXPORT_XLA_CALLS), str(EXPORT_TIMED_CALLS),
+             str(EXPORT_PLATFORMS_BATCH)],
             cwd=REPO, capture_output=True, text=True, timeout=600)
         seconds["server"] = time.perf_counter() - t0
     if proc.returncode:
@@ -2196,10 +2240,26 @@ def phase_export() -> int:
     for _ in range(EXPORT_TIMED_CALLS):
         step(b32).cpu()  # as the bundle's call: scores back on the host
     eager32_ms = (time.perf_counter() - t0) / EXPORT_TIMED_CALLS * 1e3
+    # The ("cpu", "cuda") artifact: its cuda program equal to the
+    # one-platform artifact at that batch (the bundle's bucket of that
+    # size, a request of that size), its CPU program within SCORE_BOUND of
+    # them.
+    cuda_scores = np.asarray(served["platforms_cuda"])
+    platforms = {
+        "platforms": served["platforms"], "batch": EXPORT_PLATFORMS_BATCH,
+        "cuda_equal_to_one_platform": bool(np.array_equal(
+            cuda_scores, served["bundle"][str(EXPORT_PLATFORMS_BATCH)])),
+        "cpu_max_abs_err_vs_cuda": float(np.abs(np.asarray(served["platforms_cpu"])
+                                                - cuda_scores).max()),
+        "cpu_call_seconds": served["platforms_cpu_seconds"],
+        "cpu_call_launches": served["platforms_cpu_launches"],
+        "mixed_devices_refused": served["platforms_mixed_refused"],
+        "export_seconds": seconds["two_platforms"], "bytes": sizes["two_platforms.pt2"]}
     # Fused-attention calls in the serving process: the static artifact
     # once, the bundle once per chunk (1, 8, 8, 32 + 8), the bucket-32
-    # artifact 1 + EXPORT_TIMED_CALLS times; 12 layers each.
-    calls = 1 + 5 + 1 + EXPORT_TIMED_CALLS
+    # artifact 1 + EXPORT_TIMED_CALLS times, the two-platform artifact's
+    # cuda program once; 12 layers each.
+    calls = 1 + 5 + 1 + EXPORT_TIMED_CALLS + 1
     emit({"phase": "export", "batch": CLI_BATCH, "seq_len": CLI_SEQ,
           "buckets": EXPORT_BUCKETS, "requests": list(EXPORT_REQUESTS),
           "xla_export_batch": EXPORT_XLA_BATCH, "xla_calls": list(EXPORT_XLA_CALLS),
@@ -2208,12 +2268,20 @@ def phase_export() -> int:
           "max_abs_err": errors, "bound": SCORE_BOUND,
           "bucket32_ms": served["bucket32_ms"], "eager32_ms": eager32_ms,
           "load_seconds": served["load_seconds"], "seconds": seconds,
+          "two_platform_artifact": platforms,
           "launches": served["launches"], "expected_launches": 12 * calls})
     if served["launches"] != 12 * calls or served["launches_window"]:
         raise AssertionError(f"{served['launches']} launches in the serving process, "
                              f"expected 12 x {calls}")
     if not max(errors.values()) <= SCORE_BOUND:
         raise AssertionError(f"served scores differ from the inference step: {errors}")
+    if served["platforms"] != ["cpu", "cuda"] or not platforms["cuda_equal_to_one_platform"] \
+            or served["platforms_cpu_launches"] or not served["platforms_mixed_refused"]:
+        raise AssertionError(f"the two-platform artifact: {platforms}")
+    if not platforms["cpu_max_abs_err_vs_cuda"] <= SCORE_BOUND:
+        raise AssertionError(f"the two-platform artifact's CPU program is "
+                             f"{platforms['cpu_max_abs_err_vs_cuda']} from its cuda program's "
+                             f"scores, over {SCORE_BOUND}")
     if not sizes["artifact.pt2"] <= 0.01 * param_bytes:
         raise AssertionError(f"the artifact holds {sizes['artifact.pt2']} bytes, over 1% "
                              f"of the {param_bytes} parameter bytes")
@@ -2869,8 +2937,9 @@ def phase_finetune_reference(root: Path, batch):
 # continuous_train_and_eval of the finetune yaml at CONT_STEPS steps a
 # round: the CLI's watch ends CONT_TIMEOUT_S after it started and polls every
 # CONT_POLL_S (3600 s and 10 s in the CLI), which leaves room for two rounds
-# and the second checkpoint's save between them.
-CONT_STEPS, CONT_TIMEOUT_S, CONT_POLL_S = 2, 30.0, 1.0
+# and the second checkpoint's save between them (the second round starts
+# ~7 s into the watch, and once started it runs past the deadline).
+CONT_STEPS, CONT_TIMEOUT_S, CONT_POLL_S = 2, 16.0, 1.0
 # grad_accum: one step of GA_MICRO_BATCHES micro-batches of TRAIN_MICRO;
 # the bf16 sum makes 8 roundings of ~2**-9 relative each, held against the
 # float32 sum of the same micro-batch gradients.
@@ -2951,10 +3020,77 @@ def phase_continuous(root: Path, expected_restored: int):
         raise AssertionError(f"count_restored {restored}, expected {expected_restored} a round")
     if counts != expected:
         raise AssertionError(f"continuous launches {counts}, expected {expected}")
+    group, group_counts = continuous_in_group(config, pre_dir, root / "continuous_group",
+                                              expected_restored, layers, eval_batches)
+    emit({"phase": "continuous_group", **group,
+          "one_process_first_line_s": timeline["first_line_s"]})
     shutil.rmtree(pre_dir)
     shutil.rmtree(model_dir)
     torch.cuda.empty_cache()
-    return counts
+    return {k: counts[k] + group_counts[k] for k in counts}
+
+
+def continuous_in_group(config: Path, pre_dir: Path, model_dir: Path, expected_restored: int,
+                        layers: int, eval_batches: int):
+    """One round of ``--mode=continuous_train_and_eval`` through
+    ``cli.train.main`` inside a one-rank nccl group (the launcher's
+    environment set as ``data_parallel_world1`` sets it; the CLI opens the
+    group and this function ends it), ZeRO-1 on, on the latest checkpoint
+    of ``pre_dir``: rank 0's polls broadcast on the card, the sharded
+    optimizer, the step-major validation gather.  The watch ends right
+    after the round.  Returns its numbers (the run's seconds: the CLI's
+    start-up and the round) and launches."""
+    import os
+
+    import torch.distributed as dist
+
+    from mmt_tpu_torch.cli import train as cli_train
+    from mmt_tpu_torch.parallel import launch
+
+    override = json.dumps({"runtime": {"zero_sharded_optimizer": True},
+                           "trainer": {"validation_steps": eval_batches}})
+    saved = cli_train.CONTINUOUS_TIMEOUT_S, cli_train.CONTINUOUS_POLL_S
+    cli_train.CONTINUOUS_TIMEOUT_S, cli_train.CONTINUOUS_POLL_S = 1e-3, CONT_POLL_S
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(launch.free_port()))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        log = run_train_cli(config, model_dir, mode="continuous_train_and_eval",
+                            extra=[f"--pretrain_model_dir={pre_dir}",
+                                   f"--params_override={override}"])
+        run_s = time.perf_counter() - t0
+        backend = dist.get_backend() if dist.is_initialized() else None
+    finally:
+        cli_train.CONTINUOUS_TIMEOUT_S, cli_train.CONTINUOUS_POLL_S = saved
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(key, None)
+    counts = launch_counts()
+    lines = read_jsonl(model_dir / "continuous_results.jsonl")
+    restored = [int(line.split("count_restored=")[1].split()[0])
+                for line in log if "continuous finetune @" in line and "count_restored=" in line]
+    mesh_log = [line for line in log if line.startswith("mesh: ")]
+    expected = {"fwd": layers * (CONT_STEPS + eval_batches), "fwd_window": 0,
+                "bwd": layers * CONT_STEPS, "bwd_window": 0, "fwd_offset": 0, "bwd_offset": 0}
+    latest = max(int(p.name) for p in pre_dir.iterdir() if p.name.isdigit())
+    result = {"backend": backend, "world_size": 1, "zero_sharded_optimizer": True,
+              "run_seconds": run_s, "results": lines, "count_restored": restored,
+              "mesh_log": mesh_log, "launches": counts, "expected_launches": expected}
+    if backend != "nccl":
+        raise AssertionError(f"the continuous group run's backend is {backend}")
+    if [l["pretrain_step"] for l in lines] != [latest] or not all(
+            math.isfinite(l[k]) for l in lines for k in ("cls_accuracy", "cls_loss", "auc")):
+        raise AssertionError(f"continuous group results {lines}, expected one round on {latest}")
+    if restored != [expected_restored]:
+        raise AssertionError(f"continuous group count_restored {restored}, expected "
+                             f"[{expected_restored}]")
+    if counts != expected:
+        raise AssertionError(f"continuous group launches {counts}, expected {expected}")
+    shutil.rmtree(model_dir)
+    return result, counts
 
 
 def phase_checkpoint(root: Path) -> None:
@@ -3029,21 +3165,21 @@ class GradKeeper:
 class MicroGradSums:
     """Post-accumulate-grad hooks on every parameter of ``model``: each
     gradient the backward leaves in ``.grad`` is added to a float32 sum and,
-    rounded to bfloat16, to a bfloat16 sum.  In a step that accumulates in
-    bfloat16 ``.grad`` is cleared after every micro-batch, so the hooks see
-    each micro-batch's gradient."""
+    rounded to ``low`` (bfloat16 or float16), to a sum in ``low``.  In a
+    step that accumulates in ``low`` ``.grad`` is cleared after every
+    micro-batch, so the hooks see each micro-batch's gradient."""
 
-    def __init__(self, model):
+    def __init__(self, model, low=torch.bfloat16):
         self.params = dict(model.named_parameters())
         self.f32 = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params.items()}
-        self.bf16 = {n: torch.zeros_like(p, dtype=torch.bfloat16) for n, p in self.params.items()}
+        self.low = {n: torch.zeros_like(p, dtype=low) for n, p in self.params.items()}
         self.handles = [p.register_post_accumulate_grad_hook(self._hook(n))
                         for n, p in self.params.items()]
 
     def _hook(self, name):
         def hook(p):
             self.f32[name] += p.grad
-            self.bf16[name] += p.grad.to(torch.bfloat16)
+            self.low[name] += p.grad.to(self.low[name].dtype)
         return hook
 
     def remove(self):
@@ -3053,17 +3189,19 @@ class MicroGradSums:
 
 def phase_grad_accum():
     """One WIT pretraining step of GA_MICRO_BATCHES micro-batches of 64 (the
-    same parameters, batch and dropout seed) with float32, bfloat16, and
-    again bfloat16 under ``MicroGradSums``.  That step's summed gradient
-    must equal the bf16 sum of the micro-batches' gradients it recorded bit
-    for bit, and lie per tensor within GA_GRAD_REL_BOUND of their float32
-    sum's norm (``gradient_errors``' rule: the key bias against the query
-    bias's norm); both sums are of the same gradients, so the backward's
-    run-to-run spread drops out.  The losses within GA_LOSS_REL_BOUND
-    relative: the three steps drove the same forward (the accumulation
-    starts after the loss).  Reports the worst tensors, the float32 step's
-    distance from the bfloat16 step (run-to-run spread included) and the
-    peak memory of the first two runs; returns the launches."""
+    same parameters, batch and dropout seed) with float32, bfloat16, again
+    bfloat16 under ``MicroGradSums``, float16, and again float16 under
+    ``MicroGradSums``.  Each recorded step's summed gradient must equal the
+    sum in its dtype of the micro-batches' gradients it recorded bit for
+    bit; the bf16 one must lie per tensor within GA_GRAD_REL_BOUND of their
+    float32 sum's norm (``gradient_errors``' rule: the key bias against the
+    query bias's norm), the fp16 one's distance is reported with no limit;
+    both sums are of the same gradients, so the backward's run-to-run
+    spread drops out.  The losses within GA_LOSS_REL_BOUND relative: the
+    steps drove the same forward (the accumulation starts after the loss).
+    Reports the worst tensors, the float32 step's distance from the
+    bfloat16 step (run-to-run spread included) and the peak memory of the
+    unrecorded runs; returns the launches."""
     from mmt_tpu_torch.models import DropoutRngs
     from mmt_tpu_torch.train.tasks import PretrainingTask
     from mmt_tpu_torch.train.train_state import TrainState
@@ -3074,48 +3212,59 @@ def phase_grad_accum():
     batch = synthetic_pretrain_batch(cfg.task.train_data, cfg.task.model.encoder.mmt.vocab_size,
                                      GA_MICRO_BATCHES * TRAIN_MICRO, gen)
     layers = cfg.task.model.encoder.mmt.num_hidden_layers
-    runs = []
+    runs, grads, sums = [], {}, {}
     torch.cuda.synchronize()
     reset_launch_counts()
-    for dtype, recorded in (("float32", False), ("bfloat16", False), ("bfloat16", True)):
+    for dtype, recorded in (("float32", False), ("bfloat16", False), ("bfloat16", True),
+                            ("float16", False), ("float16", True)):
         keeper = GradKeeper(task.model)
         step = task.make_train_step(TRAIN_MICRO, dtype)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        sums = MicroGradSums(task.model) if recorded else None
+        if recorded:
+            sums[dtype] = MicroGradSums(task.model, getattr(torch, dtype))
         t0 = time.perf_counter()
         _, metrics = step(TrainState(step=0, model=task.model, optimizer=keeper), batch,
                           DropoutRngs.for_step(0, 0, "cuda"))
         torch.cuda.synchronize()
-        run = {"dtype": dtype, "recorded": recorded, "grads": keeper.grads,
-               "loss": metrics["total_loss"][0].item()}
+        run = {"dtype": dtype, "recorded": recorded, "loss": metrics["total_loss"][0].item()}
+        grads[dtype, recorded] = keeper.grads
         if recorded:
-            sums.remove()
+            sums[dtype].remove()
         else:
             run.update(seconds=time.perf_counter() - t0,
                        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
         runs.append(run)
     counts = launch_counts()
-    g32, g16, g16_rec = (r.pop("grads") for r in runs)
-    unequal = [n for n, g in g16_rec.items() if not torch.equal(g, sums.bf16[n].float())]
-    _, _, n_zero, errors = gradient_errors(g16_rec, sums.f32)
-    _, _, _, across = gradient_errors(g16, g32)
-    worst = max(errors, key=errors.get)
+    unequal, errors = {}, {}
+    for dtype, rec in sums.items():  # the recorded step against its own recorded sums
+        got = grads[dtype, True]
+        unequal[dtype] = [n for n, g in got.items() if not torch.equal(g, rec.low[n].float())]
+        _, _, n_zero, errors[dtype] = gradient_errors(got, rec.f32)
+    _, _, _, across = gradient_errors(grads["bfloat16", False], grads["float32", False])
+    worst = max(errors["bfloat16"], key=errors["bfloat16"].get)
+    worst16 = max(errors["float16"], key=errors["float16"].get)
     loss_rel = max(abs(r["loss"] - runs[0]["loss"]) for r in runs) / abs(runs[0]["loss"])
     expected = layers * GA_MICRO_BATCHES * len(runs)
     emit({"phase": "grad_accum", "micro_batches": GA_MICRO_BATCHES, "micro_batch": TRAIN_MICRO,
           "seq_len": TRAIN_SEQ, "rate": DROPOUT, "runs": runs,
           "loss_rel_diff": loss_rel, "loss_bound": GA_LOSS_REL_BOUND,
-          "bf16_sum_unequal_tensors": len(unequal), "bound": GA_GRAD_REL_BOUND,
-          "max_grad_rel_err": errors[worst], "worst_tensor": worst,
-          "largest_errors": sorted(errors.items(), key=lambda kv: -kv[1])[:5],
+          "bf16_sum_unequal_tensors": len(unequal["bfloat16"]),
+          "fp16_sum_unequal_tensors": len(unequal["float16"]), "bound": GA_GRAD_REL_BOUND,
+          "max_grad_rel_err": errors["bfloat16"][worst], "worst_tensor": worst,
+          "largest_errors": sorted(errors["bfloat16"].items(), key=lambda kv: -kv[1])[:5],
+          "fp16_max_grad_rel_err": errors["float16"][worst16], "fp16_worst_tensor": worst16,
+          "fp16_largest_errors": sorted(errors["float16"].items(), key=lambda kv: -kv[1])[:5],
+          "fp16_grad_rel_err_by_tensor": errors["float16"],
           "float32_step_vs_bf16_step": sorted(across.items(), key=lambda kv: -kv[1])[:5],
           "zero_tensors": n_zero, "launches": counts})
-    del runs, task, batch, g16, g32, g16_rec, sums
+    errors = errors["bfloat16"]
+    del runs, task, batch, grads, sums
     torch.cuda.empty_cache()
-    if unequal:
-        raise AssertionError(f"bf16 accumulation: the step's sum is not the bf16 sum of its "
-                             f"micro-batches' gradients at {unequal[:5]}")
+    for dtype, names in unequal.items():
+        if names:
+            raise AssertionError(f"{dtype} accumulation: the step's sum is not the {dtype} sum "
+                                 f"of its micro-batches' gradients at {names[:5]}")
     if not (loss_rel <= GA_LOSS_REL_BOUND and errors[worst] <= GA_GRAD_REL_BOUND):
         raise AssertionError(f"bf16 accumulation: loss {loss_rel}, {worst} {errors[worst]}")
     if counts != {"fwd": expected, "fwd_window": 0, "bwd": expected, "bwd_window": 0,
@@ -3135,7 +3284,10 @@ def phase_grad_accum():
 # training process.
 PR_TRAIN_FILES, PR_RECORDS_PER_FILE, PR_VAL_RECORDS = 8, 512, 512
 PR_EVAL_BATCH, PR_EVAL_STEPS = 256, 2
-PR_PROFILE_ROWS = 1024  # a no-shuffle batch of the records, tiled to 4096 rows
+PR_PROFILE_ROWS = 512  # a no-shuffle batch of the records, tiled to 4096 rows
+# The records cell's depth: the yaml's 12 layers cut to 6 for the script's
+# time limit (the width, batch, data and schedule are the yaml's).
+PR_LAYERS = 6
 PR_REF_RECORDS = 64  # 224 x 224 images (ship_raw_images takes no resize)
 PR_IMAGE_SIZES = ((192, 256), (256, 192), (200, 300))  # (height, width), resized to 224
 PR_IMAGES_PER_FILE = 128  # distinct PNGs per record file, cycled
@@ -3202,9 +3354,9 @@ def wit_records_experiment(root: Path, num_workers: int = 0, train_steps: int = 
                            attention_impl="pallas") -> dict:
     """configs/exp_yamls/pretrain/wit/mlm_itm_2d.yaml as nested overrides of
     mmt/pretraining (written out as JSON text) with its placeholders filled
-    and only its schedule cut: ``train_steps`` steps, validation at the last
-    on PR_EVAL_STEPS batches, one-step windows; ``num_workers`` loader
-    processes when not 0."""
+    and only its schedule and depth cut: ``train_steps`` steps, validation
+    at the last on PR_EVAL_STEPS batches, one-step windows, PR_LAYERS
+    layers; ``num_workers`` loader processes when not 0."""
     data = {"seed": 128, "cycle_length": 8, "deterministic": True,
             "vocab_filename": str(root / "vocab.txt"), "max_seq_len": TRAIN_SEQ,
             "image_data_field": "image_data", "image_key_field": "canonical_doc_id",
@@ -3218,7 +3370,7 @@ def wit_records_experiment(root: Path, num_workers: int = 0, train_steps: int = 
                 "encoder": {"type": "mmt", "mmt": {
                     "relative_att_num_core_layers": 1, "relative_pos_max_distance": 12,
                     "relative_vocab_size": 49, "attention_impl": attention_impl,
-                    "compute_dtype": "bfloat16"}},
+                    "compute_dtype": "bfloat16", "num_hidden_layers": PR_LAYERS}},
                 "cls_heads": [{"inner_dim": 768, "num_classes": 2, "name": "itm"}]},
             "train_data": {**data, "input_path": str(root / "train-*.tfrecord"),
                            "is_training": True, "global_batch_size": TRAIN_GLOBAL,
@@ -4703,12 +4855,106 @@ def head_shard_kernels(n):
     out["micro_batch_backward"] = bwd
     del q, k, v, do, delta, args, want, got, parts, assembled, case, shards
     torch.cuda.empty_cache()
+    out.update(window_head_shards(n))
     return out
 
 
-def tp_layer(n, device):
+def window_head_shards(n):
+    """The windowed kernels on n head shards at the 4k micro-batch (B=8,
+    S=4096, w=512, g=198, rate 0.1): each shard call, forward (K2's window
+    variant) and backward (K4), against the plain version with the same
+    heads and ``head_start``; the assembled o, lse, dk and dv bit-equal to
+    the unsharded windowed calls (dq and dRel within their bounds); the
+    shard calls' launches (each windowed, all but head 0's counted again as
+    head-shard launches); times, the bound and SDPA per shard call."""
+    from mmt_tpu_torch.ops import fused_attention as fa
+
+    rate, seed = DROPOUT, 20264
+    case = window_attention_inputs(seed=54)
+    q, k, v, table, geo, lengths = case
+    lens = lengths.tolist()
+    shards = head_shards((q, k, v, table), n)
+    o_u, lse_u = fa.relative_attention_forward(*case, "cuda", rate, seed)
+    do = torch.from_numpy(np.random.default_rng(55).standard_normal(q.shape, np.float32)).cuda() \
+        .to(torch.bfloat16)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), o_u.float()).contiguous()
+    args = (q, k, v, do, lse_u, delta, table, geo, lengths)
+    want = fa.relative_attention_backward(*args, "cuda", rate, seed)
+    parts = []
+    for r, hs in enumerate(head_slices(n)):
+        sq, sk, sv, sdo = (t[:, :, hs].contiguous() for t in (q, k, v, do))
+        parts.append(((sq, sk, sv, sdo, lse_u[:, hs].contiguous(), delta[:, hs].contiguous(),
+                       table[:, hs].contiguous(), geo, lengths), r * (HEADS // n)))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    o_s, lse_s, calls = head_shard_forward(n, case, rate, seed)
+    got = [fa.relative_attention_backward(*a, "cuda", rate, seed, head_start=hs0)
+           for a, hs0 in parts]
+    torch.cuda.synchronize()
+    counts = {**launch_counts(), **head_shard_counts()}
+    expected = {"fwd": 0, "fwd_window": n, "fwd_offset": 0, "bwd": 0, "bwd_window": n,
+                "bwd_offset": 0, "fwd_head_shard": n - 1, "bwd_head_shard": n - 1}
+    if counts != expected:
+        raise AssertionError(f"windowed head shards: launches {counts}, expected {expected}")
+    fwd = {"launches": counts,
+           "max_abs_err_o_lse_vs_plain": shard_plain_forward_errors(
+               calls, shards, geo, lengths, rate, seed, n),
+           "o_lse_bit_equal_to_unsharded": bool(torch.equal(o_s, o_u)
+                                                and torch.equal(lse_s, lse_u)),
+           "max_abs_err_o_lse_vs_unsharded": assembled_errors(o_s, lse_s, o_u, lse_u, lens)}
+    errs_plain = {}
+    for r, ((a, hs0), g) in enumerate(zip(parts, got)):
+        e = grad_errors(g, fa.relative_attention_backward_plain(*a, rate, seed,
+                                                                head_start=hs0), lens)
+        check_grad_errors(e, f"windowed head shard {r} backward against the plain version")
+        for name, v_ in e.items():
+            errs_plain[name] = {key: max(val, errs_plain.get(name, {}).get(key, 0.0))
+                                for key, val in v_.items()}
+    assembled = (torch.cat([g[0] for g in got], 2), torch.cat([g[1] for g in got], 2),
+                 torch.cat([g[2] for g in got], 2), torch.cat([g[3] for g in got], 1))
+    errs = grad_errors(assembled, want, lens)
+    check_grad_errors(errs, "windowed head-sharded backward against the unsharded kernel")
+    bwd = {"errors_vs_plain": errs_plain, "errors_vs_unsharded": errs,
+           "dk_dv_bit_equal_to_unsharded": bool(torch.equal(assembled[1], want[1])
+                                                and torch.equal(assembled[2], want[2]))}
+    if not (fwd["o_lse_bit_equal_to_unsharded"] and bwd["dk_dv_bit_equal_to_unsharded"]):
+        raise AssertionError(f"windowed head shards assembled differ from the unsharded calls: "
+                             f"o/lse {fwd['o_lse_bit_equal_to_unsharded']}, dk/dv "
+                             f"{bwd['dk_dv_bit_equal_to_unsharded']}")
+    del got, assembled, want, o_s, lse_s
+    pairs = fa.allowed_real_pairs(geo, lens)
+    (qkv1, t1), (shard_args, shard_h0) = shards[1], parts[1]
+    fwd.update({
+        "unsharded_ms": cuda_ms(lambda: fa.relative_attention_forward(
+            *case, "cuda", rate, seed), 10),
+        "ms_per_shard_call": cuda_ms(lambda: [c() for c in calls], 5) / n,
+        "plain_ms_per_shard_call": cuda_ms(lambda: fa.relative_attention_plain(
+            *qkv1, t1, geo, lengths, rate, seed, head_start=shard_h0), 2),
+        "library_ms_per_shard_call": cuda_ms(sdpa_with_bias(*qkv1, t1, geo, lengths), 5)})
+    flops, nbytes = forward_work(lens, WINDOW_SEQ, pairs)
+    fwd["bound_ms_per_shard_call"], fwd["bound_by"] = bound_ms(flops / n, nbytes / n)
+    bwd.update({
+        "unsharded_ms": cuda_ms(lambda: fa.relative_attention_backward(
+            *args, "cuda", rate, seed), 5),
+        "ms_per_shard_call": cuda_ms(lambda: [fa.relative_attention_backward(
+            *a, "cuda", rate, seed, head_start=hs0) for a, hs0 in parts], 3) / n,
+        "plain_ms_per_shard_call": cuda_ms(lambda: fa.relative_attention_backward_plain(
+            *shard_args, rate, seed, head_start=shard_h0), 1),
+        "library_ms_per_shard_call": sdpa_backward_ms(*shard_args[:3], shard_args[6], geo,
+                                                      lengths, 3)})
+    b_flops, b_bytes = backward_flops(lens, pairs=pairs), backward_bytes(lens, WINDOW_SEQ)
+    bwd["bound_ms_per_shard_call"], bwd["bound_by"] = bound_ms(b_flops / n, b_bytes / n)
+    del q, k, v, do, delta, args, parts, case, shards, calls, o_u, lse_u
+    torch.cuda.empty_cache()
+    return {"window_forward": fwd, "window_backward": bwd,
+            "window_shape": [WINDOW_MICRO, WINDOW_SEQ, HEADS, HEAD_DIM], "window": WINDOW,
+            "window_num_global": WINDOW_NUM_GLOBAL, "window_rate": rate}
+
+
+def tp_layer(n, device, window=False):
     """(b) One full-width layer (the WIT model cut to 1 layer, train mode,
-    dropout 0.1, B=64, S=256) with its parameters sharded over n ranks in
+    dropout 0.1, B=64, S=256; with ``window`` the 4k window yaml's layer
+    without remat, B=8, S=4096) with its parameters sharded over n ranks in
     this process (``shard_params_in_process``: each rank's heads and FFN
     columns, the row-parallel partials summed in rank order) against the
     same model unsharded: the sequence output and every gradient."""
@@ -4716,10 +4962,18 @@ def tp_layer(n, device):
     from mmt_tpu_torch.parallel.param_sharding import shard_params_in_process
     from mmt_tpu_torch.train.tasks import PretrainingTask
 
-    cfg = _wit_experiment({"num_hidden_layers": 1}, TRAIN_SEQ, TRAIN_MICRO, TRAIN_MICRO,
-                          "pallas", DROPOUT, DROPOUT, 1)
-    batch = synthetic_pretrain_batch(cfg.task.train_data, cfg.task.model.encoder.mmt.vocab_size,
-                                     TRAIN_MICRO, torch.Generator("cuda").manual_seed(60))
+    if window:
+        extra = {"num_hidden_layers": 1, "attention_window": WINDOW, "attention_num_global": -1}
+        cfg = _wit_experiment(extra, WINDOW_SEQ, WINDOW_MICRO, WINDOW_MICRO, "pallas", DROPOUT,
+                              DROPOUT, 1)
+        batch = window_micro_batch(cfg, WINDOW_MICRO, torch.Generator("cuda").manual_seed(64))
+    else:
+        cfg = _wit_experiment({"num_hidden_layers": 1}, TRAIN_SEQ, TRAIN_MICRO, TRAIN_MICRO,
+                              "pallas", DROPOUT, DROPOUT, 1)
+        batch = synthetic_pretrain_batch(cfg.task.train_data,
+                                         cfg.task.model.encoder.mmt.vocab_size, TRAIN_MICRO,
+                                         torch.Generator("cuda").manual_seed(60))
+    kind = "_window" if window else ""
     results = {}
     for sharded in (False, True):
         task = PretrainingTask(cfg.task, cfg.trainer, device=device, seed=61)
@@ -4744,18 +4998,19 @@ def tp_layer(n, device):
         raise AssertionError(f"tensor-parallel layer {worst_name}: gradient {worst} > "
                              f"{TRAIN_GRAD_BOUND}")
     # The shards at heads H/n, 2H/n, ... count as head-shard launches; the
-    # shard at head 0 is the dense call on its heads.
+    # shard at head 0 is the dense (windowed) call on its heads.
     if counts["fwd_head_shard"] != n - 1 or counts["bwd_head_shard"] != n - 1 \
-            or counts["fwd"] != n or counts["bwd"] != n:
-        raise AssertionError(f"tensor-parallel layer launches {counts}, expected {n} of each "
-                             f"kernel, {n - 1} with a head offset")
+            or counts["fwd" + kind] != n or counts["bwd" + kind] != n:
+        raise AssertionError(f"tensor-parallel{kind} layer launches {counts}, expected {n} of "
+                             f"each kernel, {n - 1} with a head offset")
     replicated_table = not plan["encoder.word_embeddings.embedding_table"]
     if not replicated_table or not plan["encoder.transformer.layers.0.attention.query.weight"]:
         raise AssertionError(f"unexpected plan at tp={n}")
     del results, seq, grads, seq_tp, grads_tp
     torch.cuda.empty_cache()
-    return {"tp": n, "heads_per_shard": HEADS // n, "batch": TRAIN_MICRO, "seq_len": TRAIN_SEQ,
-            "dropout": DROPOUT, "output_rel_err": out_err, "output_bound": TP_LAYER_OUT_BOUND,
+    shape = (WINDOW_MICRO, WINDOW_SEQ) if window else (TRAIN_MICRO, TRAIN_SEQ)
+    return {"tp": n, "heads_per_shard": HEADS // n, "batch": shape[0], "seq_len": shape[1],
+            "window": WINDOW if window else 0, "dropout": DROPOUT, "output_rel_err": out_err, "output_bound": TP_LAYER_OUT_BOUND,
             "max_grad_rel_err": worst, "worst_tensor": worst_name, "zero_tensors": n_zero,
             "grad_bound": TRAIN_GRAD_BOUND, "vocabulary_table_replicated": replicated_table,
             "launches": counts}, counts
@@ -4864,11 +5119,13 @@ def pipelined_step(device, mesh):
     return out, counts
 
 
-def head_shard_entries(kernels, layer_counts):
+def head_shard_entries(kernels, layer_counts, window_counts):
     """The ``kernels`` line's entries of the head-shard calls: times and the
-    error against the plain version at the S=256 micro-batch shape of (a),
-    launches of the tensor-parallel layer."""
+    error against the plain version at the S=256 micro-batch shape of (a)
+    and at the 4k windowed micro-batch, launches of the tensor-parallel
+    layers (dense and windowed)."""
     fwd, bwd = kernels["micro_batch_forward"], kernels["micro_batch_backward"]
+    wfwd, wbwd = kernels["window_forward"], kernels["window_backward"]
     source = "mmt_tpu_torch/csrc/rel_attention_{}.cu"
     head_shard = ("on a tensor-parallel head shard (GSPMD over 'model' under "
                   "mmt_tpu/parallel/param_sharding.py:29-37)")
@@ -4888,6 +5145,26 @@ def head_shard_entries(kernels, layer_counts):
         "ms": bwd["ms_per_shard_call"], "plain_ms": bwd["plain_ms_per_shard_call"],
         "bound_ms": bwd["bound_ms_per_shard_call"], "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms_per_shard_call"],
+    }, {
+        "name": "rel_attention_fwd_window_head_shard", "route": "cuda",
+        "source": source.format("fwd"),
+        "replaces": f"mmt_tpu/ops/pallas_attention.py:1283 (_fwd_list_kernel, K2, over the "
+                    f"window list) {head_shard}",
+        "launches": window_counts["fwd_head_shard"],
+        "max_abs_err": wfwd["max_abs_err_o_lse_vs_plain"][0],
+        "ms": wfwd["ms_per_shard_call"], "plain_ms": wfwd["plain_ms_per_shard_call"],
+        "bound_ms": wfwd["bound_ms_per_shard_call"], "bound_by": wfwd["bound_by"],
+        "library_ms": wfwd["library_ms_per_shard_call"],
+    }, {
+        "name": "rel_attention_bwd_window_head_shard", "route": "cuda",
+        "source": source.format("bwd"),
+        "replaces": f"mmt_tpu/ops/pallas_attention.py:2521 (_bwd_fused_list_kernel, K4) "
+                    f"{head_shard}",
+        "launches": window_counts["bwd_head_shard"],
+        "max_abs_err": max(e["max_abs_err"] for e in wbwd["errors_vs_plain"].values()),
+        "ms": wbwd["ms_per_shard_call"], "plain_ms": wbwd["plain_ms_per_shard_call"],
+        "bound_ms": wbwd["bound_ms_per_shard_call"], "bound_by": wbwd["bound_by"],
+        "library_ms": wbwd["library_ms_per_shard_call"],
     }]
     return entries
 
@@ -4910,6 +5187,7 @@ def phase_model_parallel():
     try:
         kernels = head_shard_kernels(TP)
         layer, layer_counts = tp_layer(TP, torch.device("cuda", 0))
+        window_layer, window_counts = tp_layer(TP, torch.device("cuda", 0), window=True)
         mesh = pm.create_pipe_mesh(0, 1)
         pipeline, pp_counts = pipelined_step(torch.device("cuda", 0), mesh)
         backend = dist.get_backend(mesh.data_group) if mesh.data_group is not None else None
@@ -4920,10 +5198,10 @@ def phase_model_parallel():
             os.environ.pop(key, None)
     seconds = time.perf_counter() - t0
     emit({"phase": "model_parallel", "head_shard_kernels": kernels, "tp_layer": layer,
-          "pipeline": pipeline, "data_group_backend": backend, "seconds": seconds,
+          "tp_window_layer": window_layer, "pipeline": pipeline, "data_group_backend": backend, "seconds": seconds,
           "note": "one card: the tensor-parallel ranks and the pipeline stages ran in one "
                   "process; no point-to-point transfer and no collective crossed cards"})
-    entries = head_shard_entries(kernels, layer_counts)
+    entries = head_shard_entries(kernels, layer_counts, window_counts)
     return entries, {"fwd": pp_counts["fwd"], "bwd": pp_counts["bwd"]}
 
 

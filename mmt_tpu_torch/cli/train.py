@@ -29,8 +29,9 @@ What runs:
   in the modes ``train``, ``train_and_eval`` and ``eval`` (the latest
   checkpoint in ``--model_dir`` if there is one, else the initial or
   warm-started parameters).  Validation reports the metric pairs' means,
-  and for classification ``auc``.  ``trainer.grad_accum_dtype`` is
-  "float32" or "bfloat16" (pretraining's micro-batch sum).
+  and for classification ``auc``.  ``trainer.grad_accum_dtype``
+  (pretraining's micro-batch sum) is read as JAX reads it:
+  float16, bfloat16 or float32 (``train.tasks.accum_dtype``).
 * ``--mode=continuous_train_and_eval`` with ``--pretrain_model_dir``:
   ``train.continuous.run_continuous_finetune`` watches that directory and
   finetunes each new checkpoint for ``trainer.train_steps`` steps from the
@@ -38,7 +39,10 @@ What runs:
   ``<model_dir>/continuous_results.jsonl``; it ends when no new checkpoint
   came for CONTINUOUS_TIMEOUT_S seconds from its start.  As in the JAX
   package, the rounds' batches start after the batch pulled to prime the
-  stream.
+  stream.  It runs on every mesh the train modes take (below), with their
+  step, their per-rank batches and their sharded optimizer: rank 0 polls
+  and broadcasts what it saw, so every rank takes the same rounds, and
+  rank 0 alone writes the results.
 * ``train_data.num_workers``: 0 runs the loader in this process as a
   checkpointable ``TrainStream`` (a resumed run continues the input stream
   where it stopped); N > 0 runs N loader processes
@@ -91,10 +95,6 @@ load the same rows.  Micro-batches: ``runtime.num_pipeline_microbatches``,
 else ``max(1, global_batch // max(micro_batch_size, 1))`` for pretraining
 and 2 for classification.  Validation runs unpipelined.  With
 ``num_model_parallel > 1`` it raises JAX's ValueError.
-
-Everything else raises NotImplementedError naming what is missing:
-continuous finetuning in several processes, and ``grad_accum_dtype``
-values other than float32 and bfloat16.
 """
 
 from __future__ import annotations
@@ -159,9 +159,10 @@ def _check_ported(args, cfg) -> None:
         raise ValueError("--mode=continuous_train_and_eval needs --pretrain_model_dir")
     pretraining = isinstance(cfg.task, PretrainingTaskConfig)
     if not pretraining and not isinstance(cfg.task.train_data, MmtClassificationDataConfig):
-        raise NotImplementedError(
-            f"{args.experiment}: training on {type(cfg.task.train_data).__name__} is not "
-            f"ported (the retrieval experiment runs through cli.predict)")
+        raise ValueError(
+            f"{args.experiment}: no training loader reads its "
+            f"{type(cfg.task.train_data).__name__} (the retrieval experiment runs through "
+            f"cli.predict)")
     if not cfg.task.train_data.input_path:
         # An empty pattern matches no file, and a repeating stream would
         # then wait for a record forever.
@@ -169,9 +170,6 @@ def _check_ported(args, cfg) -> None:
     if cfg.runtime.num_pipeline_stages > 1 and cfg.runtime.num_model_parallel > 1:
         raise ValueError("num_pipeline_stages > 1 is mutually exclusive with "
                          "num_model_parallel > 1")
-    if cfg.trainer.grad_accum_dtype not in ("float32", "bfloat16"):
-        raise NotImplementedError(f"trainer.grad_accum_dtype={cfg.trainer.grad_accum_dtype!r}: "
-                                  f"the port accumulates in float32 or bfloat16")
 
 
 def tf_checkpoint_path(path: str):
@@ -360,8 +358,6 @@ def main(argv=None):
         mesh = create_pipe_mesh(cfg.runtime.num_data_parallel, num_pipe)
     else:
         mesh = create_mesh(cfg.runtime.num_data_parallel, cfg.runtime.num_model_parallel)
-    if mesh.distributed and args.mode == "continuous_train_and_eval":
-        raise NotImplementedError("continuous_train_and_eval runs in one process")
     logging.info("mesh: %s = %d x %d ranks (rank %d)", mesh.axis_names, mesh.num_data,
                  mesh.num_model * mesh.num_pipe, mesh.rank)
     os.makedirs(args.model_dir, exist_ok=True)
@@ -424,31 +420,40 @@ def _run(args, cfg, task, train_step, train_iter, device, mesh):
                                device, mesh)
     place_batch = lambda b: batch_to_device(b, device)  # noqa: E731
 
+    def make_state():
+        optimizer = create_optimizer(cfg.trainer.optimizer_config, cfg.trainer.train_steps,
+                                     task.model)
+        if cfg.runtime.zero_sharded_optimizer:
+            from mmt_tpu_torch.parallel.zero import shard_opt_state
+
+            shard_opt_state(mesh, optimizer)
+        return TrainState.create(task.model, optimizer)
+
     if continuous:
+        from mmt_tpu_torch.parallel.mesh import broadcast_from_chief
         from mmt_tpu_torch.train.continuous import run_continuous_finetune
 
-        def make_state():
+        def fresh_state():
             task.model.load_state_dict(fresh)
-            return TrainState.create(task.model, create_optimizer(
-                cfg.trainer.optimizer_config, cfg.trainer.train_steps, task.model))
+            return make_state()
+
+        def sync(step, expired):  # rank 0's poll for every rank
+            step, expired = broadcast_from_chief(
+                [-1 if step is None else step, int(expired)], device)
+            return (None if step < 0 else step), bool(expired)
 
         next(train_iter)  # JAX's rounds start after the batch that primed the stream
         results = run_continuous_finetune(
             pretrain_model_dir=args.pretrain_model_dir, model_dir=args.model_dir,
-            make_state=make_state, train_step=train_step, train_iter_fn=lambda: train_iter,
+            make_state=fresh_state, train_step=train_step, train_iter_fn=lambda: train_iter,
             eval_fn=eval_fn, steps_per_checkpoint=cfg.trainer.train_steps, seed=args.seed,
             place_batch=place_batch, poll_interval_s=CONTINUOUS_POLL_S,
-            timeout_s=CONTINUOUS_TIMEOUT_S)
+            timeout_s=CONTINUOUS_TIMEOUT_S, sync=sync,
+            write_results=mesh.is_chief)
         logging.info("continuous finetune results: %s", results)
         return results
 
-    optimizer = create_optimizer(cfg.trainer.optimizer_config, cfg.trainer.train_steps,
-                                 task.model)
-    if cfg.runtime.zero_sharded_optimizer:
-        from mmt_tpu_torch.parallel.zero import shard_opt_state
-
-        shard_opt_state(mesh, optimizer)
-    state = TrainState.create(task.model, optimizer)
+    state = make_state()
 
     if args.mode == "eval":
         if eval_fn is None:

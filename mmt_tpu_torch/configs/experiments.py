@@ -42,8 +42,9 @@ class TrainerConfig(Config):
     after a copy to host memory; ``tensorboard_summaries``: TensorBoard
     event files beside the jsonl summaries; ``save_on_preemption``: a
     SIGTERM ends the run after the current step with a checkpoint there
-    (``train/loop.py``).  ``grad_accum_dtype`` is "float32" or "bfloat16"
-    (the micro-batch gradient sum of pretraining); other values raise.
+    (``train/loop.py``).  ``grad_accum_dtype`` is the dtype of the
+    micro-batch gradient sum of pretraining, read as JAX reads it
+    (``train.tasks.accum_dtype``: float16, bfloat16 or float32).
     ``micro_batch_size`` applies to pretraining only: the classification
     step takes the whole batch, as JAX's does.
     """

@@ -28,6 +28,9 @@ device (a rank), and the mesh is a pair of process-group families:
   of one model group hold the same rows (parameters are replicated over
   ``model``, as the JAX CLI replicates them).  ``data_slice`` cuts a global
   batch to a rank's rows, ``shard_batch`` puts them on the device.
+* ``broadcast_from_chief`` gives every rank rank 0's few integers: one
+  decision for the whole world where ranks read a clock or a directory on
+  their own (continuous finetuning's polls, ``train/continuous.py``).
 
 Without a process group (one process, no launcher), ``create_mesh`` gives
 a 1 x 1 mesh whose groups are None, and every collective of the port's
@@ -218,3 +221,15 @@ def all_gather_rows(mesh: Mesh, array: np.ndarray, group=None) -> np.ndarray:
     out = torch.empty((n, t.shape[1]), dtype=t.dtype, device=t.device)
     dist.all_gather_into_tensor(out, t, group=group)
     return out.cpu().numpy().reshape(n, *np.shape(array))
+
+
+def broadcast_from_chief(values, device) -> list:
+    """Rank 0's ``values`` (ints) on every rank of the world, in one
+    broadcast (on ``device`` for nccl); ``values`` itself without a
+    process group."""
+    if not dist.is_initialized():
+        return list(values)
+    on = device if dist.get_backend() == "nccl" else "cpu"
+    t = torch.tensor(list(values), dtype=torch.int64, device=on)
+    dist.broadcast(t, src=0)
+    return t.tolist()

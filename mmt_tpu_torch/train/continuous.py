@@ -9,6 +9,13 @@ optimizer), restore the encoder and the matching heads into it, train
 ``steps_per_checkpoint`` steps from the one training iterator that goes on
 across rounds, evaluate, and append the metrics with ``pretrain_step`` to
 ``<model_dir>/continuous_results.jsonl``.
+
+Across processes every rank must take the same rounds, or the collectives
+of a round hang: a checkpoint that lands between two ranks' polls would
+send them into different rounds, as would two clocks passing the deadline
+at different polls.  So with ``sync`` each poll's reading (the latest step,
+whether the deadline passed) is rank 0's, broadcast to every rank, and only
+the rank with ``write_results`` appends to the results file.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ import json
 import logging
 import os
 import time
-from typing import Callable, Dict, Optional, Set
+from typing import Callable, Dict, Optional, Set, Tuple
 
 from mmt_tpu_torch.models import DropoutRngs
 from mmt_tpu_torch.train.checkpoint import (
@@ -43,6 +50,8 @@ def run_continuous_finetune(
     poll_interval_s: float = 10.0,
     timeout_s: float = 0.0,
     stop_after: int = 0,
+    sync: Optional[Callable[[Optional[int], bool], Tuple[Optional[int], bool]]] = None,
+    write_results: bool = True,
 ) -> Dict[int, Dict[str, float]]:
     """Returns {pretrain_step: eval metrics} for every checkpoint finetuned.
 
@@ -53,7 +62,10 @@ def run_continuous_finetune(
     that is superseded before a poll sees it is skipped.  The loop ends
     after ``stop_after`` rounds, or when it is idle past ``timeout_s``
     seconds from its start; with neither it runs the checkpoint there is
-    (if any) and ends.
+    (if any) and ends.  ``sync`` maps this rank's poll, (latest step or
+    None, deadline passed), to the one every rank acts on (module
+    docstring); ``write_results`` False leaves the results file to another
+    rank.
     """
     pretrain_ckpt = CheckpointManager(pretrain_model_dir)
     seen: Set[int] = set()
@@ -63,10 +75,13 @@ def run_continuous_finetune(
 
     while True:
         step = pretrain_ckpt.latest_step()
+        expired = bool(deadline and time.time() > deadline)
+        if sync is not None:
+            step, expired = sync(step, expired)
         if step is None or step in seen:
             if stop_after and len(seen) >= stop_after:
                 break
-            if deadline and time.time() > deadline:
+            if expired:
                 break
             if not timeout_s and not stop_after:
                 break
@@ -94,8 +109,9 @@ def run_continuous_finetune(
         eval_metrics = eval_fn(state) if eval_fn else {}
         eval_metrics["pretrain_step"] = step
         results[step] = eval_metrics
-        with open(os.path.join(model_dir, "continuous_results.jsonl"), "a") as f:
-            f.write(json.dumps(eval_metrics) + "\n")
+        if write_results:
+            with open(os.path.join(model_dir, "continuous_results.jsonl"), "a") as f:
+                f.write(json.dumps(eval_metrics) + "\n")
         logger.info("continuous finetune @ %d: %s", step, eval_metrics)
 
         if stop_after and len(seen) >= stop_after:

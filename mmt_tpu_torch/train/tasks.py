@@ -11,10 +11,11 @@ Torch counterparts of ``mmt_tpu/train/tasks.py``.  ``PretrainingTask``:
   ``micro_batch_size`` the batch is cut into k contiguous micro-batches
   and the gradients of loss / k are summed in the parameters' float32
   ``.grad`` (the JAX ``lax.scan`` accumulation), or with
-  ``grad_accum_dtype="bfloat16"`` in a bf16 buffer per parameter (each
-  micro-batch's gradient rounded to bf16 and added, the sum cast back to
-  float32 before the update), and the micro-batches' metric pairs are
-  summed;
+  ``grad_accum_dtype="bfloat16"`` or ``"float16"`` in a buffer of that
+  dtype per parameter (each micro-batch's gradient rounded to it and
+  added, the sum cast back to float32 before the update; ``accum_dtype``
+  reads the name as ``jnp.dtype`` does), and the micro-batches' metric
+  pairs are summed;
 * ``make_eval_step``: the loss and metrics in ``eval()`` mode, no grad.
 
 Data parallelism (``mesh``, a ``parallel.mesh.Mesh``): each rank steps on
@@ -76,8 +77,10 @@ parameters equal there.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -104,10 +107,33 @@ MODEL_INPUT_KEYS = (
 )
 
 
-_ACCUM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# Accumulator dtypes by numpy kind name; float64 is JAX's float32 without
+# x64 (``accum_dtype``).
+_ACCUM_DTYPES = {"float16": torch.float16, "float32": torch.float32,
+                 "float64": torch.float32}
 # Metrics whose count is one per (micro-)batch: a data-parallel step counts
 # each once, on the rank that holds the batch's first row.
 LOSS_METRICS = ("mlm_loss", "mpp_loss", "itm_loss", "cls_loss")
+
+
+def accum_dtype(name: str) -> torch.dtype:
+    """The accumulator dtype of ``trainer.grad_accum_dtype``, read as JAX's
+    ``jnp.dtype(name)`` reads it (``mmt_tpu/train/tasks.py:275``): any
+    numpy name or alias of float16 or float32 ("half", "f4", ...), or
+    "bfloat16"; an unknown name raises numpy's TypeError, as in JAX; a
+    float64 name warns and accumulates in float32, as JAX does without x64.
+    A dtype that is not floating raises ValueError (JAX would sum the
+    gradients truncated to it)."""
+    if name == "bfloat16":
+        return torch.bfloat16
+    dtype = np.dtype(name)
+    if dtype.name not in _ACCUM_DTYPES:
+        raise ValueError(f"grad_accum_dtype={name!r} is {dtype.name}: gradients accumulate in "
+                         f"float16, bfloat16 or float32")
+    if dtype.name == "float64":
+        warnings.warn(f"Explicitly requested dtype {name} is not available, and will be "
+                      f"truncated to dtype float32 (as JAX without x64).", stacklevel=2)
+    return _ACCUM_DTYPES[dtype.name]
 
 
 def _accumulate(params, acc, dtype):
@@ -387,12 +413,10 @@ class PretrainingTask:
         """Returns (state, batch, rngs) -> (state, metric pairs); ``batch``
         holds tensors on the task's device: the global batch, or with
         ``mesh`` this rank's slice of it (module docstring)."""
-        if grad_accum_dtype not in _ACCUM_DTYPES:
-            raise NotImplementedError(
-                f"grad_accum_dtype={grad_accum_dtype!r}: the port accumulates in "
-                f"{' or '.join(_ACCUM_DTYPES)}")
+        acc_dtype = accum_dtype(grad_accum_dtype)
         # As in JAX, the accumulator's dtype applies only with micro-batches.
-        acc_dtype = _ACCUM_DTYPES[grad_accum_dtype] if micro_batch_size else torch.float32
+        if not micro_batch_size:
+            acc_dtype = torch.float32
         params = [p for p in self.model.parameters() if p.requires_grad]
         dp = DataParallel(mesh)
 

@@ -397,6 +397,66 @@ def test_exported_op_launches_the_kernel(cuda):
         assert torch.equal(got[b, :n], want[b, :n])
 
 
+def test_two_platform_artifact(cuda):
+    """``export_scoring(platforms=("cpu", "cuda"))`` of a small bf16 task on
+    the card (static batch 4): its cuda program scores bit for bit as the
+    one-platform artifact does and launches the kernel; its CPU program,
+    called with the parameters on the host, launches nothing and scores
+    within 4 bf16 spacings of it; a device without a program raises."""
+    from mmt_tpu_torch.configs import (
+        ClassificationModelConfig,
+        ClassificationTaskConfig,
+        ClsHeadConfig,
+        EncoderConfig,
+        MmtClassificationDataConfig,
+        MmtEncoderConfig,
+        TrainerConfig,
+    )
+    from mmt_tpu_torch.eval import export
+    from mmt_tpu_torch.train.tasks import ClassificationTask
+
+    encoder = MmtEncoderConfig(vocab_size=64, hidden_size=128, num_hidden_layers=2,
+                               num_attention_heads=2, intermediate_size=256,
+                               relative_pos_max_distance=3, relative_vocab_size=12,
+                               relative_att_num_core_layers=1, attention_impl="pallas",
+                               compute_dtype="bfloat16")
+    cfg = ClassificationTaskConfig(
+        model=ClassificationModelConfig(
+            encoder=EncoderConfig(mmt=encoder), num_classes=2,
+            cls_heads=[ClsHeadConfig(inner_dim=128, num_classes=2, name="itm")]),
+        train_data=MmtClassificationDataConfig(image_size=4, patch_size=2, max_seq_len=16))
+    task = ClassificationTask(cfg, TrainerConfig(train_steps=2), device=cuda, seed=3)
+    rng = np.random.default_rng(5)
+    B, S = 4, 16
+    batch = {"word_ids": rng.integers(0, 64, (B, S)).astype(np.int32),
+             "segment_ids": np.where(np.arange(S)[None] < 6, 0, 1).repeat(B, 0).astype(np.int32),
+             "patch_embeddings": rng.standard_normal((B, 4, 12)).astype(np.float32),
+             "lengths": np.asarray([16, 11, 9, 7], np.int32)}
+    params = task.model.state_dict()
+    two = export.load_scoring(export.export_scoring(task, params, batch,
+                                                    platforms=("cpu", "cuda"),
+                                                    symbolic_batch=False))
+    one = export.load_scoring(export.export_scoring(task, params, batch, symbolic_batch=False))
+    assert two.platforms == ["cpu", "cuda"] and one.platforms == ["cuda"]
+    before = fa.relative_attention_forward.launches
+    got = two.call(params, batch)
+    assert fa.relative_attention_forward.launches == before + 2 and got.device.type == "cuda"
+    assert torch.equal(got, one.call(params, batch))
+    host = {k: v.cpu() for k, v in params.items()}
+    before = fa.relative_attention_forward.launches
+    on_host = two.call(host, batch)
+    assert fa.relative_attention_forward.launches == before and on_host.device.type == "cpu"
+    assert (on_host.float() - got.float().cpu()).abs().max().item() <= 4 * 2.0 ** -8
+    with pytest.raises(ValueError, match="programs for"):
+        one.call(host, batch)
+    # The parameters on the card and the batch as host tensors: refused,
+    # never run by the CPU program.
+    host_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    for artifact in (two, one):
+        with pytest.raises(ValueError, match="tensors on cpu and cuda:0"):
+            artifact.call(params, host_batch)
+
+
 OFFSET_FORMS = [  # (q_start, S_q, k_start, S_k): all-gather shard, ring pairs
     (256, 128, 0, 512), (256, 128, 128, 128), (0, 128, 384, 128), (384, 128, 384, 128)]
 

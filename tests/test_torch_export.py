@@ -127,11 +127,63 @@ class TestExportScoring:
         with pytest.raises(Exception):  # another batch size is refused
             art.call(params, _batch(8))
 
-    def test_platforms_other_than_the_device_raise(self, exported):
-        task, params, _ = exported
+    def test_platforms_other_than_the_device_raise(self, exported, flax_params):
+        task, params, blob = exported
         export.export_scoring(task, params, _batch(2), platforms=("cpu",))
-        with pytest.raises(NotImplementedError, match="traced for the device"):
-            export.export_scoring(task, params, _batch(2), platforms=("cpu", "tpu"))
+        for platforms in (("tpu",), ("cpu", "tpu"), ("cpu", "rocm"), ("gpu",)):
+            with pytest.raises(ValueError, match="run on cpu and cuda"):
+                export.export_scoring(task, params, _batch(2), platforms=platforms)
+        with pytest.raises(ValueError, match="once"):
+            export.export_scoring(task, params, _batch(2), platforms=("cpu", "cpu"))
+        # No card: the cuda program cannot be traced, and no one-platform
+        # artifact comes instead.
+        assert not torch.cuda.is_available()
+        for platforms in (("cpu", "cuda"), ("cuda",)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                export.export_scoring(task, params, _batch(2), platforms=platforms)
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                export.export_scoring_bundle(task, params, _batch(2), batch_sizes=(1,),
+                                             platforms=platforms)
+        # A call on a device the artifact has no program for, and a call
+        # with the inputs on one device and the parameters on another.
+        art = export.load_scoring(blob)
+        assert art.platforms == ["cpu"]
+        elsewhere = {k: torch.as_tensor(v).to("meta") for k, v in _batch(2).items()}
+        params_elsewhere = {k: v.to("meta") for k, v in params.items()}
+        scorer = export.load_scoring_bundle(export.export_scoring_bundle(
+            task, params, _batch(2), batch_sizes=(2,), platforms=("cpu",)))
+        for scoring in (art, scorer):
+            with pytest.raises(ValueError, match="programs for \\['cpu'\\] only"):
+                scoring.call(params_elsewhere, elsewhere)
+            with pytest.raises(ValueError, match="tensors on cpu and meta"):
+                scoring.call(params, elsewhere)
+        # A JAX artifact is still refused.
+        jax_task, jax_params = flax_params
+        with pytest.raises(ValueError, match="StableHLO"):
+            export.load_scoring(jax_export.export_scoring(jax_task, jax_params,
+                                                          classification_batch(B=2)))
+
+
+def test_cpu_platform_artifact_and_bundle_match_jax(flax_params, exported):
+    """``platforms=("cpu",)``, the port's and JAX's: the artifact (symbolic
+    batch) and a bundle round-trip and score as JAX's do."""
+    jax_task, params = flax_params
+    task, torch_params, _ = exported
+    art = export.load_scoring(export.export_scoring(task, torch_params, _batch(4),
+                                                    platforms=("cpu",)))
+    jax_art = jax_export.load_scoring(jax_export.export_scoring(
+        jax_task, params, classification_batch(B=4), platforms=("cpu",)))
+    scorer = export.load_scoring_bundle(export.export_scoring_bundle(
+        task, torch_params, _batch(4), batch_sizes=(4,), platforms=("cpu",)))
+    jax_scorer = jax_export.load_scoring_bundle(jax_export.export_scoring_bundle(
+        jax_task, params, classification_batch(B=4), batch_sizes=(4,), platforms=("cpu",)))
+    assert art.platforms == ["cpu"]
+    for B in (1, 3, 6):
+        inputs = jax_export.scoring_inputs(classification_batch(B))
+        want = np.asarray(jax_art.call(params, inputs))
+        _close(art.call(torch_params, _batch(B)), want, rtol=0, atol=JAX_BOUND)
+        _close(scorer.call(torch_params, _batch(B)), np.asarray(jax_scorer.call(params, inputs)),
+               rtol=0, atol=JAX_BOUND)
 
 
 def test_xla_artifact_matches_jax_artifact(flax_params, exported):

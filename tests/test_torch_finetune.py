@@ -458,8 +458,13 @@ def test_cli_refuses_what_is_not_ported(records, tmp_path):
                                               records["val"], "pallas")))
     base = ["--experiment=mmt/classification", f"--model_dir={tmp_path / 'm'}",
             f"--config_file={config}", "--device=cpu"]
-    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
-        main(base + ["--params_override=trainer.grad_accum_dtype=float16"])
+    # grad_accum_dtype is read as JAX reads it (tests/test_torch_grad_accum.py).
+    with pytest.raises(TypeError, match="not understood"):
+        main(["--experiment=mmt/pretraining", f"--model_dir={tmp_path / 'p'}", "--device=cpu",
+              '--params_override={"task": {"train_data": {"input_path": "dummy"}, "model": '
+              '{"encoder": {"mmt": {"hidden_size": 32, "num_hidden_layers": 1, '
+              '"num_attention_heads": 2, "intermediate_size": 64}}}}, '
+              '"trainer": {"micro_batch_size": 2, "grad_accum_dtype": "nope"}}'])
     # The pipeline runs (tests/test_torch_multiprocess_cli.py); with model
     # parallelism it raises JAX's ValueError (mmt_tpu/cli/train.py:170-174).
     with pytest.raises(ValueError, match="mutually exclusive with num_model_parallel"):
@@ -480,6 +485,6 @@ def test_cli_refuses_what_is_not_ported(records, tmp_path):
         main(base + [f"--params_override=task.init_checkpoint={tmp_path / 'missing'}"])
     with pytest.raises(ValueError, match="input_path is empty"):
         main(base + ['--params_override={"task": {"train_data": {"input_path": ""}}}'])
-    with pytest.raises(NotImplementedError, match="retrieval"):
+    with pytest.raises(ValueError, match="retrieval"):
         main(["--experiment=mmt/retrieval", f"--model_dir={tmp_path / 'r'}", "--device=cpu"])
     assert not os.path.exists(tmp_path / "m" / "2")

@@ -1,15 +1,15 @@
-"""bfloat16 gradient accumulation of the port's pretraining step.
+"""bfloat16 and float16 gradient accumulation of the port's pretraining step.
 
-* ``grad_accum_dtype="bfloat16"``: three AdamW steps of the tiny
+* ``grad_accum_dtype="bfloat16"`` and ``"float16"``: three AdamW steps of the tiny
   pretraining task (batch 4 in micro-batches of 2, dropout off, lr 1e-3
   after one warmup step, as ``test_torch_train``'s three-step test) against
-  JAX's bfloat16 steps from the same parameters.  The parameters at the
+  JAX's steps at the same dtype from the same parameters.  The parameters at the
   tolerance of ``tests/test_train.py::test_bf16_grad_accumulation_tracks_fp32``
   (atol 5e-3, rtol 5e-2; each step's loss at rtol 1e-5), and each
   parameter's change over the three steps within GA_DELTA_TOL of that
   change's norm (the key bias against the query bias's: see
   ``test_torch_train``).  Port and JAX round the same float32 gradients
-  (equal to ~1e-6) to bf16, so they differ by ~1e-4 of the change; the
+  (equal to ~1e-6) to the dtype, so they differ by ~1e-4 of the change; the
   bf16 and float32 sums differ by more than GA_DELTA_TOL on most tensors,
   so a float32 sum fails this check;
 * against the port's own float32 steps: the changes agree within
@@ -17,14 +17,17 @@
   measured) and differ by more than GA_DELTA_TOL on at least
   GA_MOVED_SHARE of the tensors, so a bf16 path that sums in float32
   fails;
-* the summed gradient: each micro-batch's gradient rounded to bf16 and
-  added in bf16, equal to that sum made by hand;
+* the summed gradient: each micro-batch's gradient rounded to bf16 (fp16)
+  and added in bf16 (fp16), equal to that sum made by hand;
 * ``"float32"``: bit-identical to summing the micro-batches' gradients of
   loss / k in ``.grad`` (the step as it was before bfloat16 came);
-* other dtypes raise.
+* the names read as ``jnp.dtype`` reads them: a name that is no dtype
+  raises JAX's TypeError, a float64 name warns and sums in float32 (JAX
+  on the CPU without x64), and a dtype that is not floating raises.
 """
 
 import functools
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +39,7 @@ from chip_smoke import GradKeeper
 from mmt_tpu.train import optimizer as jax_optimizer
 from mmt_tpu.train.train_state import TrainState as JaxTrainState
 from mmt_tpu_torch.train.optimizer import create_optimizer
-from mmt_tpu_torch.train.tasks import batch_to_device
+from mmt_tpu_torch.train.tasks import accum_dtype, batch_to_device
 from mmt_tpu_torch.train.train_state import TrainState
 from tests.test_torch_train import (
     _assert_trees_close,
@@ -76,13 +79,14 @@ def _deltas(start, end):
     return {n: end[n] - start[n] for n in start}
 
 
-def test_bf16_step_matches_jax():
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_bf16_step_matches_jax(dtype):
     jax_task, task = _jax_task(MICRO, OPT), _torch_task(MICRO, OPT)
-    start, got, losses = _port_steps("bfloat16")
+    start, got, losses = _port_steps(dtype)
     params = _bridged(task, jax_task)
     jstate = JaxTrainState.create(params, jax_optimizer.create_optimizer(
         jax_task.trainer.optimizer_config, STEPS))
-    jstep = jax_task.make_train_step(micro_batch_size=MICRO, grad_accum_dtype="bfloat16")
+    jstep = jax_task.make_train_step(micro_batch_size=MICRO, grad_accum_dtype=dtype)
     for i in range(STEPS):
         batch = {k: jnp.asarray(v) for k, v in _batch(seed=10 + i).items()}
         jstate, jmetrics = jstep(jstate, batch, jax.random.PRNGKey(i))
@@ -118,7 +122,7 @@ def _micro_grads(task, batch):
     return out
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_summed_gradient_is_the_dtype_sum(dtype):
     jax_task, task = _jax_task(MICRO), _torch_task(MICRO)
     _bridged(task, jax_task)
@@ -127,7 +131,8 @@ def test_summed_gradient_is_the_dtype_sum(dtype):
     if dtype == "float32":  # .grad accumulates in float32, as before
         want = {n: micro[0][n] + micro[1][n] for n in micro[0]}
     else:
-        want = {n: (micro[0][n].bfloat16() + micro[1][n].bfloat16()).float() for n in micro[0]}
+        low = getattr(torch, dtype)
+        want = {n: (micro[0][n].to(low) + micro[1][n].to(low)).float() for n in micro[0]}
     keeper = GradKeeper(task.model)
     task.make_train_step(MICRO, dtype)(TrainState(step=0, model=task.model, optimizer=keeper),
                                        batch)
@@ -137,7 +142,32 @@ def test_summed_gradient_is_the_dtype_sum(dtype):
 
 
 def test_other_accumulation_dtypes_raise():
-    task = _torch_task(MICRO)
-    for dtype in ("float16", "float64"):
-        with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
-            task.make_train_step(MICRO, dtype)
+    jax_task, task = _jax_task(MICRO), _torch_task(MICRO)
+    for name in ("nope", "float17"):  # what jnp.dtype refuses, and how
+        with pytest.raises(TypeError) as want:
+            jax_task.make_train_step(micro_batch_size=MICRO, grad_accum_dtype=name)
+        with pytest.raises(TypeError) as got:
+            task.make_train_step(MICRO, name)
+        assert str(got.value) == str(want.value)
+    for name in ("int32", "bool", "complex64"):  # dtypes, not floating ones
+        with pytest.raises(ValueError, match="float16, bfloat16 or float32"):
+            task.make_train_step(MICRO, name)
+    # float64: JAX on the CPU without x64 warns and sums in float32, and so
+    # does the port: the step is the float32 one, bit for bit.
+    assert not jax.config.jax_enable_x64
+    for name in ("float64", "double"):
+        with pytest.warns(UserWarning, match="float32"):
+            assert accum_dtype(name) == torch.float32
+    assert accum_dtype("half") == torch.float16 and accum_dtype("f4") == torch.float32
+    _bridged(task, jax_task)
+    batch = batch_to_device(_batch(seed=3), "cpu")
+    grads = {}
+    for name in ("float32", "float64"):
+        keeper = GradKeeper(task.model)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            step = task.make_train_step(MICRO, name)
+        step(TrainState(step=0, model=task.model, optimizer=keeper), batch)
+        grads[name] = keeper.grads
+    for n, g in grads["float32"].items():
+        assert torch.equal(grads["float64"][n], g), n

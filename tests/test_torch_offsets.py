@@ -20,6 +20,8 @@ against the unsharded forward's lse and output, as the ring does.  The
 dropout keep factors are bit-equal to ``_dropout_tile``'s.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,6 +70,15 @@ def _jax_forward(q, k, v, table, geo, lengths, rate, q_start=0, k_start=0, batch
         k_start=jnp.int32(k_start) if k_start else 0, dropout_rate=rate,
         dropout_seed=jnp.int32(SEED) if rate else None, batch_start=jnp.int32(batch_start))
     return np.asarray(o), np.asarray(lse)[..., 0]
+
+
+@functools.lru_cache(maxsize=None)
+def _unsharded_forward(geo_name, rate):
+    """JAX's unsharded forward of the backward cases' inputs (the ring's
+    global output and lse), once per geometry and rate for the module."""
+    q, k, v, _, table, lengths = _inputs(seed=23)
+    return _jax_forward(q, k, v, table, GEOMETRIES[geo_name], lengths, rate,
+                        batch_start=BATCH_START)
 
 
 def _live_rows(geo, lengths, q_start, seq_q, k_start, seq_k):
@@ -122,7 +133,7 @@ def test_backward_with_offsets_matches_jax(form, geo_name, rate):
     qs, ks = _chunk(form)
     q_start, seq_q, k_start, seq_k = FORMS[form]
     # The unsharded forward's output and lse: the ring's global statistics.
-    out, lse = _jax_forward(q, k, v, table, geo, lengths, rate, batch_start=BATCH_START)
+    out, lse = _unsharded_forward(geo_name, rate)
     residuals = (jnp.asarray(q[:, qs]), jnp.asarray(k[:, ks]), jnp.asarray(v[:, ks]),
                  jnp.asarray(table), jnp.asarray(lengths), _offs(q_start, k_start, rate),
                  jnp.asarray(out[:, qs]), jnp.asarray(lse[:, :, qs])[..., None])

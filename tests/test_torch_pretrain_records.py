@@ -521,7 +521,8 @@ def test_multiprocess_batches_raise_for_a_failed_or_silent_worker(records, tmp_p
 
 def test_chip_smoke_records_experiment_is_the_wit_2d_yaml(tmp_path):
     """chip_smoke.py's records experiment is mlm_itm_2d.yaml with its
-    placeholders filled and only the schedule cut (and the worker count)."""
+    placeholders filled and only the schedule and the depth cut (and the
+    worker count)."""
     import chip_smoke
     from mmt_tpu_torch.configs import get_experiment_config
     from mmt_tpu_torch.configs.base import from_yaml_file
@@ -532,7 +533,9 @@ def test_chip_smoke_records_experiment_is_the_wit_2d_yaml(tmp_path):
                    chip_smoke.wit_records_experiment(tmp_path, num_workers=3)).as_dict()
     assert got["task"]["train_data"]["num_workers"] == 3
     assert got["task"]["train_data"]["input_path"] == str(tmp_path / "train-*.tfrecord")
+    assert got["task"]["model"]["encoder"]["mmt"]["num_hidden_layers"] == chip_smoke.PR_LAYERS
     for section in (want, got):
+        section["task"]["model"]["encoder"]["mmt"]["num_hidden_layers"] = None
         for split in ("train_data", "validation_data"):
             section["task"][split].update(input_path=None, vocab_filename=None, num_workers=None)
         for key in ("train_steps", "steps_per_loop", "summary_interval", "validation_interval",

@@ -354,7 +354,7 @@ def test_cli_tiny_dummy_run(tmp_path):
     with pytest.raises(ValueError, match="validation_data.input_path"):
         main(["--experiment=mmt/pretraining", "--mode=eval", f"--model_dir={model_dir}",
               f"--config_file={config}", "--device=cpu"])
-    with pytest.raises(NotImplementedError, match="retrieval"):
+    with pytest.raises(ValueError, match="retrieval"):
         main(["--experiment=mmt/retrieval", f"--model_dir={model_dir}", "--device=cpu"])
 
 

@@ -209,6 +209,20 @@ def run_cli(module: str, argv: list, scripted_preemption_rank=None) -> str:
     return {"log": log.getvalue(), "result": None if result is None else repr(type(result))}
 
 
+def run_continuous_cli(argv: list, stop_after: int = 0, timeout_s: float = 1e-3) -> str:
+    """``cli.train`` (``--mode=continuous_train_and_eval``) on this rank
+    with two compute threads, its watch polling every 0.05 s and ending
+    after ``stop_after`` rounds (0: no limit) or ``timeout_s`` after its
+    start (the test's shortening of the CLI's 3600 s)."""
+    from mmt_tpu_torch.train import continuous
+
+    torch.set_num_threads(2)
+    orig = continuous.run_continuous_finetune
+    continuous.run_continuous_finetune = lambda **kw: orig(**{
+        **kw, "poll_interval_s": 0.05, "timeout_s": timeout_s, "stop_after": stop_after})
+    return run_cli("mmt_tpu_torch.cli.train", argv)
+
+
 def _task(kind: str, task_cfg: dict, trainer: dict, state: dict):
     task = _dropout_task(kind, task_cfg, trainer)
     task.model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
