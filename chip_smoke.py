@@ -27,7 +27,10 @@ Phases, each printed as one JSON line:
 5. profile: device time by kernel over one forward of that batch
    (``torch.profiler``), the device's idle share, and the forward
    kernel's device time per call there beside its time alone (phase 3),
-   each with the 64 x 64 tiles its lengths give.
+   each with the 64 x 64 tiles its lengths give. This phase, train_profile
+   and finetune_profile read a trace only if it holds every attention
+   kernel call of the step: the step is traced again, up to 3 traces, when
+   the profiler dropped a record (``traces`` in the line says how many).
 6. reference: the same model with dense attention on two of the pairs;
    the ITM logits must agree within 4 bf16 spacings.
 7. kernel_dropout: the forward kernel with attention dropout 0.1 against
@@ -149,18 +152,23 @@ Phases, each printed as one JSON line:
    cards.
 
 19. probe_split: the far / structured split schedule as two probe passes
-   (``probes.split_probe``): each pass and their logsumexp combine against
-   the plain versions and the one-pass kernel at the check lengths (the o /
-   lse bounds of phase 3), then the probe's entry point at the retrieval
-   shape: far pass, structured pass, one-pass kernel (the production
-   forward kernel, ``csrc/rel_attention_fwd.cu``), the share of far
-   tiles; each pass also against its bound and against
+   (``probes.split_probe``: the production forward kernel cut to one class
+   of key tiles), through the probe's entry point: each pass and their
+   logsumexp combine against the plain versions and the one-pass kernel at
+   the check lengths (the o / lse bounds of phase 3), then at the retrieval
+   shape the far pass, the structured pass and the one-pass kernel (the
+   production forward kernel, ``csrc/rel_attention_fwd.cu``), their sum
+   over the one-pass time, the share of far tiles; each pass also against
+   its plain version's time, its bound and
    ``scaled_dot_product_attention`` handed the bias and the class mask.
 20. probe_op_cost: every variant of the op-cost probe
-   (``probes.op_cost_probe``) against its plain version at the retrieval
-   shape (and, inside the probe's entry point, at B=1, H=2, S=512), then
-   the entry point's timings at the retrieval shape: ms per variant and
-   the delta against the baseline.
+   (``probes.op_cost_probe``: the production forward kernel with some op
+   families switched on) against its plain version at the retrieval shape
+   (and, inside the probe's entry point, at B=1, H=2, S=512), then the
+   entry point's timings at the retrieval shape: ms per variant, the delta
+   against the baseline, and ``full`` / ``full_hash`` over the production
+   kernel at rates 0 / 0.1; ``full``'s library time is phase 3's SDPA
+   handed the bias and masks (the same inputs).
 21. probe_hopper: every primitive probe of ``probes.hopper_probe`` (wgmma,
    TMA load / store, cp.async ring, ldmatrix.trans + stmatrix, cluster
    shared memory, 227 KB shared memory, setmaxnreg, red.v4.f32) against its
@@ -765,28 +773,48 @@ def kernel_calls_ms(intervals, name, expected, min_share=1.0):
     return sum(calls) / len(calls) / 1e3
 
 
+# Traces of one step taken before a one-step trace counts as incomplete.
+TRACE_ATTEMPTS = 3
+
+
+def profile_step(run, calls):
+    """``run()`` (one step) under the profiler: the device intervals, the
+    step's wall ms and the number of traces taken. A trace must hold every
+    call of ``calls`` (kernel name -> count): the profiler has dropped one
+    kernel record from such a trace (11 of 12 forward calls, phase
+    finetune_profile), so an incomplete trace is taken again, up to
+    TRACE_ATTEMPTS traces; ``kernel_calls_ms`` then refuses the last if it
+    is still incomplete."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        intervals = device_intervals(prof)
+        if all(sum(name in n for n, _, _ in intervals) == count for name, count in calls.items()):
+            break
+    return intervals, wall_ms, attempt
+
+
 def phase_profile(model, batch, fwd_alone) -> None:
     """Device time by kernel for one forward of the main path's batch, the
     share of the forward's wall time in which the card ran nothing, and the
     forward kernel's device ms per call there beside ``fwd_alone``, its
     time alone (phase kernel), each with the tiles its lengths give."""
-    from torch.profiler import ProfilerActivity, profile
-
     inputs = {k: torch.as_tensor(batch[k]).cuda()
               for k in ("word_ids", "segment_ids", "patch_embeddings", "lengths")}
+    layers = model.config.encoder.mmt.num_hidden_layers
     with torch.inference_mode():
         model(**inputs)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(**inputs)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    intervals = device_intervals(prof)
-    per_call = kernel_calls_ms(intervals, FWD_KERNEL, model.config.encoder.mmt.num_hidden_layers)
+        intervals, wall_ms, traces = profile_step(lambda: model(**inputs), {FWD_KERNEL: layers})
+    per_call = kernel_calls_ms(intervals, FWD_KERNEL, layers)
     emit({"phase": "profile", **trace_summary(
         intervals, wall_ms, {"rel_attention_fwd": ("rel_attention_fwd",), "matmul": CUBLAS_TAGS}),
-        "fwd_kernel_ms_per_call_in_step": per_call,
+        "traces": traces, "fwd_kernel_ms_per_call_in_step": per_call,
         "fwd_tiles_in_step": dense_tiles(batch["lengths"]), "fwd_kernel_alone": fwd_alone})
 
 
@@ -1150,8 +1178,6 @@ def phase_train_profile(task, cfg, fwd_alone, bwd_alone_ms):
     and the forward and backward kernels' device ms per call there beside
     ``fwd_alone`` (with the tiles its lengths give) and ``bwd_alone_ms``,
     their times alone (phases kernel and kernel_bwd)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from mmt_tpu_torch.models import DropoutRngs
 
     gen = torch.Generator("cuda").manual_seed(4)
@@ -1164,21 +1190,20 @@ def phase_train_profile(task, cfg, fwd_alone, bwd_alone_ms):
         loss, _ = task.compute_loss(batch, rngs)
         loss.backward()
 
-    micro_step()
-    task.model.zero_grad(set_to_none=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def traced_step():
+        task.model.zero_grad(set_to_none=True)
         micro_step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    task.model.zero_grad(set_to_none=True)
-    intervals = device_intervals(prof)
+
+    micro_step()
+    torch.cuda.synchronize()
     layers = cfg.task.model.encoder.mmt.num_hidden_layers
+    intervals, wall_ms, traces = profile_step(traced_step, {FWD_KERNEL: layers,
+                                                            BWD_KERNEL: layers})
+    task.model.zero_grad(set_to_none=True)
     emit({"phase": "train_profile", "micro_batch": TRAIN_MICRO, **trace_summary(
         intervals, wall_ms, {"rel_attention_fwd": ("rel_attention_fwd",),
                              "rel_attention_bwd": ("rel_attention_bwd",), "cublas": CUBLAS_TAGS}),
-        "fwd_kernel_ms_per_call_in_step": kernel_calls_ms(intervals, FWD_KERNEL, layers),
+        "traces": traces, "fwd_kernel_ms_per_call_in_step": kernel_calls_ms(intervals, FWD_KERNEL, layers),
         "fwd_tiles_in_step": dense_tiles(batch["lengths"].tolist()),
         "fwd_kernel_alone": fwd_alone,
         "bwd_kernel_ms_per_call_in_step": kernel_calls_ms(intervals, BWD_KERNEL, layers),
@@ -1582,7 +1607,6 @@ def phase_probe_split():
     from mmt_tpu_torch.ops import fused_attention as fa
     from mmt_tpu_torch.probes import common, split_probe as sp
 
-    checks = sp.check(CHECK_LENGTHS, seed=1)
     lengths = common.retrieval_lengths()
     q, k, v, table, lens = common.attention_inputs(lengths, seed=3)
     geo = common.FLAGSHIP
@@ -1606,7 +1630,7 @@ def phase_probe_split():
 
     sp.split_pass.launches_far = sp.split_pass.launches_structured = 0
     result = sp.run()  # the probe's entry point: its checks, then its timings
-    times = result["times"]
+    checks, times = result["checks"], result["times"]
     far_pairs, struct_pairs = split_pass_pairs(geo, lengths, SEQ_LEN)
     L = float(np.sum(lengths))
     row_bytes = HEADS * HEAD_DIM * 2
@@ -1627,14 +1651,19 @@ def phase_probe_split():
     entries[0]["launches"] = sp.split_pass.launches_far
     entries[1]["launches"] = sp.split_pass.launches_structured
     require_launched(entries, "probe_split")
-    emit({"phase": "probe_split", "checks": checks, "entry_point_checks": result["checks"],
-          "one_pass_kernel": "mmt_tpu_torch/csrc/rel_attention_fwd.cu", **times, "far_pairs": far_pairs, "structured_pairs": struct_pairs,
+    emit({"phase": "probe_split", "checks": checks,
+          "one_pass_kernel": "mmt_tpu_torch/csrc/rel_attention_fwd.cu", **times,
+          "far_pairs": far_pairs, "structured_pairs": struct_pairs,
           "plain_ms": {"far": plain_ms[True], "structured": plain_ms[False]},
           "library_ms": {"far": library_ms[True], "structured": library_ms[False]}})
     return entries
 
 
-def phase_probe_op_cost():
+def phase_probe_op_cost(library_full_ms):
+    """``library_full_ms``: SDPA handed the bias and masks as one additive
+    mask on the inputs ``full`` runs on, the forward kernel's yardstick from
+    phase kernel (the same seeds; ``full_hash``'s dropout is the kernels'
+    hash, which no library call computes)."""
     from mmt_tpu_torch.probes import common, op_cost_probe as oc
 
     # Every variant against its plain version at the retrieval shape, on the
@@ -1649,7 +1678,7 @@ def phase_probe_op_cost():
             name, q, k, v, table, common.FLAGSHIP, lens)), iters=1, warmup=0)
         got = oc.op_cost(name, q, k, v, table, common.FLAGSHIP, lens)
         torch.cuda.synchronize()
-        bounds[name] = oc.PV_RETRIEVAL_REL_BOUND if name == "pv" else oc.REL_BOUND
+        bounds[name] = oc.rel_bound(name)
         errors[name] = oc.relative_error(name, got, want[0], bounds[name])  # raises above it
         del want, got
     del q, k, v
@@ -1663,16 +1692,22 @@ def phase_probe_op_cost():
     out_bytes = BATCH * HEADS * SEQ_LEN * 4
     # Columns of q . R^T a variant reads: column 0 is in every written sum.
     qr_columns = {"gather": REL_VOCAB, "rank1": 3}
+    real = np.asarray(lengths, np.float64)
     entries = []
     for name in oc.VARIANTS:
-        reads_v = name in ("pv", "kt_store", "ldmatrix_trans")
-        flops = 2 * (visited**2).sum() * HEAD_DIM * HEADS * (2 if name == "pv" else 1) \
-            + 2 * visited.sum() * qr_columns.get(name, 1) * HEAD_DIM * HEADS
-        nbytes = (3 if reads_v else 2) * visited.sum() * row_bytes + out_bytes
+        if name in oc.FULL:  # the forward's work on the real pairs
+            flops = 4 * (real**2).sum() * HEAD_DIM * HEADS \
+                + 2 * real.sum() * REL_VOCAB * HEAD_DIM * HEADS
+            nbytes = 3 * real.sum() * row_bytes + out_bytes
+        else:
+            flops = 2 * (visited**2).sum() * HEAD_DIM * HEADS * (2 if name == "pv" else 1) \
+                + 2 * visited.sum() * qr_columns.get(name, 1) * HEAD_DIM * HEADS
+            nbytes = (3 if name == "pv" else 2) * visited.sum() * row_bytes + out_bytes
         entry = probe_entry(
             f"probe_op_cost_{name}", "mmt_tpu_torch/csrc/probe_op_cost.cu",
             "scripts/op_cost_probe.py:213 (bench over make's variants, P2)",
-            errors[name], result["ms"][name], plain_ms[name], flops, nbytes)
+            errors[name], result["ms"][name], plain_ms[name], flops, nbytes,
+            library_full_ms if name == "full" else None)
         entry["err_relative_to"] = "max |plain| at the retrieval shape"
         entry["rel_bound"] = bounds[name]
         entry["launches"] = oc.op_cost.launches[name]
@@ -1681,7 +1716,7 @@ def phase_probe_op_cost():
     emit({"phase": "probe_op_cost", "rel_errors": errors, "rel_bounds": bounds,
           "small_shape_rel_errors": result["rel_errors"], "small_shape": oc.CHECK_SHAPE,
           "shape": result["shape"], "ms": result["ms"], "delta_ms": result["delta_ms"],
-          "plain_ms": plain_ms})
+          "plain_ms": plain_ms, "library_ms": {"full": library_full_ms}})
     return entries
 
 
@@ -2781,8 +2816,6 @@ def phase_finetune_profile(task, batch):
     (CUDA events around the wrapper: a profiler session this late in the
     script has dropped kernel records), against SDPA handed the bias mask
     and against the bound."""
-    from torch.profiler import ProfilerActivity, profile
-
     from mmt_tpu_torch.models import DropoutRngs
     from mmt_tpu_torch.train.optimizer import create_optimizer
     from mmt_tpu_torch.train.tasks import batch_to_device
@@ -2796,18 +2829,19 @@ def phase_finetune_profile(task, batch):
     on_card = batch_to_device(batch, "cuda")
     state, _ = step(state, on_card, DropoutRngs.for_step(0, 0, "cuda"))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, metrics = step(state, on_card, DropoutRngs.for_step(0, 1, "cuda"))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    intervals = device_intervals(prof)
+
+    def traced_step():
+        nonlocal state
+        state, _ = step(state, on_card, DropoutRngs.for_step(0, 1, "cuda"))
+
+    intervals, wall_ms, traces = profile_step(traced_step, {FWD_KERNEL: layers,
+                                                            BWD_KERNEL: layers})
     fwd_in_step = kernel_calls_ms(intervals, FWD_KERNEL, layers)
     bwd_in_step = kernel_calls_ms(intervals, BWD_KERNEL, layers)
     summary = trace_summary(intervals, wall_ms, {
         "rel_attention_fwd": ("rel_attention_fwd",), "rel_attention_bwd": ("rel_attention_bwd",),
         "cublas": CUBLAS_TAGS})
-    del state, optimizer, on_card, metrics, prof
+    del state, optimizer, on_card
     task.model.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
 
@@ -2816,7 +2850,7 @@ def phase_finetune_profile(task, batch):
     backward["kernel_ms_per_call_in_step"] = bwd_in_step
     lengths = batch["lengths"].tolist()
     emit({"phase": "finetune_profile", "batch": len(lengths), "seq_len": CLI_SEQ, "rate": DROPOUT,
-          **summary, "lengths_mean": float(np.mean(lengths)), "tiles": dense_tiles(lengths),
+          **summary, "traces": traces, "lengths_mean": float(np.mean(lengths)), "tiles": dense_tiles(lengths),
           "forward": forward, "backward": backward})
     check_kernels_at(forward, backward, len(lengths))
     return forward, backward
@@ -5260,7 +5294,8 @@ def main() -> int:
     head_entries, pp_launches = phase_model_parallel()
     entry["launches"] += pp_launches["fwd"]
     bwd_entry["launches"] += pp_launches["bwd"]
-    probe_entries = [*phase_probe_split(), *phase_probe_op_cost(), *phase_probe_hopper()]
+    probe_entries = [*phase_probe_split(), *phase_probe_op_cost(entry["library_ms"]),
+                     *phase_probe_hopper()]
     entry["launches"] += phase_predict_cli()
     entry["launches"] += phase_int8()
     entry["launches"] += phase_export()

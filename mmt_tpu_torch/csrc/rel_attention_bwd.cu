@@ -22,7 +22,7 @@
 // term on its logit, so one kernel replaces all four.
 //
 // What it computes, per (b, h), with s the forward's scaled, masked logits
-// (same bias, mask and dropout hash as rel_attention_fwd.cu), lse and
+// (same bias, mask and dropout hash as rel_attention_fwd.cuh), lse and
 // delta = rowsum(do * o) from the caller, K the dropout keep factor and
 // "real" = (i < L_b) and (j < L_b) (a pair the window disallows has p = 0
 // exactly, so it adds nothing to dq, dk, dv or dRel):
@@ -36,7 +36,7 @@
 // Only tiles with real queries and real keys run (the TPU kernels' exact
 // pad-tile skip), and with the window only live tiles; dk/dv rows past the
 // length come out 0, and dq rows past it receive no add (the caller zeroes
-// the buffer).  Offsets as in rel_attention_fwd.cu: q, do, lse, delta and
+// the buffer).  Offsets as in rel_attention_fwd.cuh: q, do, lse, delta and
 // dq hold the global rows [q_start, q_start + S_q), k, v, dk and dv the
 // global keys [k_start, k_start + S_k); with a chunk of keys and the global
 // lse (the ring schedule) the outputs are that chunk's terms.

@@ -1,5 +1,5 @@
 // Hopper pieces shared by the relative-attention kernels
-// (rel_attention_fwd.cu, rel_attention_bwd.cu): swizzled shared-memory
+// (rel_attention_fwd.cuh, rel_attention_bwd.cu): swizzled shared-memory
 // tiles read by wgmma matrix descriptors, the wgmma products, the cp.async
 // copies, and the per-tile forms of the relative id and the dropout hash.
 // Header-only, sm_90a; include after rel_attention_common.cuh.
@@ -181,10 +181,12 @@ __device__ __forceinline__ void copy_tile(uint32_t dst, const __nv_bfloat16* src
 
 // ------------------------------------------------------ per-pair values
 
-// The pieces of relative_id (rel_attention_common.cuh).  image_id: the 2D
-// id of an image pair from dy = jy - iy and dx = jx - ix (the mid-square id
-// (dy * d + dx) % d^2 is that number wrapped once: |dy * d + dx| < d^2);
-// band_id: the clipped 1D id of a text pair.
+// The pieces of the relative id (the closed form of
+// mmt_tpu_torch/features/relative_position.py).  image_id: the 2D id of an
+// image pair from dy = jy - iy and dx = jx - ix, r core layers (inside the
+// core square the id (dy * d + dx) mod d^2, which is that number wrapped
+// once: |dy * d + dx| < d^2; outside it one of 8 direction ids); band_id:
+// the clipped 1D id of a text pair.
 __device__ __forceinline__ int image_id(int dy, int dx, int r) {
   const int d = 2 * r + 1;
   const bool above = dy < -r, below = dy > r, left = dx < -r, right = dx > r;
@@ -224,9 +226,11 @@ __device__ __forceinline__ int uniform_tile_id(int q0, int k0, const Geometry& g
   return -1;
 }
 
-// dropout_keep (rel_attention_common.cuh) from x = row ^ j * 0x85EBCA6B,
-// row = i * 0x9E3779B9 ^ (seed_b + head * 0x27D4EB2D) hoisted per query
-// row (xor is associative, so the hash is the same bit for bit).
+// The keep factor of mmt_tpu/ops/pallas_attention.py:_dropout_keep in
+// uint32 arithmetic (the int32 products there wrap; the shifts are
+// logical), 0 or keep_scale: x = row ^ j * 0x85EBCA6B, with row = i *
+// 0x9E3779B9 ^ (seed_b + head * 0x27D4EB2D) hoisted per query row (xor is
+// associative, so the hash is the same bit for bit).
 __device__ __forceinline__ uint32_t hash_row(uint32_t seed_b, uint32_t head, uint32_t i) {
   return (i * 0x9E3779B9u) ^ (seed_b + head * 0x27D4EB2Du);
 }

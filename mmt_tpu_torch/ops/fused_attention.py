@@ -2,7 +2,8 @@
 
 Counterpart of ``mmt_tpu/ops/pallas_attention.py``, forward and backward.
 
-* Forward kernel ``mmt_tpu_torch/csrc/rel_attention_fwd.cu`` replaces the
+* Forward kernel ``mmt_tpu_torch/csrc/rel_attention_fwd.cu`` (the kernel
+  template in ``rel_attention_fwd.cuh``) replaces the
   TPU kernels K1 ``_fwd_kernel`` and K2 ``_fwd_list_kernel`` (with the
   split schedule's logsumexp combine and the image-corner build, and the
   windowed live-tile list) by one flash-attention pass on ``wgmma``: a
@@ -49,9 +50,10 @@ Public pieces:
 * ``relative_attention_plain`` / ``relative_attention_backward_plain``
   are the plain PyTorch versions: dense formulas over the materialised id
   map and pattern mask, chunked over the batch.
-* ``live_tiles`` is the 64-wide tile sweep of a block (csrc ``LiveTiles``);
-  ``uniform_tile_id`` and ``image_id_table`` are the forward kernel's
-  per-tile id and its image id table.
+* ``live_tiles`` is the 64-wide tile sweep of a block (csrc ``LiveTiles``),
+  ``split_class_tiles`` its far / structured classes (the split probe's
+  cut of the forward kernel); ``uniform_tile_id`` and ``image_id_table``
+  are the forward kernel's per-tile id and its image id table.
 * ``dropout_keep`` / ``dropout_tile`` are a bit-exact copy of the JAX
   dropout hash.
 * ``allowed_real_pairs`` counts the pairs a batch's attention computes
@@ -251,6 +253,46 @@ def live_tiles(r0: int, length: int, geometry: Optional[RelGeometry], start: int
     lo = max(max(r0 - geometry.window, 0) // TILE, head, first)
     hi = min((r0 + TILE - 1 + geometry.window) // TILE + 1, n)
     return list(range(first, head)) + list(range(lo, max(lo, hi)))
+
+
+# The key tiles a forward warpgroup computes (csrc ``TileClass``): its live
+# tiles, or one class of the far / structured split (the split probe).
+TILE_CLASSES = ("all", "far", "structured")
+
+
+def split_class_tiles(q_first: int, q_last: int, length: int, geometry: RelGeometry,
+                      tile_class: str) -> list:
+    """The key tiles of one class of the far / structured split that the
+    64-row query tiles ``q_first <= ... <= q_last`` (one or two adjacent
+    starts) meet among the dense tiles ``[0, ceil(length / 64))``, in
+    ascending order (csrc ``split_class_tiles``).  A tile (q0, k0) is far
+    when both lie in the text part and every offset ``j - i`` in it is
+    beyond the text distance d on one side (``k0 >= q0 + 64 + d`` or ``k0
+    <= q0 - 64 - d``; ``pallas_attention.py:_build_tile_meta`` at 64-blocks);
+    every other tile is structured.  For two query tiles this is the union
+    of their tiles: the block's walk in the kernel."""
+    if tile_class not in TILE_CLASSES[1:]:
+        raise ValueError(f"tile_class must be 'far' or 'structured', got {tile_class!r}")
+    n = -(-length // TILE)
+    il, d = geometry.image_len, geometry.text_max_distance
+    ti = min(-(-il // TILE), n)
+
+    def lhi(q0):  # one past the last far tile left of the band
+        return min((q0 - TILE - d) // TILE + 1 if q0 - TILE - d >= 0 else 0, n)
+
+    def rlo(q0):  # the first far tile right of the band
+        return min(-(-(q0 + TILE + d) // TILE), n)
+
+    if tile_class == "far":
+        if q_last < il:  # no text query tile
+            return []
+        head = max(ti, lhi(q_last))
+        lo = max(head, rlo(q_last if q_first < il else q_first))
+        return list(range(ti, head)) + list(range(lo, n))
+    if q_first < il:  # an image query tile meets every tile
+        return list(range(n))
+    lo = max(ti, lhi(q_first))
+    return list(range(ti)) + list(range(lo, max(lo, rlo(q_last))))
 
 
 # ------------------------------------------------------------ dropout hash
@@ -647,10 +689,11 @@ def relative_attention_forward_tiled(
     q_start: int = 0,
     k_start: int = 0,
     batch_start: int = 0,
+    tile_class: str = "all",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's schedule in plain PyTorch (float32, small
     shapes): the function of ``relative_attention_plain``, computed as
-    ``csrc/rel_attention_fwd.cu`` decomposes it.
+    ``csrc/rel_attention_fwd.cuh`` decomposes it.
 
     For each example and each 64-row query block with a real row, qr =
     q . R^T (times scale * log2(e)) once, then the block's live key tiles
@@ -668,10 +711,19 @@ def relative_attention_forward_tiled(
     float32 in natural log); query blocks past the length, and rows whose
     best logit carries a -10000 term (no live key: ``EMPTY_ROW_LOGIT2``),
     give o = 0 and lse = -inf, as the kernel writes them.
+
+    ``tile_class`` "far" or "structured" is the split probe's cut of the
+    kernel (csrc ``SplitPass``): each 64-row block visits only its key
+    tiles of that class (``split_class_tiles``), and o comes back in
+    float32, normalised by the pass's own row sum (dense, no offsets).
     """
     _check_pattern(geometry, rel_table)
     _check_dropout(dropout_rate, dropout_seed)
     _check_tile_offsets(q_start, k_start, batch_start)
+    if tile_class not in TILE_CLASSES:
+        raise ValueError(f"tile_class must be one of {TILE_CLASSES}, got {tile_class!r}")
+    if tile_class != "all" and (geometry is None or _windowed(geometry) or q_start or k_start):
+        raise ValueError("a split class runs the dense forward with a bias and no offsets")
     batch, seq_q, num_heads, head_dim = q.shape
     seq_k = k.shape[1]
     c2 = math.log2(math.e) / math.sqrt(head_dim)
@@ -697,7 +749,9 @@ def relative_attention_forward_tiled(
             m = torch.full((num_heads, len(i_pos)), -math.inf, device=q.device)
             l = torch.zeros_like(m)
             acc = torch.zeros(num_heads, len(i_pos), head_dim, device=q.device)
-            for tile in live_tiles(q0, key_end, geometry, k_start):
+            tiles = (live_tiles(q0, key_end, geometry, k_start) if tile_class == "all"
+                     else split_class_tiles(q0, q0, key_end, geometry, tile_class))
+            for tile in tiles:
                 k0 = tile * TILE
                 ks = slice(k0 - k_start, min(k0 - k_start + TILE, seq_k))
                 j_pos = torch.arange(k0, k0 + ks.stop - ks.start, device=q.device)
@@ -733,7 +787,7 @@ def relative_attention_forward_tiled(
             l = torch.where(empty, 1.0, l)
             o[b, qs] = torch.where(empty[..., None], 0.0, acc / l[..., None]).permute(1, 0, 2)
             lse[b, :, qs] = torch.where(empty, -math.inf, (m + torch.log2(l)) * math.log(2.0))
-    return o.to(q.dtype), lse
+    return (o.to(q.dtype) if tile_class == "all" else o), lse
 
 
 def relative_attention_backward_tiled(

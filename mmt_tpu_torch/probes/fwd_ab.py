@@ -1,27 +1,32 @@
 """Builds of the forward kernel's source timed against each other, on the card.
 
-The forward kernel (``csrc/rel_attention_fwd.cu``) is one source with a
-plain C entry point, ``mmt_rel_attention_fwd``.  This probe compiles
-several versions of that source (the tree's own, an older commit's, a
-version with other preprocessor flags) and runs each through the port's
-own wrapper, ``fused_attention.relative_attention_forward``, so that a
-design change is measured against the design before it in one process on
-one card.  A variant is ``SOURCE[:FLAGS]``: ``current`` for the tree's
-source, or a path to a ``.cu`` file (its directory and ``csrc/`` are on
-the include path), and nvcc flags after a colon.  For example::
+The forward kernel (``csrc/rel_attention_fwd.cu``, its template in
+``csrc/rel_attention_fwd.cuh``) is one source with a plain C entry point,
+``mmt_rel_attention_fwd``.  This probe compiles several versions of that
+source (the tree's own, an older commit's, a version with other
+preprocessor flags) and runs each through the port's own wrapper,
+``fused_attention.relative_attention_forward``, so that a design change is
+measured against the design before it in one process on one card.  A
+variant is ``SOURCE[:FLAGS]``: ``current`` for the tree's source, or a path
+to a ``.cu`` file (its directory, then ``csrc/``, is on the include path,
+so an older commit's ``csrc/`` unpacked whole builds with its own headers),
+and nvcc flags after a colon.  For example::
 
-    git show HEAD~1:mmt_tpu_torch/csrc/rel_attention_fwd.cu > /tmp/parent.cu
-    python -m mmt_tpu_torch.probes.fwd_ab current /tmp/parent.cu
+    mkdir -p .checkout_parent && git archive HEAD~1 mmt_tpu_torch/csrc | tar -x -C .checkout_parent
+    python -m mmt_tpu_torch.probes.fwd_ab current \
+        .checkout_parent/mmt_tpu_torch/csrc/rel_attention_fwd.cu
 
 Each variant is first held against the plain version (``kernel_errors``:
 the o / lse bounds of ``tests/test_torch_cuda.py``) at the check lengths
 without and with dropout, at the pretraining micro-batch with dropout and
-at the windowed micro-batch with dropout; then every variant is timed, in
-turns (variants in order, then in reverse), by the profiler's device time
-of the kernel at the three shapes of the main paths: retrieval (B=32,
-S=4096, rate 0), the 4k windowed micro-batch (B=8, window 512, global
-prefix 198, rate 0.1), and the S=256 micro-batch (B=64, rate 0.1 and 0).
-One JSON line per build, per check and per timing.
+at the windowed micro-batch with dropout; then every variant's o and lse
+are compared bit for bit with the first variant's (``bit_equality``) at
+the three main-path shapes, each at rates 0 and 0.1; then every variant is
+timed, in turns (variants in order, then in reverse), by the profiler's
+device time of the kernel at those shapes: retrieval (B=32, S=4096, rate
+0), the 4k windowed micro-batch (B=8, window 512, global prefix 198, rate
+0.1), and the S=256 micro-batch (B=64, rate 0.1 and 0).  One JSON line per
+build, per check, per comparison and per timing.
 """
 
 from __future__ import annotations
@@ -112,6 +117,31 @@ def kernel_errors(q, k, v, table, geometry, lengths, rate) -> Tuple[float, float
     return err_o, err_lse
 
 
+def bit_equal_cases() -> Dict[str, tuple]:
+    """name -> (q, k, v, table, geometry, lengths, rate): the three
+    main-path shapes, each at rates 0 and 0.1."""
+    out = {}
+    for name, args in shapes().items():
+        shape = name.rsplit("_rate_", 1)[0]
+        for rate in (0.0, 0.1):
+            out[f"{shape}_rate_{rate:g}"] = (*args[:6], rate)
+    return out
+
+
+def forward_outputs(args) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of the forward kernel on one case (seed 5 with dropout)."""
+    q, k, v, table, geometry, lengths, rate = args
+    return fa.relative_attention_forward(q, k, v, table, geometry, lengths, "cuda", rate,
+                                         5 if rate else None)
+
+
+def bit_equality(reference: Dict[str, tuple], outputs: Dict[str, tuple]) -> Dict[str, bool]:
+    """case -> whether o and lse of ``outputs`` equal ``reference``'s bit for
+    bit (NaNs never occur: rows without a live key hold 0 and -inf)."""
+    return {case: all(torch.equal(a, b) for a, b in zip(reference[case], got))
+            for case, got in outputs.items()}
+
+
 def kernel_ms(args, iters: int) -> float:
     """Profiler device ms per call of the forward kernel (from the trace)."""
     from torch.profiler import ProfilerActivity, profile
@@ -135,8 +165,8 @@ def kernel_ms(args, iters: int) -> float:
 
 
 def run(specs: Sequence[str] = ("current",), device="cuda") -> dict:
-    """The probe's entry point: builds, checks and times every variant;
-    returns the times.  Runs on the card."""
+    """The probe's entry point: builds, checks, compares and times every
+    variant; returns the times and the comparisons.  Runs on the card."""
     from mmt_tpu_torch.device import resolve_device
 
     if resolve_device(device).type != "cuda":
@@ -163,6 +193,19 @@ def _run(specs: Sequence[str]) -> dict:
         print(json.dumps({"variant": spec, "ok": ok, "errors": errs}), flush=True)
         if not ok:
             raise AssertionError(f"{spec} disagrees with the plain version: {errs}")
+    del q, k, v, table, lens
+    equal_cases = bit_equal_cases()
+    reference, equal = None, {}
+    for spec, lib in libs.items():
+        use(lib)
+        outs = {name: forward_outputs(args) for name, args in equal_cases.items()}
+        if reference is None:
+            reference = outs
+            continue
+        equal[spec] = bit_equality(reference, outs)
+        print(json.dumps({"variant": spec, "against": next(iter(libs)),
+                          "bit_equal": equal[spec]}), flush=True)
+    del reference, equal_cases
     iters = {"flagship_rate_0": 10, "window_rate_0.1": 20, "train_rate_0.1": 50,
              "train_rate_0": 50}
     times = {spec: {name: [] for name in cases} for spec in libs}
@@ -173,7 +216,7 @@ def _run(specs: Sequence[str]) -> dict:
                 times[spec][name].append(kernel_ms(args, iters[name]))
     for spec in libs:
         print(json.dumps({"variant": spec, "kernel_ms": times[spec]}), flush=True)
-    return times
+    return {"kernel_ms": times, "bit_equal": equal}
 
 
 if __name__ == "__main__":

@@ -3,22 +3,25 @@
 Counterpart of ``scripts/split_probe.py``, which launches the TPU list
 kernel (``pallas_attention.py:_fwd_list_kernel``) once over the far list
 and once over the structured list of ``_split_tile_lists`` and times each.
-The port's production forward computes the split's function in one pass
-and does not specialise far tiles; this probe says what the specialisation
-is worth on the card:
+The port's production forward computes the split's function in one pass;
+this probe says what splitting it costs on the card:
 
 * ``tile_classes`` classifies the kernels' 64 x 64 tiles by the rule of
   ``_build_tile_meta``: a tile is *far* when it lies in the text x text
   part and every offset ``j - i`` in it is beyond the text distance on one
   side, so that its bias is rank-1 (``qr[i, D]`` right, ``qr[i, 2D]``
   left); everything else is *structured*.
-* ``split_pass`` launches ``csrc/probe_split.cu`` over one class: the far
-  pass adds the rank-1 bias with no per-element id and no gather, the
-  structured pass runs the production per-element path.  Each returns
+* ``split_pass`` launches ``csrc/probe_split.cu``: the production forward
+  kernel (``csrc/rel_attention_fwd.cuh``) cut to one class of key tiles,
+  with the same grid, ring, products, per-tile bias and softmax.  Each
+  warpgroup computes its own tiles of the class
+  (``fused_attention.split_class_tiles``) and the block's ring carries the
+  union of its two warpgroups' tiles (``block_tiles``).  Each pass returns
   float32 partials (o normalised by the pass's own row sum, lse).
 * ``combine`` merges the two passes by logsumexp with the -3e38 clamp of
   ``_forward_split``.
-* ``split_pass_plain`` is the plain PyTorch version of one pass.
+* ``split_pass_plain`` is the plain PyTorch version of one pass, and
+  ``split_pass_tiled`` the kernel's schedule of it in plain PyTorch.
 
 Run on the card::
 
@@ -28,7 +31,8 @@ It checks the combined (o, lse) against the one-pass kernel and the plain
 attention on real rows at the lengths [4096, 3001, 1000, 257] (o 2e-2, lse
 1e-3), then prints the far pass's, the structured pass's and the one-pass
 kernel's times at the retrieval shape (B=32, S=4096, H=12, D=64, lengths ~
-U[2048, 4096]) and the share of live tiles that are far.
+U[2048, 4096]), their sum over the one-pass time, and the share of live
+tiles that are far.
 """
 
 from __future__ import annotations
@@ -65,6 +69,23 @@ def tile_classes(geometry: fa.RelGeometry, seq_len: int, tile: int = TILE) -> np
     right = text & (k0 - (q0 + tile - 1) > d)
     left = text & (k0 + tile - 1 - q0 < -d)
     return np.where(right, FAR_RIGHT, np.where(left, FAR_LEFT, STRUCTURED)).astype(np.int8)
+
+
+def block_tiles(gb0: int, length: int, geometry: fa.RelGeometry, far: bool) -> list:
+    """The key tiles the kernel's 128-row block at ``gb0`` issues to its
+    ring: the union of its warpgroups' tiles of the class (the second
+    warpgroup's only when its rows start below the length)."""
+    q_last = gb0 + TILE if gb0 + TILE < length else gb0
+    return fa.split_class_tiles(gb0, q_last, length, geometry, "far" if far else "structured")
+
+
+def split_pass_tiled(q, k, v, rel_table, geometry: fa.RelGeometry, lengths,
+                     far: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pass in the kernel's schedule, in plain PyTorch (float32, small
+    shapes): the forward's tiled schedule over the key tiles of one class
+    -> (o fp32 [B,S,H,D], lse fp32 [B,H,S]) as ``split_pass``."""
+    return fa.relative_attention_forward_tiled(
+        q, k, v, rel_table, geometry, lengths, tile_class="far" if far else "structured")
 
 
 def split_tile_lists(classes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -252,7 +273,8 @@ def measure(lengths: Optional[Sequence[int]] = None, seed: int = 3, iters: int =
             seq_len: int = common.SEQ_LEN,
             geometry: fa.RelGeometry = common.FLAGSHIP) -> dict:
     """Times of the two passes and the one-pass kernel at the retrieval
-    shape, in turns, and the share of live tiles that are far."""
+    shape, in turns, their sum over the one-pass time, and the share of
+    live tiles that are far."""
     lengths = common.retrieval_lengths(seq_len=seq_len) if lengths is None else list(lengths)
     q, k, v, table, lens = common.attention_inputs(lengths, seed, seq_len)
     rel = fa.kernel_rel_table(table)
@@ -272,6 +294,7 @@ def measure(lengths: Optional[Sequence[int]] = None, seed: int = 3, iters: int =
     out["combine_ms"] = common.cuda_ms(lambda: combine(*passes[0], *passes[1], dtype=q.dtype),
                                        iters)
     out["sum_ms"] = out["far_ms"] + out["structured_ms"]
+    out["sum_over_one_pass"] = out["sum_ms"] / out["one_pass_ms"]
     out["far_tile_share"] = far_tile_share(geometry, lengths, seq_len)
     out["shape"] = [len(lengths), seq_len, q.shape[2], q.shape[3]]
     return out
@@ -295,6 +318,7 @@ def run(batch: int = common.BATCH, seq_len: int = common.SEQ_LEN, iters: int = 1
     print(f"far tiles     : {times['far_tile_share']:.3f} of the live tiles")
     for name in ("far_ms", "structured_ms", "sum_ms", "combine_ms", "one_pass_ms"):
         print(f"{name[:-3]:14s}: {times[name]:8.3f} ms/call")
+    print(f"sum / one pass: {times['sum_over_one_pass']:.3f}")
     return {"card": card, "checks": checks, "times": times}
 
 
