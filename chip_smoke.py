@@ -172,7 +172,14 @@ Phases, each printed as one JSON line:
 21. probe_hopper: every primitive probe of ``probes.hopper_probe`` (wgmma,
    TMA load / store, cp.async ring, ldmatrix.trans + stmatrix, cluster
    shared memory, 227 KB shared memory, setmaxnreg, red.v4.f32) against its
-   plain version; any status other than OK fails the run.
+   plain version; any status other than OK fails the run.  Then
+   probe_mosaic: the six functions of the TPU probe scripts/mosaic_probe.py
+   as batched kernels (``probes.mosaic_probe``): its entry point at B = 1 on
+   that script's inputs (every status OK, else the run fails), then each
+   kernel at a batch that moves >= ~235 MB, on seeded inputs, against its
+   plain version (the five copies bit-exact, the product within 1e-3), its
+   time beside the plain version's, the library call's and the bound, there
+   and at B = 1, and the phase's own seconds.
 22. predict_cli: synthetic Flickr30k-style records (16 images x 40 captions
    = 640 pairs, PNG images, a generated vocab, an ``input_meta_data`` JSON
    with ``max_seq_length`` 256), a seeded random checkpoint of the
@@ -1744,7 +1751,8 @@ def phase_probe_hopper():
             library_ms = None if name == "setmaxnreg" else plain_ms
         entries.append(probe_entry(
             f"probe_hopper_{name}", "mmt_tpu_torch/csrc/probe_hopper.cu",
-            "scripts/mosaic_probe.py:26-125 (probe_*, P3)", err,
+            "scripts/mosaic_probe.py:26-125 (none: a toolchain check beside P3, whose "
+            "counterpart is probe_mosaic_*)", err,
             cuda_ms(lambda: kernel(*inputs), iters=20), plain_ms, flops, nbytes, library_ms))
         entries[-1]["atol"] = atol
     for name in hp.launches:
@@ -1758,6 +1766,87 @@ def phase_probe_hopper():
     if bad:
         raise AssertionError(f"Hopper primitive probes not OK: {bad}")
     require_launched(entries, "probe_hopper")
+    return entries
+
+
+# P3's functions: (line of the probe's def, line of its pallas_call) in
+# scripts/mosaic_probe.py.
+MOSAIC_SITES = {"strided_roll": (26, 32), "static_unaligned_store": (40, 47),
+                "many_static_stores": (56, 65), "dynamic_lane_store": (76, 83),
+                "uniform_dynamic_roll": (98, 103), "small_matmul": (115, 125)}
+MOSAIC_ITERS = 20
+
+
+def mosaic_times(name, probe, inputs):
+    """ms of the kernel, its plain version and the library call on
+    ``inputs``, with the call's bound (flops, bytes: inputs read once, the
+    output written once)."""
+    from mmt_tpu_torch.probes import mosaic_probe as mp
+
+    out = probe.kernel(*inputs)
+    nbytes = sum(t.numel() * t.element_size() for t in inputs) + out.numel() * out.element_size()
+    del out
+    # The product: lo.hi + hi.lo + hi.hi, 2 m k n each (bf16 wgmma).
+    flops = 3 * 2 * inputs[0].shape[0] * 256 * 128 * 64 if name == "small_matmul" else 0
+    library = mp.library_call(name, inputs)
+    return {"ms": cuda_ms(lambda: probe.kernel(*inputs), iters=MOSAIC_ITERS),
+            "plain_ms": cuda_ms(lambda: probe.plain(*inputs), iters=MOSAIC_ITERS),
+            "library_ms": cuda_ms(library, iters=MOSAIC_ITERS) if library else None,
+            "flops": flops, "nbytes": nbytes}
+
+
+def phase_probe_mosaic():
+    """P3's six functions as batched kernels (``probes.mosaic_probe``,
+    ``csrc/probe_mosaic.cu``): the probe's entry point at B = 1 on the TPU
+    probe's own inputs (every status OK), then each kernel at its timing
+    batch on seeded inputs against its plain version (the copies
+    bit-exact, the product within the TPU probe's atol of 1e-3), timed
+    beside the plain version and the library call there and at B = 1."""
+    from mmt_tpu_torch.probes import mosaic_probe as mp
+
+    t0 = time.perf_counter()
+    for name in mp.launches:
+        mp.launches[name] = 0
+    status = mp.run()  # the probe's entry point: one status per function
+    launches = dict(mp.launches)
+    bad = {name: s for name, s in status.items() if s != "OK"}
+    if bad:
+        raise AssertionError(f"mosaic probes not OK: {bad}")
+    rng = np.random.default_rng(17)
+    entries, at_b1 = [], {}
+    for name, probe in mp.PROBES.items():
+        inputs = tuple(t.cuda() for t in probe.seeded(rng, probe.timing_batch))
+        got = probe.kernel(*inputs)
+        torch.cuda.synchronize()
+        want = probe.plain(*inputs)
+        err = (got.double() - want.double()).abs().max().item()
+        exact = torch.equal(got, want)
+        del got, want
+        if not (err <= probe.atol and (probe.atol or exact)):
+            raise AssertionError(f"probe_mosaic {name}: max abs error {err} "
+                                 f"(atol {probe.atol}, bit-exact {exact})")
+        t = mosaic_times(name, probe, inputs)
+        b1 = mosaic_times(name, probe, tuple(x.cuda() for x in probe.seeded(rng, 1)))
+        at_b1[name] = {**{k: b1[k] for k in ("ms", "plain_ms", "library_ms")},
+                       "bound_ms": max(b1["flops"] / PEAK_BF16_FLOPS,
+                                       b1["nbytes"] / PEAK_BYTES_PER_S) * 1e3}
+        line, site = MOSAIC_SITES[name]
+        entry = probe_entry(
+            f"probe_mosaic_{name}", "mmt_tpu_torch/csrc/probe_mosaic.cu",
+            f"scripts/mosaic_probe.py:{site} (probe_{name} :{line}, P3)", err, t["ms"],
+            t["plain_ms"], t["flops"], t["nbytes"], t["library_ms"])
+        entry.update(launches=launches[name], batch=probe.timing_batch, atol=probe.atol,
+                     bit_exact=exact, bytes=t["nbytes"])
+        entries.append(entry)
+        del inputs
+    torch.cuda.empty_cache()
+    require_launched(entries, "probe_mosaic")
+    emit({"phase": "probe_mosaic", "status": status, "launches": launches,
+          "timing_batch": {e["name"]: e["batch"] for e in entries},
+          "ms": {e["name"]: e["ms"] for e in entries},
+          "bound_ms": {e["name"]: e["bound_ms"] for e in entries},
+          "max_abs_err": {e["name"]: e["max_abs_err"] for e in entries},
+          "at_b1": at_b1, "seconds": time.perf_counter() - t0})
     return entries
 
 
@@ -5295,7 +5384,7 @@ def main() -> int:
     entry["launches"] += pp_launches["fwd"]
     bwd_entry["launches"] += pp_launches["bwd"]
     probe_entries = [*phase_probe_split(), *phase_probe_op_cost(entry["library_ms"]),
-                     *phase_probe_hopper()]
+                     *phase_probe_hopper(), *phase_probe_mosaic()]
     entry["launches"] += phase_predict_cli()
     entry["launches"] += phase_int8()
     entry["launches"] += phase_export()

@@ -1,14 +1,10 @@
 // Primitive probes for Hopper (sm_90a): does this toolchain build, and this
 // card run right, each primitive the redesigned attention kernels need?
 //
-// Replaces the TPU probe scripts/mosaic_probe.py (probe_strided_roll,
-// probe_static_unaligned_store, probe_many_static_stores,
-// probe_dynamic_lane_store, probe_uniform_dynamic_roll, probe_small_matmul):
-// six tiny kernels, each compiled, run and compared with numpy.  The TPU
-// probes ask for lane rolls and unaligned lane stores, that chip's way to
-// the skewed and transposed tiles of the band path; the card's way to those
-// layouts is the swizzled TMA tile and ldmatrix.trans / stmatrix, and its
-// small matmul is wgmma.  Each probe below is one tiny kernel with a result
+// The card's own toolchain checks; they replace no TPU kernel.  The
+// counterpart of the TPU probe scripts/mosaic_probe.py (P3: its six
+// functions, each computed as its pallas_call computes it) is
+// csrc/probe_mosaic.cu.  Each probe below is one tiny kernel with a result
 // the caller checks exactly (copies, permutations, integer-valued sums) or
 // to a stated tolerance (the product).  Nothing on the retrieval or
 // training paths calls them.

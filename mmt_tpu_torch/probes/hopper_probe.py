@@ -1,14 +1,15 @@
 """Does the toolchain build, and the card run right, each Hopper primitive
 the redesigned attention kernels need?
 
-Counterpart of ``scripts/mosaic_probe.py``: tiny kernels, each compiled,
-run and compared with a plain version, one status per probe (``OK``,
-``WRONG RESULT`` or ``FAIL`` with the error).  The TPU probes ask for
-strided and dynamic lane rolls and unaligned or dynamic lane stores (that
-chip's way to the skewed and transposed tiles of the band path) and a
-small matmul; on the card those layouts come from the swizzled TMA tile
-and ``ldmatrix.trans`` / ``stmatrix``, and the matmul is ``wgmma``.
-``PROBES`` lists them; ``csrc/probe_hopper.cu`` holds the kernels.
+The card's own toolchain checks, in the manner of the TPU probe script:
+tiny kernels, each compiled, run and compared with a plain version, one
+status per probe (``OK``, ``WRONG RESULT`` or ``FAIL`` with the error).
+They replace no TPU kernel: the counterpart of ``scripts/mosaic_probe.py``
+(P3) is ``probes.mosaic_probe``, whose kernels compute that script's six
+functions.  ``PROBES`` lists the primitives (``wgmma``, TMA load and store,
+a ``cp.async`` ring, ``ldmatrix.trans`` / ``stmatrix``, cluster shared
+memory, 227 KB of shared memory, ``setmaxnreg``, ``red.add``);
+``csrc/probe_hopper.cu`` holds the kernels.
 
 Copies, permutations and integer-valued sums are compared exactly; the
 ``wgmma`` product to 1e-3 absolute (float32 sums of 64 exact bf16

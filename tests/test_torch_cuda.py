@@ -359,6 +359,42 @@ def test_hopper_probes_ok(cuda):
     assert all(count >= 1 for count in hp.launches.values())
 
 
+# Scalars at the ends of their ranges: off in [0, 192] (36 is the TPU
+# probe's, 37 not a multiple of 4); s any int32 (5 is the TPU probe's).
+MOSAIC_SCALARS = {"dynamic_lane_store": [0, 1, 36, 37, 191, 192],
+                  "uniform_dynamic_roll": [0, 1, 5, 255, 256, -3, -2**31, 2**31 - 1]}
+
+
+@pytest.mark.parametrize("batch", [1, 5])
+@pytest.mark.parametrize("name", ["strided_roll", "static_unaligned_store", "many_static_stores",
+                                  "dynamic_lane_store", "uniform_dynamic_roll", "small_matmul"])
+def test_mosaic_probe_kernels_match_plain(cuda, name, batch):
+    """Each P3 kernel against its plain version: the copies exact, the
+    product within the TPU probe's atol of 1e-3."""
+    from mmt_tpu_torch.probes import mosaic_probe as mp
+
+    probe = mp.PROBES[name]
+    rng = np.random.default_rng(7)
+    for scalar in MOSAIC_SCALARS.get(name, [None]):
+        inputs = probe.seeded(rng, batch) if scalar is None else probe.seeded(rng, batch, scalar)
+        inputs = tuple(t.to(cuda) for t in inputs)
+        before = mp.launches[name]
+        got = probe.kernel(*inputs)
+        torch.cuda.synchronize()
+        want = probe.plain(*inputs)
+        assert mp.launches[name] == before + 1
+        if probe.atol:
+            assert (got - want).abs().max().item() <= probe.atol, (name, scalar)
+        else:
+            assert torch.equal(got, want), (name, scalar)
+
+
+def test_mosaic_probe_entry_point_ok(cuda):
+    from mmt_tpu_torch.probes import mosaic_probe as mp
+
+    assert set(mp.run().values()) == {"OK"}
+
+
 @pytest.mark.parametrize("m,k,n", [(8192, 768, 3072), (5, 20, 13), (17, 64, 8)])
 def test_int8_matmul_on_the_card_equals_plain(cuda, m, k, n):
     """``torch._int_mm`` with its padding (M > 16, K and N multiples of 8)
