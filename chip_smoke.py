@@ -428,12 +428,19 @@ WINDOW_MIN_LEN = WINDOW_SEQ // 2
 
 _lines = []
 _start = [time.perf_counter()]  # reset by main
+_phase_seconds = {}  # each phase's wall: from the previous phase line to its own
 
 
 def emit(obj) -> None:
     """Prints ``obj`` as one JSON line, with the seconds since ``main``
-    started (``elapsed_s``)."""
-    line = json.dumps({**obj, "elapsed_s": time.perf_counter() - _start[0]})
+    started (``elapsed_s``); a line with a ``phase`` adds the seconds since
+    the previous such line to that phase's wall."""
+    elapsed = time.perf_counter() - _start[0]
+    if "phase" in obj:
+        phase = obj["phase"]
+        _phase_seconds[phase] = _phase_seconds.get(phase, 0.0) + elapsed - sum(
+            _phase_seconds.values())
+    line = json.dumps({**obj, "elapsed_s": elapsed})
     _lines.append(line)
     print(line, flush=True)
 
@@ -781,25 +788,36 @@ def kernel_calls_ms(intervals, name, expected, min_share=1.0):
 
 
 # Traces of one step taken before a one-step trace counts as incomplete.
-TRACE_ATTEMPTS = 3
+TRACE_ATTEMPTS = 5
+# Idle seconds in the profiler's window before and after the traced step:
+# traces have lost the device records at the window's start (a retrieval
+# forward's first kernels), besides attention calls (1 of 12 forward calls
+# in a finetune step, 6 of 384 backward calls in a records step).
+TRACE_MARGIN_S = 0.25
 
 
-def profile_step(run, calls):
-    """``run()`` (one step) under the profiler: the device intervals, the
-    step's wall ms and the number of traces taken. A trace must hold every
-    call of ``calls`` (kernel name -> count): the profiler has dropped one
-    kernel record from such a trace (11 of 12 forward calls, phase
-    finetune_profile), so an incomplete trace is taken again, up to
-    TRACE_ATTEMPTS traces; ``kernel_calls_ms`` then refuses the last if it
-    is still incomplete."""
+def profile_step(run, calls, host=True):
+    """``run()`` (one step) under the profiler (host and device activity,
+    or the device's alone): the device intervals, the step's wall ms and
+    the number of traces taken. A trace must hold every call of ``calls``
+    (kernel name -> count): the profiler has dropped kernel records from
+    such traces (11 of 12 forward calls, phase finetune_profile), so the
+    step runs TRACE_MARGIN_S inside the window's ends and an incomplete
+    trace is taken again, up to TRACE_ATTEMPTS traces; ``kernel_calls_ms``
+    then refuses the last if it is still incomplete."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [
+        ProfilerActivity.CUDA]
     for attempt in range(1, TRACE_ATTEMPTS + 1):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            time.sleep(TRACE_MARGIN_S)
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(TRACE_MARGIN_S)
         intervals = device_intervals(prof)
         if all(sum(name in n for n, _, _ in intervals) == count for name, count in calls.items()):
             break
@@ -1846,7 +1864,9 @@ def phase_probe_mosaic():
           "ms": {e["name"]: e["ms"] for e in entries},
           "bound_ms": {e["name"]: e["bound_ms"] for e in entries},
           "max_abs_err": {e["name"]: e["max_abs_err"] for e in entries},
-          "at_b1": at_b1, "seconds": time.perf_counter() - t0})
+          "at_b1": at_b1,
+          "small_matmul_grid": mp.small_matmul_grid(mp.PROBES["small_matmul"].timing_batch),
+          "seconds": time.perf_counter() - t0})
     return entries
 
 
@@ -3738,8 +3758,6 @@ def phase_pretrain_records_profile(task, cfg, batch, runs):
     slice's shapes with the records' lengths: K1 and K3 at the first
     micro-batch (B=64, rate 0.1), K1 at a validation batch (B=256, rate 0),
     each against its plain version, SDPA and the bound."""
-    from torch.profiler import ProfilerActivity, profile
-
     from mmt_tpu_torch.data.loaders import MmtPretrainLoader
     from mmt_tpu_torch.models import DropoutRngs
     from mmt_tpu_torch.train.optimizer import create_optimizer
@@ -3755,20 +3773,23 @@ def phase_pretrain_records_profile(task, cfg, batch, runs):
     on_card = batch_to_device(batch, "cuda")
     state, _ = step(state, on_card, DropoutRngs.for_step(0, 0, "cuda"))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, metrics = step(state, on_card, DropoutRngs.for_step(0, 1, "cuda"))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    intervals = device_intervals(prof)
-    # A step's trace holds ~60000 kernels; the profiler may drop a few.
+
+    def traced_step():
+        nonlocal state
+        state, _ = step(state, on_card, DropoutRngs.for_step(0, 1, "cuda"))
+
+    # A step's trace holds ~60000 kernels; the profiler may drop a few, so
+    # a trace short of any call is taken again and the last must hold
+    # TRACE_MIN_SHARE of them.
+    intervals, wall_ms, traces = profile_step(
+        traced_step, {FWD_KERNEL: layers * micro, BWD_KERNEL: layers * micro}, host=False)
     recorded = {name: sum(name in n for n, _, _ in intervals) for name in (FWD_KERNEL, BWD_KERNEL)}
     fwd_in_step = kernel_calls_ms(intervals, FWD_KERNEL, layers * micro, TRACE_MIN_SHARE)
     bwd_in_step = kernel_calls_ms(intervals, BWD_KERNEL, layers * micro, TRACE_MIN_SHARE)
     summary = trace_summary(intervals, wall_ms, {
         "rel_attention_fwd": ("rel_attention_fwd",), "rel_attention_bwd": ("rel_attention_bwd",),
         "cublas": CUBLAS_TAGS})
-    del state, optimizer, on_card, metrics, prof
+    del state, optimizer, on_card
     task.model.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
     host_share = {f"workers_{r['num_workers']}": 1 - summary["device_busy_ms"]
@@ -3783,6 +3804,7 @@ def phase_pretrain_records_profile(task, cfg, batch, runs):
     emit({"phase": "pretrain_records_profile", "global_batch": TRAIN_GLOBAL,
           "micro_batches": micro, **summary, "host_share_of_step": host_share,
           "kernel_calls_recorded": recorded, "kernel_calls_launched": layers * micro,
+          "traces": traces,
           "lengths_mean": float(np.mean(batch["lengths"])),
           "micro_batch": {"lengths_mean": float(np.mean(lengths)), "tiles": dense_tiles(lengths),
                           "rate": DROPOUT, "forward": forward, "backward": backward},
@@ -5416,7 +5438,8 @@ def main() -> int:
         ws_launches = phase_warm_start(Path(tmp))
         entry["launches"] += ws_launches["fwd"]
         bwd_entry["launches"] += ws_launches["bwd"]
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": dict(_phase_seconds)})
     kernels = {"kernels": [entry, bwd_entry, win_entry, win_bwd_entry, off_entry, off_bwd_entry,
                            *head_entries, *probe_entries]}
     print(json.dumps(kernels), flush=True)

@@ -37,13 +37,18 @@
 //   is a multiple of 4 (all static offsets of the probe are), else four
 //   selects.  A dynamic offset outside [0, 192] leaves the result
 //   unspecified (the kernel writes the part of the box inside the tile).
-// - The product has no fp32 wgmma: x and w are split into bf16 hi + lo as
-//   they are staged into 128-byte-swizzled tiles (Swz<64>; K = 128 is two
-//   tiles, w MN-major), and one warpgroup sums lo.hi + hi.lo + hi.hi in
-//   fp32 for its 64 rows on m64n64k16 wgmma (24 products).  The dropped
-//   lo.lo term and lo's own rounding leave ~2.5e-4 of absolute error on
-//   the TPU probe's inputs, against its atol of 1e-3; one bf16 or tf32
-//   product would leave 0.11 or 1.8e-2.
+// - The product has no fp32 wgmma: x and w are split into bf16 hi + lo and
+//   lo.hi + hi.lo + hi.hi is summed in fp32 on m64n64k16 wgmma (24 products
+//   per 64-row block).  The dropped lo.lo term and lo's own rounding leave
+//   ~2.5e-4 of absolute error on the TPU probe's inputs, against its atol of
+//   1e-3; one bf16 or tf32 product would leave 0.11 or 1.8e-2.  The kernel
+//   moves each byte once: a persistent block of one warpgroup (two per SM)
+//   walks its instances through a ring of two 32 KB shared-memory slots
+//   that bulk copies (cp.async.bulk, mbarriers) fill: per instance w, split
+//   once into MN-major 128-byte-swizzled hi / lo tiles that all four of x's
+//   64-row blocks go through, then the blocks, each split in registers as
+//   wgmma's A operand.  A slot is refilled as soon as it is read, so the
+//   next two items load while a block is split, multiplied and stored.
 //
 // Bound: bytes for all six (each input read once, the output written once;
 // the product's 3 x 2 x 256 x 128 x 64 bf16 operations per instance take a
@@ -179,12 +184,20 @@ box_store_kernel(const float* __restrict__ x, const int* __restrict__ off_ptr,
 // --------------------------------------------------------------- product
 
 constexpr int kMmM = 256, kMmK = 128, kMmN = 64;
-using MmTile = Swz<64>;  // [64, 64] bf16, 8 KB
-// Shared-memory plan from a 1024-aligned base: x's hi and lo tiles (K
-// columns 0-63 and 64-127), then w's (K rows 0-63 and 64-127).
-constexpr int kXHi = 0, kXLo = 2 * MmTile::kBytes, kWHi = 4 * MmTile::kBytes,
-              kWLo = 6 * MmTile::kBytes;
-constexpr int kMmSmem = 8 * MmTile::kBytes + 1024;  // + slack to align the base
+constexpr int kMmBlocks = kMmM / kT;      // x's 64-row blocks per instance
+constexpr int kMmItems = 1 + kMmBlocks;   // ring items per instance: w, then the blocks
+constexpr int kMmItemFloats = kT * kMmK;  // one item: 32 KB
+static_assert(kMmItemFloats == kMmK * kMmN, "w and an x block fill one ring slot alike");
+constexpr int kMmSlotBytes = 4 * kMmItemFloats;
+constexpr int kMmSlots = 2;           // ring depth of a block
+constexpr int kMmBlocksPerSm = 2;     // 2 x 97 KB of shared memory
+using MmTile = Swz<64>;               // [64, 64] bf16, 8 KB
+// Shared-memory plan from a 1024-aligned base: the ring's fp32 slots; w's
+// hi and lo tiles (K rows 0-63 and 64-127 each, MN-major); the slots'
+// mbarriers.
+constexpr int kWHi = kMmSlots * kMmSlotBytes, kWLo = kWHi + 2 * MmTile::kBytes;
+constexpr int kMmFull = kWLo + 2 * MmTile::kBytes;
+constexpr int kMmSmem = kMmFull + 8 * kMmSlots + 1024;  // + slack to align the base
 
 // hi = bf16(v), lo = bf16(v - hi), four values packed as bf16 pairs.
 __device__ __forceinline__ void split4(float4 v, uint2& hi, uint2& lo) {
@@ -196,68 +209,140 @@ __device__ __forceinline__ void split4(float4 v, uint2& hi, uint2& lo) {
   lo = make_uint2(pack_bf16(v.x - f01.x, v.y - f01.y), pack_bf16(v.z - f23.x, v.w - f23.y));
 }
 
-// One warpgroup: rows [64 m, 64 m + 64) of instance b, m = blockIdx.x % 4.
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Ring item t of this block (instances blockIdx.x, + gridDim.x, ...; w,
+// then x's four row blocks, each one contiguous 32 KB) into slot t % 2 by
+// one bulk copy that completes a transaction on the slot's barrier; none
+// past the batch.  One thread.
+__device__ __forceinline__ void mm_fetch(uint32_t base, const float* x, const float* w, int batch,
+                                         int t) {
+  const int inst = blockIdx.x + (t / kMmItems) * gridDim.x, part = t % kMmItems;
+  if (inst >= batch) return;
+  const float* src = part == 0 ? w + static_cast<size_t>(inst) * kMmItemFloats
+                               : x + (static_cast<size_t>(inst) * kMmBlocks + part - 1) *
+                                         kMmItemFloats;
+  const int slot = t % kMmSlots;
+  const uint32_t bar = base + kMmFull + 8 * slot;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(kMmSlotBytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(base + slot * kMmSlotBytes), "l"(src), "r"(kMmSlotBytes), "r"(bar)
+      : "memory");
+}
+
+// The k of the product that x's column (w's row) p feeds.  Thread q = lane
+// % 4 of a warp reads columns [16 s + 4 q, 16 s + 4 q + 4) of its two rows
+// as one float4 per 16-deep step s; wgmma's A registers give it k = 2 q,
+// 2 q + 1 (the float4's first two) and 8 + 2 q, 9 + 2 q (its last two) of
+// the step.  w's rows are stored at the same k, so the product is x . w.
+__device__ __forceinline__ int mm_k(int p) {
+  const int q = (p >> 2) & 3, j = p & 3;
+  return (p & ~15) + (j < 2 ? 2 * q + j : 6 + 2 * q + j);
+}
+
+// A persistent block of one warpgroup walks its instances through a ring of
+// two 32 KB slots: per instance w (split into the bf16 hi / lo tiles), then
+// x's four 64-row blocks (split in registers, the A operand of wgmma).
+// Each slot is refilled as soon as it is read, so two bulk copies stay in
+// flight while the block splits, multiplies and stores.
+__global__ void __launch_bounds__(kThreads, kMmBlocksPerSm)
 small_matmul_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    float* __restrict__ out) {
+                    float* __restrict__ out, int batch) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw);
-  const int inst = blockIdx.x / (kMmM / kT), m0 = (blockIdx.x % (kMmM / kT)) * kT;
-  const float* xb = x + (static_cast<size_t>(inst) * kMmM + m0) * kMmK;
-  const float* wb = w + static_cast<size_t>(inst) * kMmK * kMmN;
-  // x: 64 rows of 128 (K-major tiles); w: 128 rows (K) of 64 (MN-major tiles).
-  for (int idx = threadIdx.x; idx < kT * kMmK / 4; idx += kThreads) {
-    const int r = idx / (kMmK / 4), c = (idx % (kMmK / 4)) * 4;
-    uint2 hi, lo;
-    split4(*reinterpret_cast<const float4*>(xb + r * kMmK + c), hi, lo);
-    const int at = (c / kT) * MmTile::kBytes + MmTile::elem(r, c % kT);
-    *reinterpret_cast<uint2*>(smem + kXHi + at) = hi;
-    *reinterpret_cast<uint2*>(smem + kXLo + at) = lo;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int slot = 0; slot < kMmSlots; ++slot) mbar_init(base + kMmFull + 8 * slot, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < kMmSlots; ++t) mm_fetch(base, x, w, batch, t);
   }
-  for (int idx = threadIdx.x; idx < kMmK * kMmN / 4; idx += kThreads) {
-    const int r = idx / (kMmN / 4), c = (idx % (kMmN / 4)) * 4;
-    uint2 hi, lo;
-    split4(*reinterpret_cast<const float4*>(wb + r * kMmN + c), hi, lo);
-    const int at = (r / kT) * MmTile::kBytes + MmTile::elem(r % kT, c);
-    *reinterpret_cast<uint2*>(smem + kWHi + at) = hi;
-    *reinterpret_cast<uint2*>(smem + kWLo + at) = lo;
-  }
-  fence_async_proxy();
   __syncthreads();
-  float acc[32];
-  zero(acc);
-  wg_fence();
-  // The small terms first, then hi . hi.
-#pragma unroll
-  for (int t = 0; t < kMmK / kT; ++t) {
-    const uint32_t x_t = base + t * MmTile::kBytes, w_t = base + t * MmTile::kBytes;
-#pragma unroll
-    for (int kk = 0; kk < kT / 16; ++kk) {
-      wgmma_ss<0, 1>(acc, MmTile::k_major(x_t + kXLo, kk), MmTile::mn_major(w_t + kWHi, kk));
-      wgmma_ss<0, 1>(acc, MmTile::k_major(x_t + kXHi, kk), MmTile::mn_major(w_t + kWLo, kk));
+  const int warp = tid / 32, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int items = kMmItems * ((batch - blockIdx.x + gridDim.x - 1) / gridDim.x);
+  for (int t = 0; t < items; ++t) {
+    const int slot = t % kMmSlots, part = t % kMmItems;
+    mbar_wait(base + kMmFull + 8 * slot, (t / kMmSlots) & 1);
+    const float* s_in = reinterpret_cast<const float*>(smem + slot * kMmSlotBytes);
+    if (part == 0) {
+      // w -> hi / lo tiles, row p at k = mm_k(p), once every warp is past
+      // the previous instance's products.
+      if (t > 0) __syncthreads();
+      for (int idx = tid; idx < kMmK * kMmN / 4; idx += kThreads) {
+        const int p = idx / (kMmN / 4), c = (idx % (kMmN / 4)) * 4, k = mm_k(p);
+        uint2 hi, lo;
+        split4(*reinterpret_cast<const float4*>(s_in + p * kMmN + c), hi, lo);
+        const int at = (k / kT) * MmTile::kBytes + MmTile::elem(k % kT, c);
+        *reinterpret_cast<uint2*>(smem + kWHi + at) = hi;
+        *reinterpret_cast<uint2*>(smem + kWLo + at) = lo;
+      }
+      fence_async_proxy();
+      __syncthreads();  // the tiles are written, the slot is read
+      if (tid == 0) mm_fetch(base, x, w, batch, t + kMmSlots);
+      continue;
     }
-  }
+    // Rows 16 warp + g + 8 hr of the block, four columns per step.
+    float4 v[kMmK / 16][2];
 #pragma unroll
-  for (int t = 0; t < kMmK / kT; ++t) {
-    const uint32_t x_t = base + t * MmTile::kBytes, w_t = base + t * MmTile::kBytes;
+    for (int s = 0; s < kMmK / 16; ++s)
 #pragma unroll
-    for (int kk = 0; kk < kT / 16; ++kk)
-      wgmma_ss<0, 1>(acc, MmTile::k_major(x_t + kXHi, kk), MmTile::mn_major(w_t + kWHi, kk));
-  }
-  wg_commit();
-  wg_wait_all();
-  // acc[4 n + 2 hr + e]: row 16 warp + lane / 4 + 8 hr, column 8 n + 2 (lane % 4) + e.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  float* ob = out + (static_cast<size_t>(inst) * kMmM + m0) * kMmN;
+      for (int hr = 0; hr < 2; ++hr)
+        v[s][hr] = *reinterpret_cast<const float4*>(
+            s_in + (16 * warp + g + 8 * hr) * kMmK + 16 * s + 4 * q);
+    __syncthreads();  // every thread holds its rows: refill the slot
+    if (tid == 0) mm_fetch(base, x, w, batch, t + kMmSlots);
+    // A registers of step s: [0] row g, k 2q; [1] row g + 8, k 2q; [2] row
+    // g, k 8 + 2q; [3] row g + 8, k 8 + 2q (two bf16 each).
+    uint32_t a_hi[kMmK / 16][4], a_lo[kMmK / 16][4];
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = warp * 16 + (lane >> 2) + 8 * hr;
+    for (int s = 0; s < kMmK / 16; ++s)
 #pragma unroll
-    for (int n = 0; n < kMmN / 8; ++n)
-      *reinterpret_cast<float2*>(ob + r * kMmN + 8 * n + 2 * (lane & 3)) =
-          make_float2(acc[4 * n + 2 * hr], acc[4 * n + 2 * hr + 1]);
+      for (int hr = 0; hr < 2; ++hr) {
+        uint2 hi, lo;
+        split4(v[s][hr], hi, lo);
+        a_hi[s][hr] = hi.x, a_hi[s][2 + hr] = hi.y;
+        a_lo[s][hr] = lo.x, a_lo[s][2 + hr] = lo.y;
+      }
+    float acc[32];
+    zero(acc);
+    wg_fence();
+    // The small terms first, then hi . hi.
+#pragma unroll
+    for (int s = 0; s < kMmK / 16; ++s) {
+      const int tile = (s / 4) * MmTile::kBytes, kk = s % 4;
+      wgmma_rs<1>(acc, a_lo[s], MmTile::mn_major(base + kWHi + tile, kk));
+      wgmma_rs<1>(acc, a_hi[s], MmTile::mn_major(base + kWLo + tile, kk));
+    }
+#pragma unroll
+    for (int s = 0; s < kMmK / 16; ++s)
+      wgmma_rs<1>(acc, a_hi[s], MmTile::mn_major(base + kWHi + (s / 4) * MmTile::kBytes, s % 4));
+    wg_commit();
+    wg_wait_all();
+    // acc[4 n + 2 hr + e]: row 16 warp + g + 8 hr, column 8 n + 2 q + e.
+    const int inst = blockIdx.x + (t / kMmItems) * gridDim.x;
+    float* ob = out + (static_cast<size_t>(inst) * kMmM + (part - 1) * kT) * kMmN;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = warp * 16 + g + 8 * hr;
+#pragma unroll
+      for (int n = 0; n < kMmN / 8; ++n)
+        *reinterpret_cast<float2*>(ob + r * kMmN + 8 * n + 2 * q) =
+            make_float2(acc[4 * n + 2 * hr], acc[4 * n + 2 * hr + 1]);
+    }
   }
 }
 
@@ -320,16 +405,43 @@ extern "C" int mmt_probe_mosaic_dynamic_lane_store(const void* x, const void* of
   return launch_box<LaneBox>(x, off, out, batch, stream);
 }
 
+// Blocks of the product's launch at `batch` on the current device: its SMs
+// times the blocks resident on one (found once per device, which also sets
+// the kernel's shared-memory limit there), at most `batch`; a negative CUDA
+// error code on failure.
+extern "C" int mmt_probe_mosaic_small_matmul_grid(int batch) {
+  if (const cudaError_t err = bad_batch(batch)) return -static_cast<int>(err);
+  constexpr int kMaxDevices = 64;
+  static int resident[kMaxDevices] = {};  // 0: not yet found
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && device >= kMaxDevices) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && resident[device] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(small_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMmSmem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, small_matmul_kernel,
+                                                          kThreads, kMmSmem);
+    if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+    if (err == cudaSuccess) resident[device] = sms * per_sm;
+  }
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return batch < resident[device] ? batch : resident[device];
+}
+
 // x: [batch, 256, 128]; w: [batch, 128, 64]; out: [batch, 256, 64] = x . w.
+// A persistent grid: as many blocks as are resident at once on the card's
+// SMs, at most one per instance.
 extern "C" int mmt_probe_mosaic_small_matmul(const void* x, const void* w, void* out, int batch,
                                              void* stream) {
-  if (const cudaError_t err = bad_batch(batch)) return static_cast<int>(err);
-  const cudaError_t err = cudaFuncSetAttribute(
-      small_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMmSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  small_matmul_kernel<<<batch * (kMmM / kT), kThreads, kMmSmem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out));
+  const int grid = mmt_probe_mosaic_small_matmul_grid(batch);
+  if (grid < 0) return -grid;
+  small_matmul_kernel<<<grid, kThreads, kMmSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out),
+      batch);
   return last_error();
 }
 

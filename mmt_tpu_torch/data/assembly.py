@@ -16,6 +16,7 @@ device from ``lengths`` (and the static id map).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import io
 import json
 from typing import Dict, List, Optional, Sequence
@@ -28,6 +29,38 @@ from mmt_tpu_torch.text.trimmer import round_robin_trim
 from mmt_tpu_torch.text.wordpiece import BertTokenizer
 
 PATCH_START_UNUSED_INDEX = 104  # unused99 (src/data/data_utils.py:31)
+RESIZE_BLOCK = 32  # output rows per pass of ``ExampleAssembler.resize``
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_plan(h: int, w: int, c: int, size: int, block: int, flip: bool):
+    """The gathers and weights of ``ExampleAssembler.resize`` from [h, w, c]
+    to [size, size, c], as JAX's resize computes them (its columns reversed
+    when ``flip``): 1 - wx and wx per (column, channel); the columns x0 and
+    x1; per block of ``block`` output rows (i, j, each source row's offset
+    in the flat pixels, the rows of y0 and y1 among them, 1 - wy and wy).
+    Read-only; cached per source shape."""
+    ys = (np.arange(size) + 0.5) * h / size - 0.5
+    xs = (np.arange(size) + 0.5) * w / size - 0.5
+    y0 = np.clip(np.floor(ys).astype(np.int64), 0, h - 1)
+    x0 = np.clip(np.floor(xs).astype(np.int64), 0, w - 1)
+    y1 = np.clip(y0 + 1, 0, h - 1)
+    x1 = np.clip(x0 + 1, 0, w - 1)
+    wy = np.clip(ys - y0, 0.0, 1.0)[:, None]
+    wx = np.clip(xs - x0, 0.0, 1.0)
+    if flip:
+        x0, x1, wx = x0[::-1], x1[::-1], wx[::-1]
+    wx = np.repeat(wx, c)
+    blocks = []
+    for i in range(0, size, block):
+        j = min(i + block, size)
+        rows, row_of = np.unique(np.concatenate([y0[i:j], y1[i:j]]), return_inverse=True)
+        blocks.append((i, j, (rows * w)[:, None], row_of[:j - i], row_of[j - i:],
+                       1 - wy[i:j], wy[i:j]))
+    arrays = [1 - wx, wx, x0, x1]
+    for a in arrays + [a for b in blocks for a in b[2:]]:
+        a.setflags(write=False)
+    return (*arrays, tuple(blocks))
 
 
 @dataclasses.dataclass
@@ -128,20 +161,54 @@ class ExampleAssembler:
         """Bilinear resize to (image_size, image_size) matching
         tf.image.resize defaults (half-pixel centers, no antialias)."""
         size = self.config.image_size
-        h, w = image.shape[:2]
+        h, w, c = image.shape
         if (h, w) == (size, size):
             return image
-        ys = (np.arange(size) + 0.5) * h / size - 0.5
-        xs = (np.arange(size) + 0.5) * w / size - 0.5
-        y0 = np.clip(np.floor(ys).astype(np.int64), 0, h - 1)
-        x0 = np.clip(np.floor(xs).astype(np.int64), 0, w - 1)
-        y1 = np.clip(y0 + 1, 0, h - 1)
-        x1 = np.clip(x0 + 1, 0, w - 1)
-        wy = np.clip(ys - y0, 0.0, 1.0)[:, None, None]
-        wx = np.clip(xs - x0, 0.0, 1.0)[None, :, None]
-        top = image[y0][:, x0] * (1 - wx) + image[y0][:, x1] * wx
-        bot = image[y1][:, x0] * (1 - wx) + image[y1][:, x1] * wx
-        return (top * (1 - wy) + bot * wy).astype(np.float32)
+        out = np.empty((size, size * c), np.float32)
+        for i, j, rows in self._resized_rows(image, RESIZE_BLOCK, False):
+            out[i:j] = rows
+        return out.reshape(size, size, c)
+
+    def _resized_rows(self, image: np.ndarray, block: int, flip: bool):
+        """``resize(image)`` (its columns reversed when ``flip``) by blocks
+        of ``block`` output rows: yields (i, j, rows i..j in float64 as
+        [j - i, size * c]).
+
+        The float64 operations of ``a * (1 - wx) + b * wx`` along x, then
+        ``top * (1 - wy) + bot * wy`` along y: cast to float32, the JAX
+        package's values bit for bit (reversing the columns' gathers and
+        weights changes no pixel's operations).  Only the gathers moved:
+        per block, x is interpolated once per source row the block reads
+        (gathered in the source dtype, widened once), then rows y0 and y1
+        are taken from that; in place, on [rows, size * c] arrays (a
+        broadcast over a trailing axis of 3 runs numpy's inner loop 3
+        elements at a time), small enough to stay in cache."""
+        h, w, c = image.shape
+        wx_left, wx, x0, x1, blocks = _resize_plan(h, w, c, self.config.image_size, block, flip)
+        pixels = image.reshape(h * w, c)
+        for i, j, at, top_of, bot_of, wy_top, wy in blocks:
+            xpass = np.take(pixels, at + x0, axis=0).astype(np.float64).reshape(len(at), -1)
+            xpass *= wx_left
+            right = np.take(pixels, at + x1, axis=0).astype(np.float64).reshape(len(at), -1)
+            right *= wx
+            xpass += right
+            top = np.take(xpass, top_of, axis=0)
+            top *= wy_top
+            bot = np.take(xpass, bot_of, axis=0)
+            bot *= wy
+            top += bot
+            yield i, j, top
+
+    def _resized_patches(self, image: np.ndarray, flip: bool) -> np.ndarray:
+        """``extract_patches`` of ``resize(image)`` (flipped when ``flip``)
+        as float32, bit for bit: each block of whole patch rows is cast and
+        put in patch order in one copy."""
+        size, p = self.config.image_size, self.config.patch_size
+        g = size // p
+        out = np.empty((g, g, p, p * image.shape[2]), np.float32)
+        for i, j, rows in self._resized_rows(image, p * max(1, RESIZE_BLOCK // p), flip):
+            out[i // p:j // p] = rows.reshape(-1, p, g, out.shape[3]).transpose(0, 2, 1, 3)
+        return out.reshape(g * g, -1)
 
     def image_features(
         self, image_bytes: bytes, flip: bool = False, rand_aug_fn=None
@@ -165,15 +232,11 @@ class ExampleAssembler:
                 "unnormalized_patch_embeddings": raw_p,
             }
         # Faithful order: normalize (by MEAN) THEN resize; raw copy resized
-        # separately (src/data/data_utils.py:204-207).
-        norm = self.resize(normalize_image(im))
-        raw = self.resize(im)
-        if flip:
-            norm = norm[:, ::-1]
-            raw = raw[:, ::-1]
+        # separately (src/data/data_utils.py:204-207); flipped and cut into
+        # patches as the blocks are written.
         return {
-            "patch_embeddings": extract_patches(norm, p).astype(np.float32),
-            "unnormalized_patch_embeddings": extract_patches(raw, p).astype(np.float32),
+            "patch_embeddings": self._resized_patches(normalize_image(im), flip),
+            "unnormalized_patch_embeddings": self._resized_patches(im, flip),
         }
 
     # -------------------------------------------------------------- text

@@ -12,12 +12,16 @@ shared with the JAX package and not changed.
 
 Build once with ``native/build.sh`` (or let this module attempt it, once
 per process: a build or a load that failed is remembered, so the callers'
-per-record and per-string checks stay cheap on the pure-Python path).
+per-record and per-string checks stay cheap on the pure-Python path).  No
+build is attempted where ``ctypes.util.find_library("jpeg")`` finds no
+libjpeg: the library links it, so that build cannot succeed (it took ~3 s
+a process to fail).
 """
 
 from __future__ import annotations
 
 import ctypes
+import ctypes.util
 import os
 import subprocess
 from typing import Dict, Iterator, List, Optional, Union
@@ -40,6 +44,9 @@ def _load(build_if_missing: bool = True):
     if _unavailable:
         return None
     if not os.path.exists(_SO_PATH) and build_if_missing:
+        if ctypes.util.find_library("jpeg") is None:  # the build would fail
+            _unavailable = True
+            return None
         script = os.path.join(_ROOT, "native", "build.sh")
         try:
             subprocess.run(["sh", script], check=True, capture_output=True, timeout=120)

@@ -27,8 +27,11 @@ plain version raises ``ValueError``).
 The product has no fp32 ``wgmma``: the kernel splits x and w into bf16 hi
 + lo and sums lo.hi + hi.lo + hi.hi in fp32 (``small_matmul_split`` is
 that arithmetic in plain PyTorch), ~2.5e-4 from the float64 product on the
-TPU probe's inputs against the probe's ``atol`` of 1e-3.  The copies are
-exact.
+TPU probe's inputs against the probe's ``atol`` of 1e-3.  Its persistent
+blocks walk their instances through a ring of 32 KB slots, w once per
+instance, then x's four 64-row blocks; ``small_matmul_emulated`` walks
+that schedule (``small_matmul_schedule``) with the kernel's k order and
+register layout in plain PyTorch.  The copies are exact.
 
 Beside each kernel: its plain version (the same function in plain
 PyTorch, on any device; the product in float64, rounded to fp32) and,
@@ -69,6 +72,8 @@ MM_X, MM_W = (256, 128), (128, 64)
 MAX_OFF = BOX_OUT[1] - BOX_SHAPE[1]  # 192
 TPU_OFF, TPU_SHIFT = 36, 5  # the TPU probe's scalars
 MATMUL_ATOL = 1e-3  # the TPU probe's np.allclose(..., atol=1e-3)
+MM_ROWS = 64  # x's rows per block of the product kernel (one wgmma M)
+MM_ITEMS = 1 + MM_X[0] // MM_ROWS  # the kernel's ring items per instance: w, then x's blocks
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 
@@ -86,6 +91,8 @@ def _library():
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes + [_PTR], ctypes.c_int
+    lib.mmt_probe_mosaic_small_matmul_grid.argtypes = [_INT]
+    lib.mmt_probe_mosaic_small_matmul_grid.restype = ctypes.c_int
     lib.mmt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mmt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -177,9 +184,21 @@ def small_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if _check("w", w, MM_W) != batch or w.device != x.device:
         raise ValueError(f"w: expected [{batch}, 128, 64] on {x.device}, got "
                          f"{list(w.shape)} on {w.device}")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:  # the kernel's bulk copies
+        raise ValueError("x and w must start on 16-byte boundaries")
     out = x.new_empty(batch, MM_X[0], MM_W[1])
     _launch("small_matmul", x.data_ptr(), w.data_ptr(), out.data_ptr(), batch)
     return out
+
+
+def small_matmul_grid(batch: int) -> int:
+    """Blocks of the product kernel's launch at ``batch`` on the current
+    card: as many as are resident at once, at most one per instance."""
+    lib = _library()
+    grid = lib.mmt_probe_mosaic_small_matmul_grid(batch)
+    if grid < 0:
+        common.raise_on_error(lib, -grid, "probe_mosaic[small_matmul_grid]")
+    return grid
 
 
 # ---------------------------------------------------------- plain versions
@@ -243,6 +262,66 @@ def small_matmul_split(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (xh, xl), (wh, wl) = split_bf16(x), split_bf16(w)
     d = lambda a, b: torch.bmm(a.double(), b.double())  # noqa: E731
     return (d(xl, wh) + d(xh, wl) + d(xh, wh)).float()
+
+
+def small_matmul_k(p: int) -> int:
+    """The product kernel's k for x's column (w's row) p (``mm_k``): w's row
+    p is stored at k, where the A registers put x's column p."""
+    q, j = (p >> 2) & 3, p & 3
+    return (p & ~15) + (2 * q + j if j < 2 else 6 + 2 * q + j)
+
+
+def small_matmul_schedule(batch: int, grid: int):
+    """The product kernel's walk at ``batch`` on ``grid`` blocks: for each
+    block, its ring items in order as (block, item, instance, part), part
+    0 w and part 1-4 x's 64-row blocks; block b takes instances b, b +
+    grid, ..."""
+    for block in range(grid):
+        for t in range(MM_ITEMS * -(-(batch - block) // grid)):
+            yield block, t, block + t // MM_ITEMS * grid, t % MM_ITEMS
+
+
+def _a_columns() -> torch.Tensor:
+    """x's column under each k of the product's A operand, from the
+    registers of the m64n64k16 wgmma: thread q = lane % 4 reads x's
+    columns 16 s + 4 q + j (j < 4) of its rows at step s; its register
+    2 (j // 2) + (row half) holds k = 16 s + 8 (j // 2) + 2 q + j % 2."""
+    cols = torch.empty(MM_X[1], dtype=torch.long)
+    for s in range(MM_X[1] // 16):
+        for q in range(4):
+            for j in range(4):
+                cols[16 * s + 8 * (j // 2) + 2 * q + j % 2] = 16 * s + 4 * q + j
+    return cols
+
+
+def small_matmul_emulated(x: torch.Tensor, w: torch.Tensor, grid: int) -> torch.Tensor:
+    """The product kernel's schedule in plain PyTorch on ``grid`` blocks:
+    per instance w split into hi / lo rows at ``small_matmul_k``, each
+    64-row block of x as the A operand of ``_a_columns``, and per block
+    lo.hi + hi.lo for each 16-deep step, then hi.hi, each step's product
+    (exact in float64) added to the fp32 sum.  Every output row is written
+    once (the rest stays NaN)."""
+    out = x.new_full((x.shape[0], MM_X[0], MM_W[1]), float("nan"))
+    cols = _a_columns()
+    ks = torch.tensor([small_matmul_k(p) for p in range(MM_X[1])])
+    w_hi = w_lo = None
+    for _, _, inst, part in small_matmul_schedule(x.shape[0], grid):
+        if part == 0:
+            hi, lo = split_bf16(w[inst])
+            w_hi, w_lo = torch.empty_like(hi), torch.empty_like(lo)
+            w_hi[ks], w_lo[ks] = hi, lo
+            continue
+        rows = slice((part - 1) * MM_ROWS, part * MM_ROWS)
+        a_hi, a_lo = split_bf16(x[inst, rows][:, cols])
+        acc = x.new_zeros(MM_ROWS, MM_W[1])
+        steps = [slice(16 * s, 16 * s + 16) for s in range(MM_X[1] // 16)]
+        terms = [(a, b, k) for k in steps for a, b in ((a_lo, w_hi), (a_hi, w_lo))]
+        for a, b, k in terms + [(a_hi, w_hi, k) for k in steps]:
+            acc = (acc.double() + a[:, k].double() @ b[k].double()).float()
+        if not out[inst, rows].isnan().all():
+            raise AssertionError(f"instance {inst} block {part} written twice")
+        out[inst, rows] = acc
+    return out
 
 
 # -------------------------------------------------------- library yardsticks

@@ -389,6 +389,35 @@ def test_mosaic_probe_kernels_match_plain(cuda, name, batch):
             assert torch.equal(got, want), (name, scalar)
 
 
+# The product kernel's fp32 sums round at each of 24 steps: against the
+# split's one rounding (and the emulated schedule's), a few fp32 spacings
+# of sums ~40.
+MOSAIC_MATMUL_VS_SPLIT = 1e-4
+
+
+@pytest.mark.parametrize("batch", [1, 3, 133, 1024])  # 1024: the timing batch
+def test_mosaic_small_matmul_schedule(cuda, batch):
+    """The product's persistent grid at batches that fill no wave (1, 3), a
+    ragged one (133) and the timing batch: within the TPU probe's atol of
+    the float64 product, and close to the split's product and (up to 133)
+    to its schedule emulated on the card's grid."""
+    from mmt_tpu_torch.probes import mosaic_probe as mp
+
+    probe = mp.PROBES["small_matmul"]
+    assert probe.timing_batch == 1024
+    x, w = probe.seeded(np.random.default_rng(batch), batch)
+    got = mp.small_matmul(x.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    got = got.cpu()
+    assert (got - mp.small_matmul_plain(x, w)).abs().max() <= mp.MATMUL_ATOL
+    assert (got - mp.small_matmul_split(x, w)).abs().max() <= MOSAIC_MATMUL_VS_SPLIT
+    grid = mp.small_matmul_grid(batch)
+    assert 1 <= grid <= batch
+    if batch <= 133:
+        emulated = mp.small_matmul_emulated(x, w, grid)
+        assert (got - emulated).abs().max() <= MOSAIC_MATMUL_VS_SPLIT
+
+
 def test_mosaic_probe_entry_point_ok(cuda):
     from mmt_tpu_torch.probes import mosaic_probe as mp
 

@@ -237,6 +237,50 @@ def test_assembler_equal(tmp_path, case):
             want.patch_token_ids, jax_assembler.flat_text_ids(want.text_token_words)))
 
 
+# WIT-like sources to the model's 224 (downscale on one axis, upscale on the
+# other, a larger image), and one small upscale.
+RESIZE_CASES = [((192, 256), 224), ((256, 192), 224), ((200, 300), 224), ((480, 640), 224),
+                ((24, 40), 32)]
+RESIZE_IDS = ["192x256", "256x192", "200x300", "480x640", "up24x40"]
+
+
+def _resize_assemblers(tmp_path, size):
+    """The port's and the JAX package's assemblers at image_size ``size``
+    (patch 16), over a vocab with an unused token for every patch."""
+    vocab = _vocab_file(tmp_path, VOCAB[:8] + [f"[unused{i}]" for i in range(99, 99 + 200)])
+    kw = dict(vocab_filename=vocab, image_size=size, patch_size=16, max_seq_len=300, seed=7)
+    return (ExampleAssembler(MmtRetrievalDataConfig(**kw), BertTokenizer(vocab)),
+            JaxAssembler(JaxRetrievalConfig(**kw), JaxTokenizer(vocab)))
+
+
+@pytest.mark.parametrize("shape,size", RESIZE_CASES, ids=RESIZE_IDS)
+def test_resize_bit_equal(tmp_path, shape, size):
+    """The port's resize gathers and widens in another order than the JAX
+    package's but does the same float64 operations: equal bit for bit on
+    uint8 and on normalized float32 sources."""
+    port, jax_assembler = _resize_assemblers(tmp_path, size)
+    u8 = np.random.default_rng(sum(shape)).integers(0, 256, (*shape, 3), dtype=np.uint8)
+    normalized = patches.normalize_image(np.true_divide(u8, 255, dtype=np.float32))
+    for image in (u8, normalized):
+        got, want = port.resize(image), jax_assembler.resize(image)
+        assert got.dtype == want.dtype == np.float32 and got.shape == (size, size, 3)
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("flip", [False, True], ids=["noflip", "flip"])
+@pytest.mark.parametrize("shape,size", RESIZE_CASES, ids=RESIZE_IDS)
+def test_image_features_bit_equal(tmp_path, shape, size, flip):
+    port, jax_assembler = _resize_assemblers(tmp_path, size)
+    image = _png(np.random.default_rng(sum(shape) + 1), *shape)
+    got = port.image_features(image, flip=flip)
+    want = jax_assembler.image_features(image, flip=flip)
+    assert got.keys() == want.keys()
+    for name in got:
+        assert got[name].dtype == want[name].dtype == np.float32, name
+        np.testing.assert_array_equal(got[name].view(np.uint32), want[name].view(np.uint32),
+                                      err_msg=name)
+
+
 def test_assembler_raw_image_needs_model_size(tmp_path):
     vocab = _vocab_file(tmp_path)
     assembler = ExampleAssembler(MmtRetrievalDataConfig(**_data_kwargs(vocab)),
@@ -363,6 +407,7 @@ def test_native_library_failure_is_remembered(tmp_path, monkeypatch):
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_unavailable", False)
     monkeypatch.setattr(native.subprocess, "run", failing_build)
+    monkeypatch.setattr(native.ctypes.util, "find_library", lambda name: f"lib{name}.so.62")
     assert not native.available() and not native.jpeg_available()
     assert native.decode_jpeg(b"\xff\xd8 not a jpeg") is None
     vocab = _vocab_file(tmp_path, TEXT_VOCAB)
@@ -376,3 +421,25 @@ def test_native_library_failure_is_remembered(tmp_path, monkeypatch):
     monkeypatch.setattr(native, "_SO_PATH", str(bad))
     monkeypatch.setattr(native, "_unavailable", False)
     assert not native.available() and native._unavailable and len(calls) == 1
+
+
+def test_native_build_skipped_without_libjpeg(tmp_path, monkeypatch):
+    """Where no libjpeg is found the port attempts no build (it could not
+    link) and reads the same records on the pure-Python path."""
+    from mmt_tpu_torch.data import native
+
+    rng = np.random.default_rng(5)
+    path = str(tmp_path / "r.tfrecord")
+    _write_records(tfrecord, path, 6, rng)
+    want = list(tfrecord.TFRecordReader(path))
+    calls = []
+    monkeypatch.setattr(native, "_SO_PATH", str(tmp_path / "libmmt_data.so"))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_unavailable", False)
+    monkeypatch.setattr(native.subprocess, "run", lambda *a, **k: calls.append(a))
+    monkeypatch.setattr(native.ctypes.util, "find_library", lambda name: None)
+    assert not native.available() and native._unavailable and not native.jpeg_available()
+    cursor = RecordCursor(path, 0, 1, seed=0, repeat=False)
+    assert not cursor._use_native
+    got = list(cursor)
+    assert calls == [] and len(want) == 6 and got == want

@@ -18,7 +18,9 @@ names ``pltpu.roll``'s ``stride_dimension``, which this JAX calls
 
 Beside that: a batched plain call equals the stacked single calls, the
 kernel's bf16 hi + lo split of the product (``small_matmul_split``) is
-within the TPU probe's atol of 1e-3 and one bf16 product is not, each
+within the TPU probe's atol of 1e-3 and one bf16 product is not, the
+product kernel's schedule emulated in plain PyTorch gives the split's
+product (1e-4: its fp32 sums round at every step), each
 library yardstick computes the plain version's function, and the kernel
 wrappers raise on CPU tensors without launching anything.
 """
@@ -161,6 +163,32 @@ def test_matmul_split_within_the_tpu_gate(script, monkeypatch):
     hi, lo = mp.split_bf16(x)
     assert torch.equal(hi, hi.bfloat16().float()) and torch.equal(lo, lo.bfloat16().float())
     assert (x - hi - lo).abs().max() <= x.abs().max() * 2.0**-16
+
+
+# The kernel's fp32 sum of 24 rounded steps against the split's one rounding:
+# a few fp32 spacings of sums of |x . w| ~ 40.
+SCHEDULE_VS_SPLIT = 1e-4
+
+
+@pytest.mark.parametrize("batch,grid", [(1, 1), (3, 3), (7, 3), (9, 4)])
+def test_matmul_schedule_emulation_equals_split(batch, grid):
+    """The product kernel's walk in plain PyTorch: each block's instances
+    (w, then x's four 64-row blocks) cover every instance and block once,
+    w's rows sit at the k where the wgmma A registers put x's columns, and
+    lo.hi + hi.lo per step, then hi.hi, gives the split's product."""
+    items = [(inst, part) for _, _, inst, part in mp.small_matmul_schedule(batch, grid)]
+    assert sorted(items) == [(i, p) for i in range(batch) for p in range(mp.MM_ITEMS)]
+    for block in range(grid):  # in order: w, then the blocks, per instance
+        walk = [(inst, part) for b, _, inst, part in mp.small_matmul_schedule(batch, grid)
+                if b == block]
+        assert walk == [(i, p) for i in range(block, batch, grid) for p in range(mp.MM_ITEMS)]
+    ks = torch.tensor([mp.small_matmul_k(p) for p in range(mp.MM_X[1])])
+    assert torch.equal(ks.sort().values, torch.arange(mp.MM_X[1]))
+    assert torch.equal(mp._a_columns()[ks], torch.arange(mp.MM_X[1]))
+    x, w = mp.PROBES["small_matmul"].seeded(np.random.default_rng(batch), batch)
+    got = mp.small_matmul_emulated(x, w, grid)
+    assert (got - mp.small_matmul_split(x, w)).abs().max() <= SCHEDULE_VS_SPLIT
+    assert (got - mp.small_matmul_plain(x, w)).abs().max() <= mp.MATMUL_ATOL
 
 
 def test_library_calls_compute_the_plain_function():

@@ -28,6 +28,7 @@ def test_incomplete_traces_are_taken_again(monkeypatch, traces, taken):
     steps = []
     monkeypatch.setattr(chip_smoke, "device_intervals", lambda prof: next(given))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(chip_smoke, "TRACE_MARGIN_S", 0.0)
     intervals, wall_ms, attempts = chip_smoke.profile_step(lambda: steps.append(1),
                                                            {FWD: 12, BWD: 12})
     assert attempts == taken == len(steps)
@@ -39,7 +40,26 @@ def test_a_trace_incomplete_every_time_is_refused(monkeypatch):
     steps = []
     monkeypatch.setattr(chip_smoke, "device_intervals", lambda prof: trace(11, 12))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(chip_smoke, "TRACE_MARGIN_S", 0.0)
     intervals, _, attempts = chip_smoke.profile_step(lambda: steps.append(1), {FWD: 12})
     assert attempts == len(steps) == chip_smoke.TRACE_ATTEMPTS
     with pytest.raises(AssertionError, match="11 calls of"):
         chip_smoke.kernel_calls_ms(intervals, FWD, 12)
+
+
+def test_phase_walls_add_up_to_the_last_phase_line(monkeypatch, capsys):
+    """Each phase line adds the seconds since the previous one to its
+    phase's wall (a phase emitted twice sums both), for the total line's
+    ``phase_seconds``."""
+    import json
+
+    clock = iter([12.5, 13.0, 20.0, 21.0])
+    monkeypatch.setattr(chip_smoke.time, "perf_counter", lambda: next(clock))
+    monkeypatch.setattr(chip_smoke, "_start", [10.0])
+    monkeypatch.setattr(chip_smoke, "_lines", [])
+    monkeypatch.setattr(chip_smoke, "_phase_seconds", {})
+    for obj in ({"phase": "a"}, {"note": 1}, {"phase": "b"}, {"phase": "a"}):
+        chip_smoke.emit(obj)
+    assert chip_smoke._phase_seconds == {"a": 2.5 + 1.0, "b": 7.5}
+    assert [json.loads(line)["elapsed_s"] for line in chip_smoke._lines] == [2.5, 3.0, 10.0, 11.0]
+    capsys.readouterr()
